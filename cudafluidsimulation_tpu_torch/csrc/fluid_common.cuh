@@ -1,0 +1,63 @@
+// Helpers shared by the stable-fluids kernels.
+//
+// Every kernel is a plain C entry point: it launches on the stream it is
+// given, allocates nothing, does not synchronise, and returns
+// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#define FLUID_API extern "C" __attribute__((visibility("default")))
+
+// Thread block of the 2-D kernels: 32 columns (one warp, coalesced rows)
+// by 8 rows.
+#define FLUID_BX 32
+#define FLUID_BY 8
+
+FLUID_API const char* fluid_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+__device__ __forceinline__ int fluid_clamp(int i, int n) {
+  return min(max(i, 0), n - 1);
+}
+
+// max that keeps a NaN, so a NaN field gives a NaN bound, as the plain
+// version's reduction does.
+__device__ __forceinline__ float fluid_nanmax(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+
+// Block-wide max of two values, then one atomicMax each into out[0..1].
+// The values are |x| >= 0 (or NaN with the sign bit clear), and for those
+// the order of the int bits is the order of the floats, so an int atomicMax
+// is a float max.  out[] must hold 0 before the first block arrives.
+__device__ __forceinline__ void fluid_block_max2_atomic(float a, float b,
+                                                        float* out) {
+  __shared__ float sa[FLUID_BX * FLUID_BY / 32];
+  __shared__ float sb[FLUID_BX * FLUID_BY / 32];
+  for (int off = 16; off > 0; off >>= 1) {
+    a = fluid_nanmax(a, __shfl_xor_sync(0xffffffffu, a, off));
+    b = fluid_nanmax(b, __shfl_xor_sync(0xffffffffu, b, off));
+  }
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nwarps = (blockDim.x * blockDim.y) / 32;
+  if ((tid & 31) == 0) {
+    sa[tid >> 5] = a;
+    sb[tid >> 5] = b;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 1; i < nwarps; ++i) {
+      a = fluid_nanmax(a, sa[i]);
+      b = fluid_nanmax(b, sb[i]);
+    }
+    atomicMax(reinterpret_cast<int*>(out), __float_as_int(a));
+    atomicMax(reinterpret_cast<int*>(out) + 1, __float_as_int(b));
+  }
+}
+
+static inline dim3 fluid_grid2d(int h, int w, int z = 1) {
+  return dim3((w + FLUID_BX - 1) / FLUID_BX, (h + FLUID_BY - 1) / FLUID_BY, z);
+}

@@ -1,0 +1,154 @@
+"""The per-step physics pipeline.
+
+The same stage order as the JAX package's ``models/pipelines.py``
+(cpuFluidSim.cpp:327-410 and GPUFluidSim.cu:604-715):
+
+    advect velocity -> advect dye -> vorticity confinement -> diffuse
+    -> [splat if pressed] -> divergence -> Jacobi pressure -> project
+    -> [cpu only: boundary strip] -> render (pack [+ gpu bloom])
+
+``make_step`` builds ``step(state, impulse) -> state`` over an ops
+namespace (``ops.backend.get_ops``).
+
+Host syncs: the step never reads a value back from the device.  The
+impulse stream and the scalar state (t, press_time, time_since_press,
+mouse, step) depend on the impulse stream alone, so they stay on the host
+and their float32 arithmetic runs there; the per-step scalars (dt, the
+cursor positions, the palette colour, the splat amplitudes) reach the
+kernels as launch arguments.  ``vel_stats`` stays on the device.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from cudafluidsimulation_tpu_torch.config import FluidConfig
+from cudafluidsimulation_tpu_torch.ops.backend import get_ops
+from cudafluidsimulation_tpu_torch.ops.ref import f32, f32_vec
+from cudafluidsimulation_tpu_torch.state import FluidState
+from cudafluidsimulation_tpu_torch.utils.impulse import Impulse
+
+StepFn = Callable[[FluidState, Impulse], FluidState]
+F = np.float32
+
+
+def _host_f32(x) -> torch.Tensor:
+    return torch.tensor(float(x), dtype=torch.float32)
+
+
+def make_step(config: FluidConfig, ops=None) -> StepFn:
+    if ops is None:
+        ops = get_ops(config)
+    palette = config.palette_array()
+    cpu_variant = config.variant == "cpu"
+    coeffs5 = np.asarray([config.velocity_diffusion] * 2
+                         + [config.color_diffusion] * 3, np.float32)
+
+    def step(state: FluidState, imp: Impulse) -> FluidState:
+        dt = f32(imp.dt)
+        u, v, dye = state.u, state.v, state.dye
+
+        # -- advection: velocity first; dye through the advected velocity
+        #    (cpuFluidSim.cpp:340-341 / GPUFluidSim.cu:620-622)
+        u, v, vstats = ops.advect_velocity(u, v, dt, config.decay_rate,
+                                           vel_stats=state.vel_stats,
+                                           return_stats=True)
+        dye = ops.advect_dye(dye, u, v, dt, config.decay_rate, vel_stats=vstats)
+
+        # -- vorticity confinement
+        if cpu_variant:
+            u, v = ops.vorticity_confinement_cpu(u, v, dt, config.vorticity)
+        else:
+            u, v = ops.vorticity_confinement_gpu(u, v, dt, config.vorticity)
+
+        # -- impulse parameters, on the host ("if pressed" as data: the
+        #    force scale and colour are zero when unpressed, which makes the
+        #    splat the identity)
+        pressed = bool(imp.pressed)
+        pressed_f = F(pressed)
+        press_time = f32(state.press_time) + dt * pressed_f
+        color = f32_vec(ops.cycle_color(palette, press_time))
+        cur = f32_vec(imp.pos)
+        # cpu-parity remembers its own previous position
+        # (cpuFluidSim.cpp:31-32,409); gpu-parity gets both from the caller
+        last = f32_vec(state.mouse) if cpu_variant else f32_vec(imp.last_pos)
+        force_eff = F(config.force_scale) * pressed_f
+        color_eff = color * pressed_f
+
+        # -- diffusion + splat: velocity and dye share one 5-channel pass
+        #    with the splat folded into its last sweep (amps keep
+        #    splat_gpu's association order)
+        if config.color_diffusion_enabled and not cpu_variant:
+            amps = np.concatenate([
+                np.asarray([(last[0] - cur[0]) * force_eff * dt,
+                            (last[1] - cur[1]) * force_eff * dt], np.float32),
+                color_eff,
+            ])
+            all5 = ops.diffuse_multi_splat(
+                torch.cat([torch.stack([u, v]), dye]), dt, coeffs5,
+                config.diffusion_iters, amps, last, config.splat_radius,
+            )
+            u, v, dye = all5[0], all5[1], all5[2:]
+        else:
+            if config.diffusion_iters > 0:
+                if config.color_diffusion_enabled:
+                    all5 = ops.diffuse_multi(
+                        torch.cat([torch.stack([u, v]), dye]), dt, coeffs5,
+                        config.diffusion_iters,
+                    )
+                    u, v, dye = all5[0], all5[1], all5[2:]
+                else:
+                    uv = ops.diffuse(torch.stack([u, v]), dt,
+                                     config.velocity_diffusion,
+                                     config.diffusion_iters)
+                    u, v = uv[0], uv[1]
+            splat = ops.splat_cpu if cpu_variant else ops.splat_gpu
+            u, v, dye = splat(u, v, dye, cur, last, dt, force_eff,
+                              config.splat_radius, color_eff)
+
+        # -- pressure projection (emits the next step's vel_stats)
+        u, v, p, vel_stats = ops.pressure_project(
+            u, v, config.pressure_iters, config.half_divergence,
+            return_stats=True,
+        )
+
+        # -- boundary strip (cpu path only; zeroing rows keeps vel_stats a
+        #    valid upper bound)
+        if config.boundary_rows > 0:
+            u, v, dye = ops.boundary_strip(u, v, dye, config.boundary_rows)
+
+        return FluidState(
+            u=u,
+            v=v,
+            dye=dye,
+            pressure=p,
+            t=_host_f32(f32(state.t) + dt),
+            press_time=_host_f32(press_time),
+            time_since_press=_host_f32(
+                F(0) if pressed else f32(state.time_since_press) + dt),
+            mouse=torch.from_numpy(cur.copy()) if pressed else state.mouse,
+            step=state.step + 1,
+            vel_stats=vel_stats,
+        )
+
+    return step
+
+
+def make_render(config: FluidConfig, ops=None) -> Callable[[FluidState], torch.Tensor]:
+    """Frame render on the state's device: dye -> (4, H, W) uint8 RGBA, with
+    the bloom (GPUFluidSim.cu:576-591) while the impulse was pressed less
+    than ``bloom_duration`` ago.  Bloom centres on ``state.mouse``."""
+    if ops is None:
+        ops = get_ops(config)
+
+    def render(state: FluidState) -> torch.Tensor:
+        if config.bloom_enabled:
+            active = f32(state.time_since_press) < F(config.bloom_duration)
+            return ops.render_frame(state.dye, state.mouse, config.bloom_intense,
+                                    config.splat_radius, active)
+        return ops.pack_rgba(state.dye)
+
+    return render

@@ -1,0 +1,59 @@
+"""Backend resolution: one op API, two implementations.
+
+``get_ops(config)`` returns a namespace with every op of the JAX package's
+``ops/backend.py`` except ``pressure_solve_mg`` (multigrid is not ported
+yet).  ``ref`` is the plain PyTorch oracle; ``cuda`` replaces the ops that
+the JAX package runs as Pallas kernels with the Hopper kernels' wrappers
+(``ops/cuda_kernels.py``) and keeps the ref ops for the rest.
+"""
+
+from __future__ import annotations
+
+import types
+
+from cudafluidsimulation_tpu_torch.config import FluidConfig, check_ported
+from cudafluidsimulation_tpu_torch.ops import ref as _ref
+
+_OP_NAMES = [
+    "bilerp",
+    "advect_velocity",
+    "advect_dye",
+    "curl",
+    "vorticity_confinement_cpu",
+    "vorticity_confinement_gpu",
+    "diffuse",
+    "diffuse_multi",
+    "diffuse_multi_splat",
+    "divergence",
+    "pressure_solve",
+    "pressure_project",
+    "project",
+    "splat_cpu",
+    "splat_gpu",
+    "cycle_color",
+    "boundary_strip",
+    "pack_rgba",
+    "apply_bloom",
+    "render_frame",
+]
+
+
+def _namespace(overrides=None) -> types.SimpleNamespace:
+    ns = types.SimpleNamespace()
+    for name in _OP_NAMES:
+        setattr(ns, name, getattr(_ref, name))
+    for name, fn in (overrides or {}).items():
+        setattr(ns, name, fn)
+    return ns
+
+
+def get_ops(config: FluidConfig) -> types.SimpleNamespace:
+    """The op namespace for ``config``.  Raises for config values the port
+    has not ported yet, and for ``backend='cuda'`` without a CUDA device."""
+    check_ported(config)
+    backend = config.resolve_backend()
+    if backend == "ref":
+        return _namespace()
+    from cudafluidsimulation_tpu_torch.ops import cuda_kernels
+
+    return _namespace(cuda_kernels.overrides(config))

@@ -1,0 +1,183 @@
+"""The PyTorch/CUDA port's skeleton against the JAX package: config fields,
+defaults and presets, the initial state, the impulse streams and the
+interop round trip.  Everything here is exact: the same values, no
+tolerance."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from cudafluidsimulation_tpu import FluidConfig as JConfig
+from cudafluidsimulation_tpu import Simulation as JSimulation
+from cudafluidsimulation_tpu.state import init_state as j_init_state
+from cudafluidsimulation_tpu.utils import impulse as jimp
+
+from cudafluidsimulation_tpu_torch import FluidConfig, Simulation, interop
+from cudafluidsimulation_tpu_torch.config import PALETTE
+from cudafluidsimulation_tpu_torch.ops.backend import get_ops
+from cudafluidsimulation_tpu_torch.state import FluidState, init_state
+from cudafluidsimulation_tpu_torch.utils import impulse as timp
+
+torch.set_num_threads(1)
+
+PRESETS = {
+    "default": ((), {}),
+    "cpu_reference": (("cpu_reference",), {}),
+    "gpu_reference": (("gpu_reference",), {}),
+    "quality": (("quality",), {}),
+    "gpu_2048_parity": (("gpu_reference",),
+                        dict(nx=2048, ny=2048, pressure_iters=40,
+                             max_displacement=31)),
+    "cpu_64": (("cpu_reference",), dict(nx=64, ny=48)),
+}
+
+
+def _make(cls, preset):
+    (ctor, kw) = PRESETS[preset]
+    return getattr(cls, ctor[0])(**kw) if ctor else cls(**kw)
+
+
+def test_field_names_and_defaults_match():
+    jf = dataclasses.fields(JConfig)
+    tf = dataclasses.fields(FluidConfig)
+    assert [f.name for f in tf] == [f.name for f in jf]
+    for a, b in zip(tf, jf):
+        assert a.type == b.type, a.name
+        assert a.default == b.default, a.name
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_presets_match_field_by_field(preset):
+    jc, tc = _make(JConfig, preset), _make(FluidConfig, preset)
+    for f in dataclasses.fields(JConfig):
+        assert getattr(tc, f.name) == getattr(jc, f.name), f.name
+    assert tc.shape == jc.shape
+    np.testing.assert_array_equal(tc.palette_array(), jc.palette_array())
+
+
+def test_palette_matches():
+    from cudafluidsimulation_tpu.config import PALETTE as JPALETTE
+
+    assert PALETTE == JPALETTE
+
+
+def test_backend_values():
+    for b in ("ref", "cuda", "auto"):
+        FluidConfig(backend=b)
+    with pytest.raises(ValueError):
+        FluidConfig(backend="pallas")
+    assert FluidConfig(backend="ref").resolve_backend() == "ref"
+    if not torch.cuda.is_available():
+        assert FluidConfig(backend="auto").resolve_backend() == "ref"
+
+
+@pytest.mark.parametrize("bad", [dict(variant="x"), dict(pressure_solver="sor"),
+                                 dict(diffusion_iters=-1), dict(mg_cycles=0),
+                                 dict(mg_tol=-1.0), dict(max_displacement=0)])
+def test_validation_matches(bad):
+    with pytest.raises(ValueError):
+        JConfig(**bad)
+    with pytest.raises(ValueError):
+        FluidConfig(**bad)
+
+
+@pytest.mark.parametrize("kw", [dict(pressure_solver="multigrid"),
+                                dict(fast_dye=True), dict(fast_velocity=True),
+                                dict(fast_diffuse=True)])
+def test_unported_paths_raise(kw):
+    cfg = FluidConfig.gpu_reference(nx=32, ny=32, backend="ref", **kw)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        get_ops(cfg)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        Simulation(cfg)
+
+
+def test_quality_preset_raises_not_yet_ported():
+    with pytest.raises(NotImplementedError, match="multigrid"):
+        Simulation(FluidConfig.quality(nx=32, ny=32, backend="ref"))
+
+
+@pytest.mark.parametrize("preset", ["cpu_64", "gpu_reference"])
+def test_init_state_shapes_and_dtypes(preset):
+    js = j_init_state(_make(JConfig, preset))
+    ts = init_state(_make(FluidConfig, preset))
+    assert ts._fields == js._fields
+    for name in FluidState._fields:
+        a, b = np.asarray(getattr(js, name)), getattr(ts, name).numpy()
+        assert b.shape == a.shape, name
+        assert b.dtype == a.dtype, name
+        np.testing.assert_array_equal(b, a, err_msg=name)
+
+
+def _impulses(mod):
+    dt = 1 / 60
+    return {
+        "none": mod.no_impulse(7, dt),
+        "constant": mod.constant_impulse(5, dt, (3.5, 4.25)),
+        "constant_drag": mod.constant_impulse(5, dt, (3.5, 4.25), (1.0, 2.0),
+                                              pressed=False),
+        "orbit": mod.orbit_impulse(50, dt, center=(64.0, 64.0), radius=20.0,
+                                   omega=3.0),
+        "orbit_2048": mod.orbit_impulse(200, dt, center=(1024.0, 1024.0),
+                                        radius=256.0, omega=3.0),
+        "orbit_sparse": mod.orbit_impulse(9, 0.02, center=(10.0, 5.0),
+                                          radius=3.0, pressed_every=3),
+    }
+
+
+@pytest.mark.parametrize("kind", sorted(_impulses(timp)))
+def test_impulse_streams_equal(kind):
+    j, t = _impulses(jimp)[kind], _impulses(timp)[kind]
+    for a, b in zip(j, t):
+        a = np.asarray(a)
+        b = b.numpy()
+        assert b.dtype == a.dtype
+        np.testing.assert_array_equal(b, a)
+    assert timp.num_steps(t) == jimp.num_steps(j)
+    for i in (0, timp.num_steps(t) - 1):
+        for a, b in zip(jimp.slice_step(j, i), timp.slice_step(t, i)):
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+def test_single_impulse_equal():
+    j = jimp.single((1.5, 2.5), (1.0, 2.0), True, 0.02)
+    t = timp.single((1.5, 2.5), (1.0, 2.0), True, 0.02)
+    for a, b in zip(j, t):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+@pytest.mark.parametrize("variant", ["cpu", "gpu"])
+def test_mouse_to_grid_equal(variant):
+    for mx, my in [(0.0, 0.0), (100.0, 300.0), (1919.0, 1079.0)]:
+        assert (timp.mouse_to_grid(mx, my, (1920, 1080), (960, 540), variant)
+                == jimp.mouse_to_grid(mx, my, (1920, 1080), (960, 540), variant))
+
+
+def test_config_from_jax_maps_pallas_to_cuda():
+    jc = JConfig.gpu_reference(nx=64, ny=32, backend="pallas", vorticity=3.0)
+    tc = interop.config_from_jax(jc)
+    assert tc.backend == "cuda"
+    kw = dataclasses.asdict(tc)
+    kw["backend"] = "pallas"
+    assert kw == dataclasses.asdict(jc)
+    assert interop.config_from_jax(JConfig(backend="ref")) == FluidConfig(backend="ref")
+
+
+def test_interop_round_trip_exact():
+    cfg = JConfig.gpu_reference(nx=32, ny=24, backend="ref",
+                                diffusion_iters=2, pressure_iters=3)
+    sim = JSimulation(cfg)
+    imp = jimp.orbit_impulse(3, cfg.dt, center=(16.0, 12.0), radius=4.0)
+    js = sim.run(sim.init(), imp)
+    arrays = {k: np.asarray(x) for k, x in js._asdict().items()}
+    ts = interop.state_from_numpy(arrays)
+    back = interop.state_to_numpy(ts)
+    for name in FluidState._fields:
+        assert getattr(ts, name).dtype == {"step": torch.int32}.get(name, torch.float32)
+        assert back[name].dtype == arrays[name].dtype, name
+        np.testing.assert_array_equal(back[name], arrays[name], err_msg=name)
+    # the port's state is a copy: changing it leaves the source alone
+    ts.u.add_(1.0)
+    np.testing.assert_array_equal(np.asarray(js.u), arrays["u"])
