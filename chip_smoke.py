@@ -7,21 +7,34 @@ Phases, in order; any failure exits non-zero and no phase's failure is
 caught:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the four kernels from ``cudafluidsimulation_tpu_torch/csrc`` with
-   ``nvcc`` (one compiler per source, all at once) and print the seconds;
-3. hold each kernel (H1 advect in both modes, H2 vorticity, H3 diffusion
-   with the splat, H4 pressure with its velocity bound) against its plain
-   PyTorch version on the same inputs at 2048x2048 and 540x960, then, at
-   540x960, the dye's NaN saturation, the cpu variant's flags (vorticity
-   sign and epsilon, full divergence, 2-channel diffusion) and 0, 1 and 2
-   iterations;
-4. the main path: the 2048² gpu-parity step (``bench.py``'s configuration)
-   on ``backend="cuda"`` — a driven 200-step orbit rollout, a quiet
-   rollout and one rendered frame, with every kernel's launch count read
-   around that run — then one driven step held against the same step on
-   ``backend="ref"`` on the card;
-5. timing with CUDA events after a warm-up: driven and quiet steps/s, and
-   each kernel's ms at the path's shapes beside its plain version's.
+2. build the five kernel sources from ``cudafluidsimulation_tpu_torch/csrc``
+   with ``nvcc`` (one compiler per source, all at once) and print the
+   seconds;
+3. hold each kernel against its plain PyTorch version on the same inputs:
+   H1 advect in both modes, H2 vorticity, H3 diffusion with the splat, H4
+   pressure with its velocity bound, H5 divergence and projection at
+   2048x2048 and 540x960; H6 (the multigrid smoother ends) also at 135x240
+   and 16x16, the coarse levels' shapes; then, at 540x960, the dye's NaN
+   saturation, the cpu variant's flags (vorticity sign and epsilon, full
+   divergence, 2-channel diffusion), 0, 1 and 2 iterations, and H4's
+   standalone ``pressure_solve`` at 0, 1, 2 and 40 sweeps;
+4. the gpu-parity path: the 2048² step (``bench.py``'s configuration) on
+   ``backend="cuda"`` — a driven 200-step orbit rollout, a quiet rollout
+   and one rendered frame, with every kernel's launch count read around
+   that run — then one driven step held against ``backend="ref"`` on the
+   card;
+5. the quality path: ``FluidConfig.quality`` at 2048² (multigrid pressure,
+   V-cycles until rms(A p + div) < 0.05) on ``backend="cuda"``, the same
+   rollouts and frame, launch counts read around them (H5 and H6 launched,
+   H4's ``pressure_project`` not), the V-cycles each step took, one driven
+   step against ``backend="ref"``, and the tolerance met by one projection
+   of the driven state;
+6. the fixed-cycle multigrid path (``mg_cycles=2``, ``mg_tol=0``) at 2048²
+   for a few steps: its last cycle ends in ``last_smooth_project``; one
+   step against ``backend="ref"``;
+7. timing with CUDA events after a warm-up: driven and quiet steps/s of
+   both 2048² paths, the ref backend's ms/step on the card, and each
+   kernel's ms at its path's shapes beside its plain version's.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -41,17 +54,24 @@ import torch
 SEED = 0
 N = 2048
 STEPS = 200
+FIXED_STEPS = 8
+BATCH = 10  # kernel calls in each timed window of the per-kernel rows
 CHECK_SHAPES = ((2048, 2048), (540, 960))
+MG_SHAPES = CHECK_SHAPES + ((135, 240), (16, 16))
 # max |kernel - plain| <= RTOL * max(max|plain|, 1) for each kernel.
 # The kernels are built without FMA contraction and use the same CUDA math
 # library as PyTorch's own kernels, so they round as the plain versions do;
 # what remains is the plain version's division by a host scalar, which
 # PyTorch computes as a multiply by the reciprocal (one ulp inside the
 # splat's expf), and the sums of 20 or 40 sweeps carrying that ulp along.
-RTOL = {"H1": 1e-6, "H2": 1e-6, "H3": 1e-5, "H4": 1e-5}
+# H5 and H6 are additions and multiplications by constants, one PyTorch op
+# per operation, so they should be bit-identical.
+RTOL = {"H1": 1e-6, "H2": 1e-6, "H3": 1e-5, "H4": 1e-5, "H4 solve": 1e-5,
+        "H5": 1e-6, "H6": 1e-6}
 # one whole driven step, cuda against ref on the card:
 # max |cuda - ref| <= STEP_RTOL * max|ref| for each field
 STEP_RTOL = 1e-5
+STATE_FIELDS = ("u", "v", "dye", "pressure", "vel_stats")
 
 
 def _json(obj) -> None:
@@ -87,6 +107,34 @@ def _check_bound(name, stats, u, v):
         raise AssertionError(f"{name} vel_stats {stats.tolist()} below {true.tolist()}")
 
 
+def _check_state(what, *states):
+    for s in states:
+        for name in ("u", "v", "dye", "pressure"):
+            if not bool(torch.isfinite(getattr(s, name)).all()):
+                raise AssertionError(f"{what}: {name} is not finite after the rollout")
+    dmin, dmax = states[0].dye.min().item(), states[0].dye.max().item()
+    if not (0.0 <= dmin and dmax <= 2.0):
+        raise AssertionError(f"{what}: dye outside [0, 2]: [{dmin}, {dmax}]")
+    return dmin, dmax
+
+
+def _check_frame(what, frame):
+    if frame.shape != (N, N, 4) or frame.dtype.name != "uint8" or frame[..., :3].max() == 0:
+        raise AssertionError(f"{what}: bad frame {frame.shape} {frame.dtype} max {frame.max()}")
+
+
+def _step_vs_ref(what, sim, ref_sim, state, imp):
+    """One step on kernels against the same step on plain ops, on the card."""
+    got, exp = sim.step(state, imp), ref_sim.step(state, imp)
+    step_err = {}
+    for name in STATE_FIELDS:
+        step_err[name] = _max_err(getattr(got, name), getattr(exp, name))[1]
+        if not step_err[name] <= STEP_RTOL:
+            raise AssertionError(f"{what}: one driven step, cuda vs ref: {name} "
+                                 f"rel err {step_err[name]}")
+    return step_err, bool(torch.equal(sim.render_fn(got), ref_sim.render_fn(exp)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -94,20 +142,36 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from cudafluidsimulation_tpu_torch import FluidConfig, Simulation
-    from cudafluidsimulation_tpu_torch.ops import _build, advect_cuda, jacobi_cuda, ref
+    from cudafluidsimulation_tpu_torch.ops import (
+        _build, advect_cuda, jacobi_cuda, multigrid, multigrid_cuda, ref)
     from cudafluidsimulation_tpu_torch.utils.impulse import (
-        no_impulse, orbit_impulse, slice_step)
+        Impulse, no_impulse, orbit_impulse, slice_step)
     from cudafluidsimulation_tpu_torch.utils.timing import cuda_times_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    jp = "jacobi_pallas.py"
+    # name: (launch counter, source, the TPU kernel it replaces)
     kernels = {
         "H1": (advect_cuda.KERNEL, "advect.cu", "advect_pallas.py:413"),
-        "H2": (jacobi_cuda.VORTICITY, "vorticity.cu", "jacobi_pallas.py:1411"),
-        "H3": (jacobi_cuda.DIFFUSE, "diffuse.cu", "jacobi_pallas.py:492"),
-        "H4": (jacobi_cuda.PRESSURE, "pressure.cu", "jacobi_pallas.py:1120"),
+        "H2": (jacobi_cuda.VORTICITY, "vorticity.cu", f"{jp}:1411"),
+        "H3": (jacobi_cuda.DIFFUSE, "diffuse.cu", f"{jp}:492"),
+        "H4": (jacobi_cuda.PRESSURE, "pressure.cu", f"{jp}:1120"),
+        "H4 solve": (jacobi_cuda.PRESSURE_SOLVE, "pressure.cu", f"{jp}:681"),
+        "H5": (jacobi_cuda.STENCIL, "pressure.cu", f"{jp}:1619"),
+        "H6 smooth_damped": (multigrid_cuda.SMOOTH, "multigrid.cu", f"{jp}:778"),
+        "H6 smooth_res": (multigrid_cuda.SMOOTH_RES, "multigrid.cu", f"{jp}:1000"),
+        "H6 first_smooth_res": (multigrid_cuda.FIRST, "multigrid.cu", f"{jp}:1041"),
+        "H6 last_smooth_project": (multigrid_cuda.LAST, "multigrid.cu", f"{jp}:1069"),
     }
+
+    def reset_counts():
+        for kern, _, _ in kernels.values():
+            kern.reset()
+
+    def read_counts():
+        return {k: kern.launches for k, (kern, _, _) in kernels.items()}
 
     # -- 1. the card ---------------------------------------------------------
     smi = subprocess.run(
@@ -135,7 +199,7 @@ def main() -> int:
         return torch.randn(shape, generator=gen, device=dev) * scale
 
     dt, decay_rate = 1.0 / 60.0, 1.2
-    worst = {k: 0.0 for k in kernels}
+    worst = {k: 0.0 for k in RTOL}
     coeffs, amps = [0.8] * 5, [-3.5, 2.25, 1.0, 0.5, 0.3]
     for h, w in CHECK_SHAPES:
         tag = f"{h}x{w}"
@@ -163,9 +227,47 @@ def main() -> int:
         exp = ref.pressure_project(u, v, 40, True, return_stats=True)
         _check(worst, "H4", f"half {tag}", zip(("u", "v", "p"), got[:3], exp[:3]))
         _check_bound("H4", got[3], got[0], got[1])
+        div = ref.divergence(u, v, True)
+        _check(worst, "H4 solve", f"40 sweeps {tag}", [(
+            "p", jacobi_cuda.pressure_solve(div, 40), ref.pressure_solve(div, 40))])
+        for half in (True, False):
+            _check(worst, "H5", f"divergence half={half} {tag}", [(
+                "div", jacobi_cuda.divergence(u, v, half), ref.divergence(u, v, half))])
+        p = ref.pressure_solve(div, 40)
+        got = jacobi_cuda.project(u, v, p, return_stats=True)
+        exp = ref.project(u, v, p, return_stats=True)
+        _check(worst, "H5", f"project {tag}", zip("uv", got[:2], exp[:2]))
+        _check_bound("H5", got[2], got[0], got[1])
+
+    # H6 at every level shape class: the 2048² fine level, the reference
+    # grid, its odd-height coarse level and the 16x16 bottom
+    for h, w in MG_SHAPES:
+        tag = f"{h}x{w}"
+        p, rhs = randn(h, w, scale=50.0), randn(h, w)
+        u, v = randn(h, w, scale=200.0), randn(h, w, scale=200.0)
+        for sweeps in (1, 2, 20):
+            _check(worst, "H6", f"smooth_damped sweeps={sweeps} {tag}", [(
+                "p", multigrid_cuda.smooth_damped(p, rhs, sweeps),
+                multigrid.smooth_damped(p, rhs, sweeps))])
+        for from_zero in (False, True):
+            _check(worst, "H6", f"smooth_res from_zero={from_zero} {tag}", zip(
+                ("p", "res"),
+                multigrid_cuda.smooth_res(p, rhs, 2, from_zero=from_zero),
+                multigrid.smooth_res(p, rhs, 2, from_zero=from_zero)))
+        _check(worst, "H6", f"first_smooth_res {tag}", zip(
+            ("p", "rhs", "res"), multigrid_cuda.first_smooth_res(u, v, 2, True),
+            multigrid.first_smooth_res(u, v, 2, True)))
+        got = multigrid_cuda.last_smooth_project(p, rhs, u, v, 2, return_stats=True)
+        exp = multigrid.last_smooth_project(p, rhs, u, v, 2, return_stats=True)
+        _check(worst, "H6", f"last_smooth_project {tag}", zip(("u", "v", "p"), got[:3], exp[:3]))
+        _check_bound("H6", got[3], got[0], got[1])
 
     # the variants' flags and the edge cases, at the reference GPU grid
-    h, w = CHECK_SHAPES[-1]
+    h, w = CHECK_SHAPES[1]
+    u, v = randn(h, w, scale=200.0), randn(h, w, scale=200.0)
+    dye = torch.rand((3, h, w), generator=gen, device=dev)
+    fields = torch.cat([torch.stack([u, v]), dye])
+    last = (w * 0.4, h * 0.6)
     # dye NaN saturation: zeros left of ones and a backtrace past x = 0
     # extrapolate below zero; pow gives NaN and fminf(1, NaN) is 1
     sat = torch.rand((3, h, w), generator=gen, device=dev)
@@ -190,67 +292,151 @@ def main() -> int:
         exp = ref.pressure_project(u, v, iters, False, return_stats=True)
         _check(worst, "H4", f"full iters={iters}", zip(("u", "v", "p"), got[:3], exp[:3]))
         _check_bound("H4", got[3], got[0], got[1])
-    del u, v, dye, fields, sat, push, got, exp
+    div = ref.divergence(u, v, False)
+    for iters in (0, 1, 2):
+        _check(worst, "H4 solve", f"iters={iters}", [(
+            "p", jacobi_cuda.pressure_solve(div, iters), ref.pressure_solve(div, iters))])
+    del u, v, dye, fields, sat, push, got, exp, p, rhs, div
     torch.cuda.synchronize()
 
-    # -- 4. the main path ----------------------------------------------------
+    driven = orbit_impulse(STEPS, 1.0 / 60.0, center=(N / 2, N / 2), radius=N / 8, omega=3.0)
+    quiet = no_impulse(STEPS, 1.0 / 60.0)
+    short = Impulse(*(f[:20] for f in driven))
+
+    def drive(what, sim):
+        """The driven rollout, the quiet rollout and one frame, with the
+        launch counts read around them (and after the driven rollout)."""
+        reset_counts()
+        state, disp = sim.run_displacement(sim.init(), driven)
+        torch.cuda.synchronize()
+        after_driven = read_counts()
+        quiet_state = sim.run(sim.init(), quiet)
+        frame = sim.render(state)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        dmin, dmax = _check_state(what, state, quiet_state)
+        _check_frame(what, frame)
+        return state, quiet_state, launches, after_driven, max(disp), (dmin, dmax)
+
+    # -- 4. the gpu-parity path ------------------------------------------------
     cfg = FluidConfig.gpu_reference(nx=N, ny=N, pressure_iters=40,
                                     max_displacement=31, backend="cuda")
     sim = Simulation(cfg)
-    driven = orbit_impulse(STEPS, cfg.dt, center=(N / 2, N / 2), radius=N / 8, omega=3.0)
-    quiet = no_impulse(STEPS, cfg.dt)
-    for kern, _, _ in kernels.values():
-        kern.reset()
-    state, (disp_x, disp_y) = sim.run_displacement(sim.init(), driven)
-    quiet_state = sim.run(sim.init(), quiet)
-    frame = sim.render(state)
-    torch.cuda.synchronize()
-    launches = {k: kern.launches for k, (kern, _, _) in kernels.items()}
-    _json({"phase": "main_path", "launches": launches,
-           "realized_max_displacement": max(disp_x, disp_y)})
-    for k, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{k} was not launched on the main path")
-    for name in ("u", "v", "dye", "pressure"):
-        for s in (state, quiet_state):
-            if not bool(torch.isfinite(getattr(s, name)).all()):
-                raise AssertionError(f"{name} is not finite after the rollout")
-    dmin, dmax = state.dye.min().item(), state.dye.max().item()
-    if not (0.0 <= dmin and dmax <= 2.0):
-        raise AssertionError(f"dye outside [0, 2]: [{dmin}, {dmax}]")
-    if frame.shape != (N, N, 4) or frame.dtype.name != "uint8" or frame[..., :3].max() == 0:
-        raise AssertionError(f"bad frame {frame.shape} {frame.dtype} max {frame.max()}")
+    state, quiet_state, parity_launches, _, disp, dye_range = drive("parity", sim)
+    _json({"phase": "parity_path", "launches": parity_launches,
+           "realized_max_displacement": disp})
+    for k in ("H1", "H2", "H3", "H4"):
+        if parity_launches[k] == 0:
+            raise AssertionError(f"{k} was not launched on the parity path")
     ref_sim = Simulation(FluidConfig.gpu_reference(
         nx=N, ny=N, pressure_iters=40, max_displacement=31, backend="ref"), device=dev)
-    imp = slice_step(driven, STEPS - 1)
-    got, exp = sim.step(state, imp), ref_sim.step(state, imp)
-    step_err = {}
-    for name in ("u", "v", "dye", "pressure", "vel_stats"):
-        err, rel = _max_err(getattr(got, name), getattr(exp, name))
-        step_err[name] = rel
-        if not rel <= STEP_RTOL:
-            raise AssertionError(f"one driven step, cuda vs ref: {name} rel err {rel}")
-    frames_equal = bool(torch.equal(sim.render_fn(got), ref_sim.render_fn(exp)))
-    _json({"phase": "step_vs_ref", "max_rel_err": step_err, "tol": STEP_RTOL,
-           "frames_equal": frames_equal,
-           "dye_range": [dmin, dmax], "quiet_u_max": quiet_state.u.abs().max().item()})
+    step_err, frames_equal = _step_vs_ref("parity", sim, ref_sim, state,
+                                          slice_step(driven, STEPS - 1))
+    _json({"phase": "parity_step_vs_ref", "max_rel_err": step_err, "tol": STEP_RTOL,
+           "frames_equal": frames_equal, "dye_range": dye_range,
+           "quiet_u_max": quiet_state.u.abs().max().item()})
 
-    # -- 5. timing -----------------------------------------------------------
-    driven_ms = statistics.median(cuda_times_ms(lambda: sim.run(sim.init(), driven), iters=3))
-    quiet_ms = statistics.median(cuda_times_ms(lambda: sim.run(sim.init(), quiet), iters=3))
-    short = orbit_impulse(20, cfg.dt, center=(N / 2, N / 2), radius=N / 8, omega=3.0)
-    ref_ms = statistics.median(cuda_times_ms(lambda: ref_sim.run(ref_sim.init(), short), iters=3))
-    _json({"metric": "steps_per_sec", "grid": f"{N}x{N}", "steps": STEPS,
-           "driven": STEPS / (driven_ms / 1000.0), "quiet": STEPS / (quiet_ms / 1000.0),
-           "driven_ms_per_step": driven_ms / STEPS, "quiet_ms_per_step": quiet_ms / STEPS,
-           "ref_backend_driven_ms_per_step": ref_ms / 20, "smi": smi[0]})
+    # -- 5. the quality path (multigrid, residual-targeted) --------------------
+    qcfg = FluidConfig.quality(nx=N, ny=N, backend="cuda")
+    qsim = Simulation(qcfg)
+    qstate, qquiet, quality_launches, qdriven, qdisp, qdye = drive("quality", qsim)
+    levels = multigrid._levels(N, N)
+    # per completed V-cycle: a smooth_res at each of the levels - 1 levels
+    # above the bottom (the fine probe and the zero-start coarse levels) and
+    # a smooth_damped post-smooth at each, plus the bottom's
+    def cycles(counts, steps):
+        by_res = counts["H6 smooth_res"] / ((levels - 1) * steps)
+        by_smooth = counts["H6 smooth_damped"] / (levels * steps)
+        if by_res != by_smooth:
+            raise AssertionError(f"cycle counts disagree: {by_res} != {by_smooth}")
+        return by_res
+    driven_cycles = cycles(qdriven, STEPS)
+    quiet_cycles = cycles({k: quality_launches[k] - qdriven[k] for k in qdriven}, STEPS)
+    _json({"phase": "quality_path", "launches": quality_launches, "levels": levels,
+           "realized_max_displacement": qdisp,
+           "vcycles_per_step": {"driven": driven_cycles, "quiet": quiet_cycles},
+           "host_reads_per_step": {"driven": driven_cycles + 1, "quiet": quiet_cycles + 1}})
+    for k in ("H1", "H2", "H3", "H5", "H6 smooth_damped", "H6 smooth_res",
+              "H6 first_smooth_res"):
+        if quality_launches[k] == 0:
+            raise AssertionError(f"{k} was not launched on the quality path")
+    if quality_launches["H4"] != 0:
+        raise AssertionError("H4 pressure_project ran on the multigrid path")
+    qref = Simulation(FluidConfig.quality(nx=N, ny=N, backend="ref"), device=dev)
+    step_err, frames_equal = _step_vs_ref("quality", qsim, qref, qstate,
+                                          slice_step(driven, STEPS - 1))
+    # the tolerance contract, on the velocity one driven step projects
+    seen = {}
+    project_mg = qsim.ops.pressure_project_mg
 
-    # per kernel, at the main path's shapes, on the driven state's fields
+    def record(u, v, *args, **kw):
+        seen["uv"] = (u, v)
+        return project_mg(u, v, *args, **kw)
+
+    qsim.ops.pressure_project_mg = record
+    qsim.step(qstate, slice_step(driven, STEPS - 1))
+    qsim.ops.pressure_project_mg = project_mg
+    u, v = seen["uv"]
+    before = multigrid_cuda.SMOOTH_RES.launches
+    p = project_mg(u, v, qcfg.mg_cycles, tol=qcfg.mg_tol, max_cycles=qcfg.mg_max_cycles,
+                   half=True)[2]
+    taken = (multigrid_cuda.SMOOTH_RES.launches - before) / (levels - 1)
+    residual = multigrid.residual_norm(p, ref.divergence(u, v, True)).item()
+    if taken < qcfg.mg_max_cycles and not residual < qcfg.mg_tol:
+        raise AssertionError(f"mg_tol contract: rms residual {residual} >= {qcfg.mg_tol}")
+    _json({"phase": "quality_step_vs_ref", "max_rel_err": step_err, "tol": STEP_RTOL,
+           "frames_equal": frames_equal, "dye_range": qdye,
+           "rms_residual": residual, "mg_tol": qcfg.mg_tol, "vcycles": taken,
+           "capped": taken >= qcfg.mg_max_cycles})
+    del seen, u, v, p
+
+    # -- 6. fixed-cycle multigrid (its last cycle ends in last_smooth_project)
+    fcfg = FluidConfig.gpu_reference(nx=N, ny=N, pressure_solver="multigrid",
+                                     mg_cycles=2, backend="cuda")
+    fsim = Simulation(fcfg)
+    fixed_imp = Impulse(*(f[STEPS - FIXED_STEPS:] for f in driven))
+    reset_counts()
+    fstate = fsim.run(qstate, fixed_imp)
+    torch.cuda.synchronize()
+    fixed_launches = read_counts()
+    _check_state("fixed-cycle", fstate)
+    for k in ("H6 first_smooth_res", "H6 smooth_res", "H6 smooth_damped",
+              "H6 last_smooth_project"):
+        if fixed_launches[k] == 0:
+            raise AssertionError(f"{k} was not launched on the fixed-cycle path")
+    if fixed_launches["H4"] != 0 or fixed_launches["H5"] != 0:
+        raise AssertionError("H4/H5 ran on the fixed-cycle multigrid path")
+    fref = Simulation(FluidConfig.gpu_reference(
+        nx=N, ny=N, pressure_solver="multigrid", mg_cycles=2, backend="ref"), device=dev)
+    step_err, frames_equal = _step_vs_ref("fixed-cycle", fsim, fref, fstate,
+                                          slice_step(driven, STEPS - 1))
+    _json({"phase": "fixed_cycle_path", "steps": FIXED_STEPS, "launches": fixed_launches,
+           "step_vs_ref_max_rel_err": step_err, "frames_equal": frames_equal})
+
+    # -- 7. timing -------------------------------------------------------------
+    def rates(what, sim_, ref_sim_):
+        driven_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), driven), iters=3))
+        quiet_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), quiet), iters=3))
+        ref_ms = statistics.median(cuda_times_ms(lambda: ref_sim_.run(ref_sim_.init(), short), iters=3))
+        _json({"metric": "steps_per_sec", "path": what, "grid": f"{N}x{N}", "steps": STEPS,
+               "driven": STEPS / (driven_ms / 1000.0), "quiet": STEPS / (quiet_ms / 1000.0),
+               "driven_ms_per_step": driven_ms / STEPS, "quiet_ms_per_step": quiet_ms / STEPS,
+               "ref_backend_driven_ms_per_step": ref_ms / 20, "smi": smi[0]})
+
+    rates("parity", sim, ref_sim)
+    rates("quality", qsim, qref)
+    fixed_ms = statistics.median(cuda_times_ms(lambda: fsim.run(qstate, fixed_imp), iters=3))
+    _json({"metric": "ms_per_step", "path": "fixed-cycle multigrid", "grid": f"{N}x{N}",
+           "steps": FIXED_STEPS, "driven_ms_per_step": fixed_ms / FIXED_STEPS, "smi": smi[0]})
+
+    # per kernel, at its path's shapes, on the driven states' fields
     u, v, dye = state.u, state.v, state.dye
     u2, v2 = advect_cuda.advect_velocity(u, v, dt, decay_rate)
     all5 = torch.cat([torch.stack([u, v]), dye]).contiguous()
-    amps = [-3.5, 2.25, 1.0, 0.5, 0.3]
     last = (N / 2 + N / 8, N / 2)
+    qu, qv = qstate.u, qstate.v
+    div = ref.divergence(qu, qv, True)
+    rhs, p = -div, qstate.pressure
     cases = {
         "H1": (lambda: (advect_cuda.advect_velocity(u, v, dt, decay_rate, return_stats=True),
                         advect_cuda.advect_dye(dye, u2, v2, dt, decay_rate)),
@@ -262,20 +448,54 @@ def main() -> int:
                lambda: ref.diffuse_multi_splat(all5, dt, [0.8] * 5, 20, amps, last, 400.0)),
         "H4": (lambda: jacobi_cuda.pressure_project(u, v, 40, True, return_stats=True),
                lambda: ref.pressure_project(u, v, 40, True, return_stats=True)),
+        "H4 solve": (lambda: jacobi_cuda.pressure_solve(div, 40),
+                     lambda: ref.pressure_solve(div, 40)),
+        "H5": (lambda: (jacobi_cuda.divergence(qu, qv, True),
+                        jacobi_cuda.project(qu, qv, p, return_stats=True)),
+               lambda: (ref.divergence(qu, qv, True),
+                        ref.project(qu, qv, p, return_stats=True))),
+        "H6 smooth_damped": (lambda: multigrid_cuda.smooth_damped(p, rhs, 2),
+                             lambda: multigrid.smooth_damped(p, rhs, 2)),
+        "H6 smooth_res": (lambda: (multigrid_cuda.smooth_res(p, rhs, 2),
+                                   multigrid_cuda.smooth_res(rhs, rhs, 2, from_zero=True)),
+                          lambda: (multigrid.smooth_res(p, rhs, 2),
+                                   multigrid.smooth_res(rhs, rhs, 2, from_zero=True))),
+        "H6 first_smooth_res": (lambda: multigrid_cuda.first_smooth_res(qu, qv, 2, True),
+                                lambda: multigrid.first_smooth_res(qu, qv, 2, True)),
+        "H6 last_smooth_project": (
+            lambda: multigrid_cuda.last_smooth_project(p, rhs, qu, qv, 2, return_stats=True),
+            lambda: multigrid.last_smooth_project(p, rhs, qu, qv, 2, return_stats=True)),
     }
+    # each row's launches come from the path that runs it
+    paths = {"H1": "parity", "H2": "parity", "H3": "parity", "H4": "parity",
+             "H4 solve": None, "H5": "quality", "H6 smooth_damped": "quality",
+             "H6 smooth_res": "quality", "H6 first_smooth_res": "quality",
+             "H6 last_smooth_project": "fixed-cycle"}
+    path_launches = {"parity": parity_launches, "quality": quality_launches,
+                     "fixed-cycle": fixed_launches}
+    def per_call(fn, iters, warmup):
+        # BATCH calls back to back in each timed window, as a step issues
+        # them: a small kernel's row is then its device time wherever the
+        # wrapper's host cost is below it
+        times = cuda_times_ms(lambda: [fn() for _ in range(BATCH)], iters=iters,
+                              warmup=warmup)
+        return [t / BATCH for t in times]
+
     rows = []
     for k, (kern_fn, plain_fn) in cases.items():
         # plain, kernel, kernel, plain: drift affects both alike
-        p1 = cuda_times_ms(plain_fn, iters=5, warmup=1)
-        k1 = cuda_times_ms(kern_fn, iters=10, warmup=2)
-        k2 = cuda_times_ms(kern_fn, iters=10, warmup=0)
-        p2 = cuda_times_ms(plain_fn, iters=5, warmup=0)
-        kern, src, replaces = kernels[k]
+        p1 = per_call(plain_fn, iters=3, warmup=1)
+        k1 = per_call(kern_fn, iters=5, warmup=1)
+        k2 = per_call(kern_fn, iters=5, warmup=0)
+        p2 = per_call(plain_fn, iters=3, warmup=0)
+        _, src, replaces = kernels[k]
+        path = paths[k]
         rows.append({
             "name": f"{k} {src[:-3]}", "route": "cuda",
             "source": f"cudafluidsimulation_tpu_torch/csrc/{src}",
             "replaces": f"cudafluidsimulation_tpu/ops/{replaces}",
-            "launches": launches[k], "max_abs_err": worst[k],
+            "launches": path_launches[path][k] if path else 0, "path": path,
+            "max_abs_err": worst[k.split()[0] if k.startswith("H6") else k],
             "ms": statistics.median(k1 + k2), "plain_ms": statistics.median(p1 + p2),
         })
     print(smi[0], flush=True)

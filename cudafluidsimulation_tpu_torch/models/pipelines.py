@@ -4,18 +4,21 @@ The same stage order as the JAX package's ``models/pipelines.py``
 (cpuFluidSim.cpp:327-410 and GPUFluidSim.cu:604-715):
 
     advect velocity -> advect dye -> vorticity confinement -> diffuse
-    -> [splat if pressed] -> divergence -> Jacobi pressure -> project
-    -> [cpu only: boundary strip] -> render (pack [+ gpu bloom])
+    -> [splat if pressed] -> divergence -> Jacobi or multigrid pressure
+    -> project -> [cpu only: boundary strip] -> render (pack [+ gpu bloom])
 
 ``make_step`` builds ``step(state, impulse) -> state`` over an ops
 namespace (``ops.backend.get_ops``).
 
-Host syncs: the step never reads a value back from the device.  The
-impulse stream and the scalar state (t, press_time, time_since_press,
-mouse, step) depend on the impulse stream alone, so they stay on the host
-and their float32 arithmetic runs there; the per-step scalars (dt, the
-cursor positions, the palette colour, the splat amplitudes) reach the
-kernels as launch arguments.  ``vel_stats`` stays on the device.
+Host syncs: the impulse stream and the scalar state (t, press_time,
+time_since_press, mouse, step) depend on the impulse stream alone, so they
+stay on the host and their float32 arithmetic runs there; the per-step
+scalars (dt, the cursor positions, the palette colour, the splat
+amplitudes) reach the kernels as launch arguments.  ``vel_stats`` stays on
+the device.  So the step reads nothing back from the device, with one
+exception: multigrid with residual-targeted stopping (``mg_tol > 0``, the
+``quality`` preset) reads the residual's mean once per stopping test, k + 1
+reads for a step that completes k V-cycles (``ops.multigrid.probed_tol_loop``).
 """
 
 from __future__ import annotations
@@ -110,10 +113,26 @@ def make_step(config: FluidConfig, ops=None) -> StepFn:
                               config.splat_radius, color_eff)
 
         # -- pressure projection (emits the next step's vel_stats)
-        u, v, p, vel_stats = ops.pressure_project(
-            u, v, config.pressure_iters, config.half_divergence,
-            return_stats=True,
-        )
+        if config.pressure_solver == "multigrid":
+            ppmg = getattr(ops, "pressure_project_mg", None)
+            if ppmg is not None:
+                # divergence, residuals and projection folded into the
+                # smoother ends (ops/multigrid.py)
+                u, v, p, vel_stats = ppmg(
+                    u, v, config.mg_cycles, tol=config.mg_tol,
+                    max_cycles=config.mg_max_cycles,
+                    half=config.half_divergence, return_stats=True)
+            else:
+                div = ops.divergence(u, v, config.half_divergence)
+                p = ops.pressure_solve_mg(div, config.mg_cycles,
+                                          tol=config.mg_tol,
+                                          max_cycles=config.mg_max_cycles)
+                u, v, vel_stats = ops.project(u, v, p, return_stats=True)
+        else:
+            u, v, p, vel_stats = ops.pressure_project(
+                u, v, config.pressure_iters, config.half_divergence,
+                return_stats=True,
+            )
 
         # -- boundary strip (cpu path only; zeroing rows keeps vel_stats a
         #    valid upper bound)

@@ -1,10 +1,11 @@
 """Backend resolution: one op API, two implementations.
 
 ``get_ops(config)`` returns a namespace with every op of the JAX package's
-``ops/backend.py`` except ``pressure_solve_mg`` (multigrid is not ported
-yet).  ``ref`` is the plain PyTorch oracle; ``cuda`` replaces the ops that
-the JAX package runs as Pallas kernels with the Hopper kernels' wrappers
-(``ops/cuda_kernels.py``) and keeps the ref ops for the rest.
+``ops/backend.py``, multigrid's ``pressure_solve_mg`` included.  ``ref`` is
+the plain PyTorch oracle; ``cuda`` replaces the ops that the JAX package
+runs as Pallas kernels with the Hopper kernels' wrappers
+(``ops/cuda_kernels.py``), adds the optional ``pressure_project_mg`` hook
+that the pipeline looks for, and keeps the ref ops for the rest.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ _OP_NAMES = [
     "diffuse_multi_splat",
     "divergence",
     "pressure_solve",
+    "pressure_solve_mg",
     "pressure_project",
     "project",
     "splat_cpu",

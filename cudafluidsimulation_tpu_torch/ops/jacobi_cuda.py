@@ -1,4 +1,4 @@
-"""H2–H4: the stencil kernels on the card.
+"""H2–H5: the stencil kernels on the card.
 
 Each wrapper takes the plain version (``ops.ref``) for CPU tensors and
 launches its kernel or raises for CUDA tensors.  Byte counts below are for
@@ -29,6 +29,17 @@ Bound by bytes: each sweep reads p and div and writes p (48 MiB, 40
 sweeps).  The divergence kernel also writes the first sweep's p (from
 p = 0 it is -div/4), ``iters - 1`` sweep launches follow, and the
 projection kernel subtracts the gradient and emits [max|u'|, max|v'|].
+Its standalone entry ``pressure_solve`` (``PRESSURE_SOLVE``, its own launch
+count) replaces ``jacobi_pallas.pressure_solve`` → ``_pressure_kernel``:
+the first sweep from zero, then the same sweep launches over ``div``.
+
+**H5 divergence and projection** (``csrc/pressure.cu``, ``STENCIL``)
+replaces ``divergence`` → ``_divergence_kernel`` and ``project`` →
+``_project_kernel``: one launch each.  Bound by bytes: the divergence
+reads u, v and writes div (48 MiB); the projection reads p, u, v and
+writes u', v' (80 MiB), with the velocity bound as a block max and an
+atomic max (zeroed on the stream first).  The multigrid projection
+(``ops/multigrid.py``) ends on ``project``.
 """
 
 from __future__ import annotations
@@ -57,6 +68,16 @@ DIFFUSE = Kernel("diffuse", {
 #                        half, stream)
 PRESSURE = Kernel("pressure", {
     "fluid_pressure_project": [_P] * 8 + [_I] * 4 + [_P],
+})
+# fluid_pressure_solve(div, p, scratch, h, w, iters, stream)
+PRESSURE_SOLVE = Kernel("pressure", {
+    "fluid_pressure_solve": [_P] * 3 + [_I] * 3 + [_P],
+})
+# fluid_divergence(u, v, div, h, w, half, stream);
+# fluid_project(p, u, v, u2, v2, stats, h, w, stream), stats may be null
+STENCIL = Kernel("pressure", {
+    "fluid_divergence": [_P] * 3 + [_I] * 3 + [_P],
+    "fluid_project": [_P] * 6 + [_I] * 2 + [_P],
 })
 
 MAX_CHANNELS = 8  # csrc/diffuse.cu FLUID_MAX_CHANNELS
@@ -173,3 +194,57 @@ def pressure_project(u, v, iters: int, half: bool, *,
     if return_stats:
         return uv2[0], uv2[1], p, stats
     return uv2[0], uv2[1], p
+
+
+def pressure_solve(div, iters: int):
+    """``iters`` Jacobi sweeps from p = 0; ``ops.ref.pressure_solve``."""
+    if not on_card(div):
+        return ref.pressure_solve(div, iters)
+    if iters < 0:
+        raise ValueError("iters must be >= 0")
+    h, w = div.shape
+    check_f32("div", div, (h, w))
+    p = torch.empty_like(div)
+    scratch = torch.empty_like(div) if iters >= 2 else None
+    with torch.cuda.device(div.device):
+        PRESSURE_SOLVE.launch(
+            "fluid_pressure_solve", div.data_ptr(), p.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            h, w, int(iters), stream_of(div))
+    return p
+
+
+def divergence(u, v, half: bool):
+    """Central-difference divergence; ``ops.ref.divergence``."""
+    if not on_card(u, v):
+        return ref.divergence(u, v, half)
+    h, w = u.shape
+    check_f32("u", u, (h, w))
+    check_f32("v", v, (h, w))
+    div = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        STENCIL.launch("fluid_divergence", u.data_ptr(), v.data_ptr(),
+                       div.data_ptr(), h, w, int(bool(half)), stream_of(u))
+    return div
+
+
+def project(u, v, p, *, return_stats: bool = False):
+    """Gradient subtraction, returning (u', v'[, vel_stats]);
+    ``ops.ref.project``."""
+    if not on_card(u, v, p):
+        return ref.project(u, v, p, return_stats=return_stats)
+    h, w = u.shape
+    for name, t in (("u", u), ("v", v), ("p", p)):
+        check_f32(name, t, (h, w))
+    uv2 = torch.empty((2, h, w), dtype=torch.float32, device=u.device)
+    stats = (torch.empty((2,), dtype=torch.float32, device=u.device)
+             if return_stats else None)
+    with torch.cuda.device(u.device):
+        STENCIL.launch(
+            "fluid_project", p.data_ptr(), u.data_ptr(), v.data_ptr(),
+            uv2[0].data_ptr(), uv2[1].data_ptr(),
+            stats.data_ptr() if stats is not None else None, h, w,
+            stream_of(u))
+    if return_stats:
+        return uv2[0], uv2[1], stats
+    return uv2[0], uv2[1]

@@ -1,0 +1,376 @@
+"""Geometric multigrid pressure solver, plain PyTorch on any device.
+
+The port of ``cudafluidsimulation_tpu/ops/multigrid.py``: the same V-cycle
+on the same system the Jacobi solver iterates,
+    (4 p - pL - pR - pB - pT) = -div     (clamped / Neumann edges),
+with damped-Jacobi smoothing (omega = 0.8), 2x2-average restriction, the
+coarse right-hand side scaled by 4, and cell-centred bilinear (9-3-3-1)
+prolongation.  Every expression keeps the JAX package's float32
+association order, so the two agree to rounding (tests/test_torch_multigrid.py).
+
+Two entry points:
+
+- :func:`pressure_solve_mg` (the ``ref`` backend's op): ``div -> p`` over
+  :func:`make_vcycle`, smoothing with plain sweeps or, given ``smoother``,
+  with a namespace of smoother ends (the H6 kernel wrappers,
+  ``ops.multigrid_cuda.ENDS``).
+- :func:`pressure_project_mg` (the ``cuda`` backend's hook): divergence,
+  V-cycles and projection over a namespace of smoother ends, with the
+  divergence folded into cycle 1's fine pre-smooth (``first_smooth_res``),
+  every pre-smooth emitting its residual (``smooth_res``) and, for a fixed
+  cycle count, the projection folded into the last post-smooth
+  (``last_smooth_project``).  :data:`PLAIN` holds the ends' plain versions;
+  the ``cuda`` backend passes the kernel wrappers, which run the same plain
+  versions for CPU tensors.
+
+Restriction and prolongation are plain torch on every backend, as the JAX
+package leaves them to XLA.
+
+Residual-targeted stopping (``tol > 0``) needs the residual's value on the
+host: :func:`probed_tol_loop` reads ``mean(res**2)`` once per loop test, so
+a step that completes k cycles waits on the device k + 1 times.
+"""
+
+from __future__ import annotations
+
+import types
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from cudafluidsimulation_tpu_torch.ops import ref
+from cudafluidsimulation_tpu_torch.ops.stencil import neighbors
+
+OMEGA = 0.8  # damped-Jacobi smoothing weight
+
+
+# ---------------------------------------------------------------------------
+# Grid transfer and level geometry
+# ---------------------------------------------------------------------------
+
+
+def _restrict(x: torch.Tensor) -> torch.Tensor:
+    """2x2 average: strided adds, rows first, then columns."""
+    r = x[0::2, :] + x[1::2, :]
+    return (r[:, 0::2] + r[:, 1::2]) * 0.25
+
+
+def bilinear_from_padded(xp: torch.Tensor) -> torch.Tensor:
+    """Cell-centred bilinear (9-3-3-1) prolongation from a one-cell-padded
+    coarse plane (the caller supplies the padding: clamped edges on one
+    device, exchanged halos on a sharded one)."""
+    c = xp[1:-1, 1:-1]
+    u, d = xp[:-2, 1:-1], xp[2:, 1:-1]
+    l, r = xp[1:-1, :-2], xp[1:-1, 2:]
+    ul, ur = xp[:-2, :-2], xp[:-2, 2:]
+    dl, dr = xp[2:, :-2], xp[2:, 2:]
+    s = 1.0 / 16.0
+    f00 = (9.0 * c + 3.0 * u + 3.0 * l + ul) * s  # fine (2i, 2j)
+    f01 = (9.0 * c + 3.0 * u + 3.0 * r + ur) * s
+    f10 = (9.0 * c + 3.0 * d + 3.0 * l + dl) * s
+    f11 = (9.0 * c + 3.0 * d + 3.0 * r + dr) * s
+    h, w = c.shape
+    top = torch.stack([f00, f01], dim=-1).reshape(h, 2 * w)
+    bot = torch.stack([f10, f11], dim=-1).reshape(h, 2 * w)
+    return torch.stack([top, bot], dim=1).reshape(2 * h, 2 * w)
+
+
+def _prolong(x: torch.Tensor) -> torch.Tensor:
+    return bilinear_from_padded(F.pad(x[None], (1, 1, 1, 1), mode="replicate")[0])
+
+
+def local_levels(n: int) -> int:
+    """V-cycle levels an extent of ``n`` cells supports before it stops
+    halving cleanly (1 + the 2-adic valuation, clamped at n >= 2)."""
+    c = 1
+    while n % 2 == 0 and n >= 2:
+        n //= 2
+        c += 1
+    return c
+
+
+def _levels(h: int, w: int, max_levels: int = 8, min_size: int = 16) -> int:
+    n = 0
+    while (
+        n < max_levels - 1
+        and h % 2 == 0 and w % 2 == 0
+        and h // 2 >= min_size and w // 2 >= min_size
+    ):
+        h //= 2
+        w //= 2
+        n += 1
+    return n + 1
+
+
+# ---------------------------------------------------------------------------
+# The smoother ends' plain versions (the H6 kernels' arithmetic)
+# ---------------------------------------------------------------------------
+
+
+def apply_a(p: torch.Tensor) -> torch.Tensor:
+    """The 5-point operator 4p - (L + R + B + T), clamped edges."""
+    l, r, b, t = neighbors(p)
+    return 4.0 * p - (l + r + b + t)
+
+
+def smooth_damped(p, rhs, sweeps: int, omega: float = OMEGA):
+    """``sweeps`` damped-Jacobi sweeps p + omega*((L+R+B+T+rhs)*0.25 - p);
+    the centre term is the current iterate."""
+    for _ in range(sweeps):
+        l, r, b, t = neighbors(p)
+        p = p + omega * ((l + r + b + t + rhs) * 0.25 - p)
+    return p
+
+
+def smooth_res(p, rhs, sweeps: int, omega: float = OMEGA, *,
+               from_zero: bool = False):
+    """``sweeps`` damped sweeps, then the residual: (p', rhs - A p').  With
+    ``from_zero`` the sweeps start from p = 0 and ``p`` is not read: the
+    first sweep is omega*(rhs*0.25), its neighbour taps being zero."""
+    if from_zero:
+        p = omega * (rhs * 0.25)
+        sweeps -= 1
+    p = smooth_damped(p, rhs, sweeps, omega)
+    return p, rhs - apply_a(p)
+
+
+def first_smooth_res(u, v, sweeps: int, half: bool, omega: float = OMEGA):
+    """Cycle 1's fine pre-smooth with the divergence folded in: returns
+    (p, rhs, res) with rhs = -divergence(u, v, half) and ``sweeps`` sweeps
+    from p = 0."""
+    rhs = -ref.divergence(u, v, half)
+    p, res = smooth_res(rhs, rhs, sweeps, omega, from_zero=True)
+    return p, rhs, res
+
+
+def last_smooth_project(p, rhs, u, v, sweeps: int, omega: float = OMEGA, *,
+                        return_stats: bool = False):
+    """The last post-smooth with the projection folded in: returns
+    (u', v', p'[, vel_stats])."""
+    p = smooth_damped(p, rhs, sweeps, omega)
+    out = ref.project(u, v, p, return_stats=return_stats)
+    return (out[0], out[1], p) + tuple(out[2:])
+
+
+PLAIN = types.SimpleNamespace(
+    smooth_damped=smooth_damped,
+    smooth_res=smooth_res,
+    first_smooth_res=first_smooth_res,
+    last_smooth_project=last_smooth_project,
+    divergence=ref.divergence,
+    project=ref.project,
+)
+
+
+# ---------------------------------------------------------------------------
+# The V-cycle and the solves built on it
+# ---------------------------------------------------------------------------
+
+
+def make_vcycle(neighbors_fn, smooth_fn=None, bottom_fn=None,
+                prolong_fn=None, smooth_res_fn=None, parts: bool = False):
+    """Build the V-cycle from a clamped-neighbourhood function, with the JAX
+    package's hooks: ``smooth_fn(p, rhs, sweeps)`` replaces the damped
+    sweeps, ``bottom_fn(p, rhs, nu1, nu2, coarse_sweeps)`` the coarsest
+    level, ``prolong_fn(e_c)`` the prolongation, and
+    ``smooth_res_fn(p, rhs, nu1) -> (p', rhs - A p')`` the pre-smooth with
+    its residual.  ``parts=True`` also returns the fine level's
+    ``probe`` (pre-smooth + residual) and ``finish`` (coarse correction +
+    post-smooth), with ``vcycle == finish . probe``."""
+
+    def apply(p):
+        l, r, b, t = neighbors_fn(p)
+        return 4.0 * p - (l + r + b + t)
+
+    def default_smooth(p, rhs, sweeps: int):
+        for _ in range(sweeps):
+            l, r, b, t = neighbors_fn(p)
+            p = p + OMEGA * ((l + r + b + t + rhs) * 0.25 - p)
+        return p
+
+    smooth = smooth_fn or default_smooth
+    prolong = prolong_fn or _prolong
+
+    def bottom(p, rhs, nu1, nu2, coarse_sweeps):
+        if bottom_fn is not None:
+            return bottom_fn(p, rhs, nu1, nu2, coarse_sweeps)
+        return smooth(p, rhs, coarse_sweeps)
+
+    def probe(p, rhs, nu1, level, nu2=None, coarse_sweeps=None):
+        """Top-level pre-smooth + its residual; at level 1 the whole
+        (bottom) cycle runs here and finish() is the identity."""
+        if level == 1:
+            p = bottom(p, rhs, nu1, nu2, coarse_sweeps)
+        elif smooth_res_fn is not None:
+            return smooth_res_fn(p, rhs, nu1)
+        else:
+            p = smooth(p, rhs, nu1)
+        return p, rhs - apply(p)
+
+    def finish(p, res, rhs, level, nu1, nu2, coarse_sweeps):
+        if level == 1:
+            return p
+        # the coarse grid doubles the mesh width of the h²-absorbed
+        # operator, so the restricted residual gains a factor 4
+        rhs_c = 4.0 * _restrict(res)
+        e_c = vcycle(torch.zeros_like(rhs_c), rhs_c, level - 1, nu1, nu2,
+                     coarse_sweeps)
+        p = p + prolong(e_c)
+        return smooth(p, rhs, nu2)
+
+    def vcycle(p, rhs, level: int, nu1: int, nu2: int, coarse_sweeps: int):
+        if level == 1:
+            return bottom(p, rhs, nu1, nu2, coarse_sweeps)
+        if smooth_res_fn is not None:
+            p, res = smooth_res_fn(p, rhs, nu1)
+        else:
+            p = smooth(p, rhs, nu1)
+            res = rhs - apply(p)
+        return finish(p, res, rhs, level, nu1, nu2, coarse_sweeps)
+
+    if parts:
+        return vcycle, apply, probe, finish
+    return vcycle, apply
+
+
+_vcycle, _, _probe, _finish = make_vcycle(neighbors, parts=True)
+
+
+def _res_mean(r: torch.Tensor) -> torch.Tensor:
+    return torch.mean(r * r)
+
+
+def probed_tol_loop(probe, finish, res_mean_fn, p0, first, tol, max_cycles):
+    """Residual-targeted cycle loop: each iteration completes the pending
+    cycle (``finish``) and runs the next cycle's pre-smooth
+    (``probe(p) -> (p', res')``), whose residual is the stopping test.
+    ``first`` is the probe of ``p0``.  Stops once mean(res**2) <
+    float32(tol)**2 or after ``max_cycles`` completed cycles; returns the
+    probed iterate when converged, else the last completed cycle's, so a
+    capped run equals the fixed-count run.  Each loop test reads the
+    residual's mean on the host."""
+    p1, r1 = first
+    tol2 = float(np.float32(tol) ** 2)
+    pf = p0
+    rsq = float(res_mean_fn(r1))
+    i = 0
+    while i < max_cycles and rsq >= tol2:
+        pf = finish(p1, r1)
+        p1, r1 = probe(pf)
+        rsq = float(res_mean_fn(r1))
+        i += 1
+    return p1 if rsq < tol2 else pf
+
+
+def run_cycles(vcycle, probe_fn, finish_fn, res_mean_fn, p, rhs, level,
+               cycles, tol, max_cycles, nu1, nu2, coarse_sweeps):
+    """A fixed ``cycles`` count (``tol <= 0``), or cycles until the rms
+    residual drops below ``tol`` (at most ``max_cycles``)."""
+    if tol <= 0:
+        for _ in range(cycles):
+            p = vcycle(p, rhs, level, nu1, nu2, coarse_sweeps)
+        return p
+
+    def probe(q):
+        return probe_fn(q, rhs, nu1, level, nu2, coarse_sweeps)
+
+    def finish(q, res):
+        return finish_fn(q, res, rhs, level, nu1, nu2, coarse_sweeps)
+
+    return probed_tol_loop(probe, finish, res_mean_fn, p, probe(p), tol,
+                           max_cycles)
+
+
+def pressure_solve_mg(div, cycles: int = 2, nu1: int = 2, nu2: int = 2,
+                      coarse_sweeps: int = 20, tol: float = 0.0,
+                      max_cycles: int = 8, smoother=None):
+    """Multigrid solve of the pressure system from p = 0.  ``tol > 0``
+    switches from ``cycles`` V-cycles to residual-targeted stopping
+    (rms(A p + div) < tol, at most ``max_cycles`` cycles).
+
+    ``smoother`` None smooths with plain sweeps (the ``ref`` op); a
+    namespace with ``smooth_damped`` and ``smooth_res`` (:data:`PLAIN`, or
+    the H6 wrappers ``ops.multigrid_cuda.ENDS``) takes over the sweeps and
+    the pre-smooth with its residual: the same arithmetic."""
+    h, w = div.shape
+    lv = _levels(h, w)
+    rhs = -div
+    if smoother is None:
+        vc, probe, fin = _vcycle, _probe, _finish
+    else:
+        vc, _, probe, fin = make_vcycle(
+            neighbors,
+            smooth_fn=lambda p, r, n: smoother.smooth_damped(p, r, n, OMEGA),
+            smooth_res_fn=lambda p, r, n: smoother.smooth_res(p, r, n, OMEGA),
+            parts=True)
+    return run_cycles(vc, probe, fin, _res_mean, torch.zeros_like(div), rhs,
+                      lv, cycles, tol, max_cycles, nu1, nu2, coarse_sweeps)
+
+
+def residual_norm(p, div) -> torch.Tensor:
+    """||A p + div||_rms, the convergence diagnostic."""
+    r = apply_a(p) + div
+    return torch.sqrt(torch.mean(r * r))
+
+
+# ---------------------------------------------------------------------------
+# Divergence -> V-cycles -> projection over the smoother ends
+# ---------------------------------------------------------------------------
+
+
+def _coarse_correction(ends, res, level, nu1, nu2, coarse_sweeps):
+    """restrict -> zero-start V-cycle one level down -> prolong."""
+    rhs = 4.0 * _restrict(res)
+    level -= 1
+    if level == 1:
+        e = ends.smooth_damped(torch.zeros_like(rhs), rhs, coarse_sweeps, OMEGA)
+    else:
+        e, r = ends.smooth_res(rhs, rhs, nu1, OMEGA, from_zero=True)
+        e = e + _coarse_correction(ends, r, level, nu1, nu2, coarse_sweeps)
+        e = ends.smooth_damped(e, rhs, nu2, OMEGA)
+    return _prolong(e)
+
+
+def pressure_project_mg(u, v, cycles: int = 2, nu1: int = 2, nu2: int = 2,
+                        coarse_sweeps: int = 20, tol: float = 0.0,
+                        max_cycles: int = 8, half: bool = True,
+                        return_stats: bool = False, ends=None):
+    """Divergence -> multigrid V-cycles -> projection: returns
+    (u', v', p[, vel_stats]).  The same solve as
+    ``divergence -> pressure_solve_mg(smoother=ends) -> project``, op for op.
+
+    ``ends`` is a namespace of the smoother ends (:data:`PLAIN` when None).
+    Cycle 1's fine pre-smooth computes the divergence; with ``tol <= 0``
+    the last cycle's fine post-smooth subtracts the gradient; with
+    ``tol > 0`` the cycles run under :func:`probed_tol_loop` and the
+    standalone ``project`` follows.  A grid with a single level has no
+    coarse correction and runs the composition."""
+    ends = PLAIN if ends is None else ends
+    h, w = u.shape
+    lv = _levels(h, w)
+    if lv == 1:
+        p = pressure_solve_mg(ends.divergence(u, v, half), cycles, nu1, nu2,
+                              coarse_sweeps, tol, max_cycles, smoother=ends)
+        out = ends.project(u, v, p, return_stats=return_stats)
+        return (out[0], out[1], p) + tuple(out[2:])
+
+    p, rhs, res = ends.first_smooth_res(u, v, nu1, half, OMEGA)
+
+    def correct(p, res):
+        return p + _coarse_correction(ends, res, lv, nu1, nu2, coarse_sweeps)
+
+    def finish(p, res):
+        return ends.smooth_damped(correct(p, res), rhs, nu2, OMEGA)
+
+    if tol <= 0:
+        for _ in range(cycles - 1):
+            p, res = ends.smooth_res(finish(p, res), rhs, nu1, OMEGA)
+        return ends.last_smooth_project(correct(p, res), rhs, u, v, nu2, OMEGA,
+                                        return_stats=return_stats)
+
+    p = probed_tol_loop(lambda q: ends.smooth_res(q, rhs, nu1, OMEGA), finish,
+                        _res_mean, torch.zeros_like(rhs), (p, res), tol,
+                        max_cycles)
+    out = ends.project(u, v, p, return_stats=return_stats)
+    return (out[0], out[1], p) + tuple(out[2:])

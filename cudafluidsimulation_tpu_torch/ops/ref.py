@@ -1,11 +1,11 @@
 """Plain PyTorch reference ops — the port's numerics oracle.
 
-One function for each op of the JAX package's ``ops/ref.py`` (multigrid
-aside), with the same formulas in the same float32 association order, so
-the two agree to float32 rounding (tests/test_torch_ops_ref.py).  They run
-on any device.  The CUDA kernels (``ops/advect_cuda.py``,
-``ops/jacobi_cuda.py``) are held against them: these are the kernels'
-plain versions.
+One function for each op of the JAX package's ``ops/ref.py``, with the
+same formulas in the same float32 association order, so the two agree to
+float32 rounding (tests/test_torch_ops_ref.py; ``pressure_solve_mg`` lives
+in ``ops/multigrid.py``).  They run on any device.  The CUDA kernels
+(``ops/advect_cuda.py``, ``ops/jacobi_cuda.py``) are held against them:
+these are the kernels' plain versions.
 
 Conventions: fields are float32 (H, W) planes (dye is (3, H, W)); index
 order is [y, x]; y increases upward; every out-of-domain neighbour access
@@ -249,6 +249,16 @@ def pressure_solve(div: Tensor, iters: int) -> Tensor:
         l, r, b, t = neighbors(p)
         p = (l + r + b + t - div) * 0.25
     return p
+
+
+def pressure_solve_mg(div: Tensor, cycles: int = 2, tol: float = 0.0,
+                      max_cycles: int = 8) -> Tensor:
+    """Multigrid pressure solve with plain sweeps (``ops/multigrid.py``).
+    ``tol > 0`` runs cycles until rms(A p + div) < tol instead of a fixed
+    count (at most ``max_cycles``)."""
+    from cudafluidsimulation_tpu_torch.ops.multigrid import pressure_solve_mg as mg
+
+    return mg(div, cycles=cycles, tol=tol, max_cycles=max_cycles)
 
 
 def project(u: Tensor, v: Tensor, p: Tensor, *, return_stats: bool = False):

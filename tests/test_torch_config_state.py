@@ -83,8 +83,7 @@ def test_validation_matches(bad):
         FluidConfig(**bad)
 
 
-@pytest.mark.parametrize("kw", [dict(pressure_solver="multigrid"),
-                                dict(fast_dye=True), dict(fast_velocity=True),
+@pytest.mark.parametrize("kw", [dict(fast_dye=True), dict(fast_velocity=True),
                                 dict(fast_diffuse=True)])
 def test_unported_paths_raise(kw):
     cfg = FluidConfig.gpu_reference(nx=32, ny=32, backend="ref", **kw)
@@ -94,9 +93,29 @@ def test_unported_paths_raise(kw):
         Simulation(cfg)
 
 
-def test_quality_preset_raises_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="multigrid"):
-        Simulation(FluidConfig.quality(nx=32, ny=32, backend="ref"))
+def _step_once(cfg):
+    sim = Simulation(cfg)
+    state = sim.step(sim.init(), timp.single((16.0, 16.0), (14.0, 15.0), True,
+                                             cfg.dt))
+    assert int(state.step) == 1
+    for name in ("u", "v", "dye", "pressure", "vel_stats"):
+        assert bool(torch.isfinite(getattr(state, name)).all()), name
+    return state
+
+
+@pytest.mark.parametrize("kw", [dict(pressure_solver="multigrid"),
+                                dict(pressure_solver="multigrid", mg_tol=0.05),
+                                dict(pressure_solver="multigrid", mg_cycles=1)])
+def test_multigrid_paths_step_on_ref(kw):
+    cfg = FluidConfig.gpu_reference(nx=32, ny=32, backend="ref", **kw)
+    assert get_ops(cfg).pressure_solve_mg is not None
+    _step_once(cfg)
+
+
+@pytest.mark.parametrize("fine", [32, 16])  # two levels; one level
+def test_quality_preset_steps_on_ref(fine):
+    state = _step_once(FluidConfig.quality(nx=fine, ny=fine, backend="ref"))
+    assert float(state.pressure.abs().max()) > 0.0
 
 
 @pytest.mark.parametrize("preset", ["cpu_64", "gpu_reference"])

@@ -27,13 +27,15 @@ import torch
 
 from cudafluidsimulation_tpu.ops import advect_pallas, jacobi_pallas
 
-from cudafluidsimulation_tpu_torch.ops import _build, advect_cuda, jacobi_cuda, ref
+from cudafluidsimulation_tpu_torch.ops import (
+    _build, advect_cuda, jacobi_cuda, multigrid_cuda, ref)
 
 torch.set_num_threads(1)
 
 DT = np.float32(1 / 60)
 KERNELS = (advect_cuda.KERNEL, jacobi_cuda.VORTICITY, jacobi_cuda.DIFFUSE,
-           jacobi_cuda.PRESSURE)
+           jacobi_cuda.PRESSURE, jacobi_cuda.PRESSURE_SOLVE,
+           jacobi_cuda.STENCIL) + multigrid_cuda.KERNELS
 
 
 def _t(a):
