@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero and no phase's failure is
 caught:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the five kernel sources from ``cudafluidsimulation_tpu_torch/csrc``
+2. build the six kernel sources from ``cudafluidsimulation_tpu_torch/csrc``
    with ``nvcc`` (one compiler per source, all at once) and print the
    seconds;
 3. hold each kernel against its plain PyTorch version on the same inputs:
@@ -17,7 +17,13 @@ caught:
    and 16x16, the coarse levels' shapes; then, at 540x960, the dye's NaN
    saturation, the cpu variant's flags (vorticity sign and epsilon, full
    divergence, 2-channel diffusion), 0, 1 and 2 iterations, and H4's
-   standalone ``pressure_solve`` at 0, 1, 2 and 40 sweeps;
+   standalone ``pressure_solve`` at 0, 1, 2 and 40 sweeps; H7 (separable
+   diffusion) with and without the splat, at 5 and 2 channels, at 2048x2048,
+   540x960, 16x16 and 4x8 (where radius 5 reflects more than once), and
+   against H3's 20 sweeps; H8 (bf16-tap advection) in both modes on driven
+   fields (the rounded branch) and quiet ones (the exact branch, also equal
+   to H1 bit for bit), with ``vel_stats`` given and absent, with
+   ``advect_fast_path`` off, and the dye's clamp and NaN saturation;
 4. the gpu-parity path: the 2048² step (``bench.py``'s configuration) on
    ``backend="cuda"`` — a driven 200-step orbit rollout, a quiet rollout
    and one rendered frame, with every kernel's launch count read around
@@ -32,9 +38,19 @@ caught:
 6. the fixed-cycle multigrid path (``mg_cycles=2``, ``mg_tol=0``) at 2048²
    for a few steps: its last cycle ends in ``last_smooth_project``; one
    step against ``backend="ref"``;
-7. timing with CUDA events after a warm-up: driven and quiet steps/s of
-   both 2048² paths, the ref backend's ms/step on the card, and each
-   kernel's ms at its path's shapes beside its plain version's.
+7. the fast path: ``bench.py``'s ``fast_steps_per_sec`` configuration
+   (the parity step with ``fast_dye``, ``fast_velocity`` and
+   ``fast_diffuse``) on ``backend="cuda"``, the same rollouts and frame,
+   launch counts read around them (H7 and H8 launched, H1 and H3 not), one
+   driven step against the same step on the plain versions of every
+   kernel on the card, that step's distance from the exact parity step
+   and of its advected velocity from the exact one (information), and one
+   step under ``torch.cuda.set_sync_debug_mode("error")``, which shows
+   that the step reads nothing back;
+8. timing with CUDA events after a warm-up: driven and quiet steps/s of
+   the parity, quality and fast paths, the fixed-cycle path's ms/step, the
+   plain versions' ms/step on the card, and each kernel's ms at its path's
+   shapes beside its plain version's.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -42,6 +58,7 @@ The line before the last is the ``kernels`` JSON; the last line is
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -65,13 +82,17 @@ MG_SHAPES = CHECK_SHAPES + ((135, 240), (16, 16))
 # PyTorch computes as a multiply by the reciprocal (one ulp inside the
 # splat's expf), and the sums of 20 or 40 sweeps carrying that ulp along.
 # H5 and H6 are additions and multiplications by constants, one PyTorch op
-# per operation, so they should be bit-identical.
+# per operation, so they should be bit-identical.  H7 runs the plain
+# version's products and sums in its order (bit-identical without the
+# splat) and adds the splat's exp, one ulp as H3.  H8 is H1's arithmetic
+# over taps rounded by integer operations, so bit-identical as H1.
 RTOL = {"H1": 1e-6, "H2": 1e-6, "H3": 1e-5, "H4": 1e-5, "H4 solve": 1e-5,
-        "H5": 1e-6, "H6": 1e-6}
+        "H5": 1e-6, "H6": 1e-6, "H7": 1e-5, "H8": 1e-6}
 # one whole driven step, cuda against ref on the card:
 # max |cuda - ref| <= STEP_RTOL * max|ref| for each field
 STEP_RTOL = 1e-5
 STATE_FIELDS = ("u", "v", "dye", "pressure", "vel_stats")
+FAST = dict(fast_dye=True, fast_velocity=True, fast_diffuse=True)
 
 
 def _json(obj) -> None:
@@ -143,7 +164,8 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from cudafluidsimulation_tpu_torch import FluidConfig, Simulation
     from cudafluidsimulation_tpu_torch.ops import (
-        _build, advect_cuda, jacobi_cuda, multigrid, multigrid_cuda, ref)
+        _build, advect_cuda, advect_packed, backend, fastdiffuse, fastdiffuse_cuda,
+        jacobi_cuda, multigrid, multigrid_cuda, ref)
     from cudafluidsimulation_tpu_torch.utils.impulse import (
         Impulse, no_impulse, orbit_impulse, slice_step)
     from cudafluidsimulation_tpu_torch.utils.timing import cuda_times_ms
@@ -164,7 +186,10 @@ def main() -> int:
         "H6 smooth_res": (multigrid_cuda.SMOOTH_RES, "multigrid.cu", f"{jp}:1000"),
         "H6 first_smooth_res": (multigrid_cuda.FIRST, "multigrid.cu", f"{jp}:1041"),
         "H6 last_smooth_project": (multigrid_cuda.LAST, "multigrid.cu", f"{jp}:1069"),
+        "H7": (fastdiffuse_cuda.SEP, "sepdiffuse.cu", "fastdiffuse.py:262"),
+        "H8": (advect_cuda.PACKED, "advect.cu", "advect_pallas.py:195"),
     }
+    row_names = {"H8": "H8 advect_packed"}
 
     def reset_counts():
         for kern, _, _ in kernels.values():
@@ -297,6 +322,74 @@ def main() -> int:
         _check(worst, "H4 solve", f"iters={iters}", [(
             "p", jacobi_cuda.pressure_solve(div, iters), ref.pressure_solve(div, iters))])
     del u, v, dye, fields, sat, push, got, exp, p, rhs, div
+
+    # H7 at the shipped design (rank 2, radii 5 and 4): 5 channels with the
+    # dye taps, 2 with the velocity taps; 16x16 is one tile, and at 4x8
+    # radius 5 reaches past the grid, so the taps reflect more than once
+    alpha = 0.8 * 0.8 / dt
+    taps5, radii = fastdiffuse._taps_array([alpha] * 5, 20, 2e-4)
+    taps2 = fastdiffuse._taps_array([alpha] * 2, 20, 2e-4)[0]
+    for h, w in CHECK_SHAPES + ((16, 16), (4, 8)):
+        f5 = randn(5, h, w)
+        last = (w * 0.4, h * 0.6)
+        for c, taps in ((5, taps5), (2, taps2)):
+            for splat in (None, (amps[:c], last, 400.0)):
+                _check(worst, "H7", f"{c}ch splat={splat is not None} {h}x{w}", [(
+                    "fields", fastdiffuse_cuda.sep_apply(f5[:c], taps, radii, splat),
+                    fastdiffuse.sep_apply(f5[:c], taps, radii, splat))])
+    # information: the separable blur against H3's 20 exact sweeps
+    f5 = randn(5, N, N)
+    sep_err = _max_err(fastdiffuse_cuda.sep_apply(f5, taps5, radii),
+                       jacobi_cuda.diffuse_multi(f5, dt, coeffs, 20))
+    _json({"phase": "h7_vs_h3", "grid": f"{N}x{N}", "field": "standard normal",
+           "max_abs_diff": sep_err[0], "max_rel_diff": sep_err[1]})
+
+    # H8 on driven fields (3.3 cells a step at one sigma: the rounded
+    # branch) and quiet ones (under one cell: the exact branch)
+    for h, w in CHECK_SHAPES:
+        for flow, scale in (("driven", 200.0), ("quiet", 8.0)):
+            tag = f"{flow} {h}x{w}"
+            u, v = randn(h, w, scale=scale), randn(h, w, scale=scale)
+            dye = torch.rand((3, h, w), generator=gen, device=dev)
+            bound = ref.vel_max(u, v)
+            if bool((bound * dt < 1.0).all()) != (flow == "quiet"):
+                raise AssertionError(f"H8 {tag}: bound {bound.tolist()} is not {flow}")
+            h1 = advect_cuda.advect_velocity(u, v, dt, decay_rate, return_stats=True)
+            h1_dye = advect_cuda.advect_dye(dye, h1[0], h1[1], dt, decay_rate)
+            for given in (True, False):
+                for fast_path in (True, False):
+                    case = f"{tag} vel_stats={'given' if given else 'absent'} fast_path={fast_path}"
+                    kw = dict(vel_stats=bound if given else None, fast_path=fast_path)
+                    got = advect_cuda.advect_velocity(u, v, dt, decay_rate, return_stats=True,
+                                                      packed=True, **kw)
+                    exp = advect_packed.advect_velocity(u, v, dt, decay_rate, return_stats=True, **kw)
+                    _check(worst, "H8", f"velocity {case}", zip("uv", got[:2], exp[:2]))
+                    _check_bound("H8", got[2], got[0], got[1])
+                    kw["vel_stats"] = got[2] if given else None
+                    got_dye = advect_cuda.advect_dye(dye, got[0], got[1], dt, decay_rate,
+                                                     packed=True, **kw)
+                    _check(worst, "H8", f"dye {case}", [("dye", got_dye, advect_packed.advect_dye(
+                        dye, got[0], got[1], dt, decay_rate, **kw))])
+                    exact = all(torch.equal(a, b) for a, b in zip(got, h1))
+                    exact = exact and torch.equal(got_dye, h1_dye)
+                    if exact != (flow == "quiet" and fast_path):
+                        raise AssertionError(f"H8 {case}: equal to H1 is {exact}")
+    # the dye clamp: zeros left of ones and a backtrace 1.5 cells past x = 0
+    # extrapolate column 1 to -0.5, which H1 saturates to 1 and H8 clamps
+    # to 0; a NaN tap still saturates to 1
+    h, w = CHECK_SHAPES[1]
+    sat = torch.rand((3, h, w), generator=gen, device=dev)
+    sat[:, :, 0], sat[:, :, 1] = 0.0, 1.0
+    sat[:, 100, 200] = float("nan")
+    push, still = torch.full((h, w), 1.5 / dt, device=dev), torch.zeros((h, w), device=dev)
+    got = advect_cuda.advect_dye(sat, push, still, dt, decay_rate, packed=True)
+    if not bool((got[:, :, 1] == 0.0).all()):
+        raise AssertionError("H8 dye: negative blend not clamped to 0")
+    if bool(torch.isnan(got).any()) or not bool((got[:, 100, 201] == 1.0).all()):
+        raise AssertionError("H8 dye: NaN saturation to 1 failed")
+    _check(worst, "H8", "dye clamp and saturation", [("dye", got, advect_packed.advect_dye(
+        sat, push, still, dt, decay_rate))])
+    del u, v, dye, f5, got, exp, got_dye, h1, h1_dye, sat, push, still
     torch.cuda.synchronize()
 
     driven = orbit_impulse(STEPS, 1.0 / 60.0, center=(N / 2, N / 2), radius=N / 8, omega=3.0)
@@ -413,7 +506,54 @@ def main() -> int:
     _json({"phase": "fixed_cycle_path", "steps": FIXED_STEPS, "launches": fixed_launches,
            "step_vs_ref_max_rel_err": step_err, "frames_equal": frames_equal})
 
-    # -- 7. timing -------------------------------------------------------------
+    # -- 7. the fast path (bf16-tap advection, separable diffusion) -----------
+    kcfg = FluidConfig.gpu_reference(nx=N, ny=N, pressure_iters=40, max_displacement=31,
+                                     backend="cuda", **FAST)
+    ksim = Simulation(kcfg)
+    kstate, kquiet, fast_launches, _, kdisp, kdye = drive("fast", ksim)
+    for k in ("H2", "H4", "H7", "H8"):
+        if fast_launches[k] == 0:
+            raise AssertionError(f"{k} was not launched on the fast path")
+    for k in ("H1", "H3"):
+        if fast_launches[k] != 0:
+            raise AssertionError(f"{k} ran on the fast path")
+    # the same step on the plain version of every kernel, on the card
+    plain_ops = backend._namespace({
+        "advect_velocity": functools.partial(advect_packed.advect_velocity,
+                                             fast_path=kcfg.advect_fast_path),
+        "advect_dye": functools.partial(advect_packed.advect_dye,
+                                        fast_path=kcfg.advect_fast_path),
+        **fastdiffuse.make_ops(kcfg, apply=fastdiffuse.sep_apply)})
+    kplain = Simulation(kcfg, ops=plain_ops)
+    last_imp = slice_step(driven, STEPS - 1)
+    if not float(kstate.vel_stats.max()) * dt >= 1.0:
+        raise AssertionError("fast path: the checked step is quiet; H8 would not round")
+    step_err, frames_equal = _step_vs_ref("fast", ksim, kplain, kstate, last_imp)
+    # information: how far one fast step lands from the exact parity step,
+    # and how far its advected velocity alone (bf16 taps against f32 ones)
+    fast_next, parity_next = ksim.step(kstate, last_imp), ref_sim.step(kstate, last_imp)
+    vs_parity = {name: _max_err(getattr(fast_next, name), getattr(parity_next, name))[1]
+                 for name in STATE_FIELDS}
+    adv = [advect_cuda.advect_velocity(kstate.u, kstate.v, dt, decay_rate, packed=packed,
+                                       vel_stats=kstate.vel_stats) for packed in (True, False)]
+    vs_parity["advected_u"] = _max_err(adv[0][0], adv[1][0])[1]
+    vs_parity["advected_v"] = _max_err(adv[0][1], adv[1][1])[1]
+    # the step reads nothing back: an implicit sync raises in this mode
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ksim.step(kstate, last_imp)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    _json({"phase": "fast_path", "launches": fast_launches, "realized_max_displacement": kdisp,
+           "step_vs_plain_max_rel_err": step_err, "tol": STEP_RTOL,
+           "frames_equal": frames_equal, "dye_range": kdye,
+           "step_vs_parity_max_rel_diff": vs_parity, "sync_debug_error_mode": "no sync",
+           "quiet_u_max": kquiet.u.abs().max().item()})
+    del fast_next, parity_next, adv
+
+    # -- 8. timing -------------------------------------------------------------
     def rates(what, sim_, ref_sim_):
         driven_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), driven), iters=3))
         quiet_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), quiet), iters=3))
@@ -425,6 +565,7 @@ def main() -> int:
 
     rates("parity", sim, ref_sim)
     rates("quality", qsim, qref)
+    rates("fast", ksim, kplain)
     fixed_ms = statistics.median(cuda_times_ms(lambda: fsim.run(qstate, fixed_imp), iters=3))
     _json({"metric": "ms_per_step", "path": "fixed-cycle multigrid", "grid": f"{N}x{N}",
            "steps": FIXED_STEPS, "driven_ms_per_step": fixed_ms / FIXED_STEPS, "smi": smi[0]})
@@ -435,6 +576,10 @@ def main() -> int:
     all5 = torch.cat([torch.stack([u, v]), dye]).contiguous()
     last = (N / 2 + N / 8, N / 2)
     qu, qv = qstate.u, qstate.v
+    ku, kv, kst = kstate.u, kstate.v, kstate.vel_stats
+    ku2, kv2, kst2 = advect_cuda.advect_velocity(ku, kv, dt, decay_rate, vel_stats=kst,
+                                                 return_stats=True, packed=True)
+    splat = (amps, last, 400.0)
     div = ref.divergence(qu, qv, True)
     rhs, p = -div, qstate.pressure
     cases = {
@@ -465,14 +610,26 @@ def main() -> int:
         "H6 last_smooth_project": (
             lambda: multigrid_cuda.last_smooth_project(p, rhs, qu, qv, 2, return_stats=True),
             lambda: multigrid.last_smooth_project(p, rhs, qu, qv, 2, return_stats=True)),
+        # H7 on H3's inputs
+        "H7": (lambda: fastdiffuse_cuda.sep_apply(all5, taps5, radii, splat),
+               lambda: fastdiffuse.sep_apply(all5, taps5, radii, splat)),
+        # H8 on the driven fast state (the rounded branch), velocity + dye
+        "H8": (lambda: (advect_cuda.advect_velocity(ku, kv, dt, decay_rate, vel_stats=kst,
+                                                    return_stats=True, packed=True),
+                        advect_cuda.advect_dye(kstate.dye, ku2, kv2, dt, decay_rate,
+                                               vel_stats=kst2, packed=True)),
+               lambda: (advect_packed.advect_velocity(ku, kv, dt, decay_rate, vel_stats=kst,
+                                                      return_stats=True),
+                        advect_packed.advect_dye(kstate.dye, ku2, kv2, dt, decay_rate,
+                                                 vel_stats=kst2))),
     }
     # each row's launches come from the path that runs it
     paths = {"H1": "parity", "H2": "parity", "H3": "parity", "H4": "parity",
              "H4 solve": None, "H5": "quality", "H6 smooth_damped": "quality",
              "H6 smooth_res": "quality", "H6 first_smooth_res": "quality",
-             "H6 last_smooth_project": "fixed-cycle"}
+             "H6 last_smooth_project": "fixed-cycle", "H7": "fast", "H8": "fast"}
     path_launches = {"parity": parity_launches, "quality": quality_launches,
-                     "fixed-cycle": fixed_launches}
+                     "fixed-cycle": fixed_launches, "fast": fast_launches}
     def per_call(fn, iters, warmup):
         # BATCH calls back to back in each timed window, as a step issues
         # them: a small kernel's row is then its device time wherever the
@@ -491,7 +648,7 @@ def main() -> int:
         _, src, replaces = kernels[k]
         path = paths[k]
         rows.append({
-            "name": f"{k} {src[:-3]}", "route": "cuda",
+            "name": row_names.get(k, f"{k} {src[:-3]}"), "route": "cuda",
             "source": f"cudafluidsimulation_tpu_torch/csrc/{src}",
             "replaces": f"cudafluidsimulation_tpu/ops/{replaces}",
             "launches": path_launches[path][k] if path else 0, "path": path,

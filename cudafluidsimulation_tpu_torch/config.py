@@ -11,14 +11,16 @@ difference: ``backend`` is ``ref | cuda | auto``.
 - ``auto``: ``cuda`` when a CUDA device is present, else ``ref``.
 
 Fields that only steer the TPU kernels' scheduling (``block_rows``,
-``jacobi_burst``, ``advect_fast_path``) are carried for parity and have no
-effect here.  ``max_displacement`` bounds the TPU advection kernel's
-backtrace; the port's advection is unbounded like the JAX ref backend, so
-it has no effect either.  Multigrid pressure (``pressure_solver=
-"multigrid"``, the ``quality`` preset) is ported.  Values that select
-paths the port does not have yet (the ``fast_*`` modes) are accepted here,
-so the presets compare equal, and raise ``NotImplementedError`` when a step
-is built from them (:func:`check_ported`).
+``jacobi_burst``) are carried for parity and have no effect here.
+``max_displacement`` bounds the TPU advection kernel's backtrace; the
+port's advection is unbounded like the JAX ref backend, so it has no
+effect either.  Multigrid pressure (the ``quality`` preset) and the fast
+modes are ported: ``fast_diffuse`` (separable diffusion, kernel H7),
+``fast_velocity`` and ``fast_dye`` (bf16-tap advection, kernel H8).  With
+a packed mode, ``advect_fast_path`` decides whether a quiet step (realized
+displacement under one cell) takes the exact f32 taps (True) or every
+step rounds its taps (False).  ``backend="ref"`` ignores the ``fast_*``
+flags, as the JAX package's ref backend does.
 """
 
 from __future__ import annotations
@@ -181,12 +183,3 @@ class FluidConfig:
                 "is False; use backend='ref' to run the plain PyTorch ops")
         return self.backend
 
-
-def check_ported(config: FluidConfig) -> None:
-    """Raise for config values whose paths the port does not have yet."""
-    missing = [f"{name}=True"
-               for name in ("fast_dye", "fast_velocity", "fast_diffuse")
-               if getattr(config, name)]
-    if missing:
-        raise NotImplementedError(
-            ", ".join(missing) + " not yet ported to cudafluidsimulation_tpu_torch")

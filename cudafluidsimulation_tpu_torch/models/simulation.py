@@ -34,13 +34,14 @@ class Simulation:
 
     ``device`` defaults to the CUDA device for the ``cuda`` backend and to
     the CPU for ``ref``; the ``ref`` backend also runs on a CUDA device when
-    asked.  Building a simulation raises for config values the port has not
-    ported yet and for ``backend='cuda'`` without a CUDA device.
+    asked.  Building a simulation raises for ``backend='cuda'`` without a
+    CUDA device.  ``ops`` replaces the backend's op namespace (for example
+    the plain versions of the kernels, to hold a step against them).
     """
 
-    def __init__(self, config: FluidConfig, device=None):
+    def __init__(self, config: FluidConfig, device=None, ops=None):
         self.config = config
-        self.ops = get_ops(config)
+        self.ops = get_ops(config) if ops is None else ops
         backend = config.resolve_backend()
         if device is None:
             device = "cuda" if backend == "cuda" else "cpu"

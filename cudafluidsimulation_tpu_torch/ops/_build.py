@@ -30,7 +30,7 @@ import torch
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-SOURCES = ("advect", "vorticity", "diffuse", "pressure", "multigrid")
+SOURCES = ("advect", "vorticity", "diffuse", "pressure", "multigrid", "sepdiffuse")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,24 +1,33 @@
-"""H1: semi-Lagrangian advection on the card (``csrc/advect.cu``).
+"""H1 and H8: semi-Lagrangian advection on the card (``csrc/advect.cu``).
 
-Replaces ``cudafluidsimulation_tpu/ops/advect_pallas.py``: ``_advect_kernel``
-(via ``_advect_flat``) and ``_advect_kernel_tiled`` (via ``_advect_tiled``),
-their cores ``_advect_core`` and ``_advect_core_static``, and
-``_emit_stats``.  The TPU has no fast gather, so the Pallas kernel turns
-the bilinear gather into a shift-accumulation over a bounded displacement
-window.  The card gathers natively: one thread per cell backtraces,
-truncates the corner, clamps four taps and blends them, as ``ops/ref.py``
-does.  The backtrace is unbounded, like the ref backend; the Pallas
-kernel's ``max_displacement`` clamp is not copied.
+**H1** replaces ``cudafluidsimulation_tpu/ops/advect_pallas.py``:
+``_advect_kernel`` (via ``_advect_flat``) and ``_advect_kernel_tiled`` (via
+``_advect_tiled``), their cores ``_advect_core`` and
+``_advect_core_static``, and ``_emit_stats``.  The TPU has no fast gather,
+so the Pallas kernel turns the bilinear gather into a shift-accumulation
+over a bounded displacement window.  The card gathers natively: one thread
+per cell backtraces, truncates the corner, clamps four taps and blends
+them, as ``ops/ref.py`` does.  The backtrace is unbounded, like the ref
+backend; the Pallas kernel's ``max_displacement`` clamp is not copied.
 
-What bounds it: bytes.  At 2048² the velocity pass reads u, v and writes
+**H8** (``packed=True``, the ``fast_velocity`` and ``fast_dye`` modes)
+replaces the bf16-tap cores ``_advect_core_packed`` and
+``_advect_core_packed_vel``: the same gather over taps rounded as the TPU
+kernels pack them, the dye clamped to >= 0 before the pow, and, with
+``fast_path``, the exact H1 arithmetic on a quiet step, decided on the
+device from ``vel_stats`` (or from max|u|, max|v| reduced first when it is
+None), so the step reads nothing back.  Plain version:
+``ops/advect_packed.py``.
+
+What bounds both: bytes.  At 2048² the velocity pass reads u, v and writes
 u', v' (4 planes, 64 MiB); the dye pass reads u', v' and 3 dye planes and
 writes 3 (8 planes, 128 MiB).  The taps are near the cell, so they hit L1
 and L2.  The velocity pass also emits [max|u'|, max|v'|] (a block
 reduction and one atomic per block), so no later pass re-reads the
 velocity to bound it.
 
-The wrappers take the plain version (``ops.ref``) for CPU tensors and
-launch the kernel or raise for CUDA tensors.
+The wrappers take the plain versions (``ops.ref``, ``ops.advect_packed``)
+for CPU tensors and launch the kernel or raise for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ import ctypes
 
 import torch
 
-from cudafluidsimulation_tpu_torch.ops import ref
+from cudafluidsimulation_tpu_torch.ops import advect_packed, ref
 from cudafluidsimulation_tpu_torch.ops._build import (
     Kernel, check_f32, on_card, stream_of)
 
@@ -37,43 +46,88 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("advect", {
     "fluid_advect": [_P] * 9 + [_I] * 4 + [_F, _F, _P],
 })
+# fluid_advect_packed(f0, f1, f2, o0, o1, o2, u, v, bound, scratch, stats,
+#                     c, h, w, dye, fast_path, dt, decay, stream)
+PACKED = Kernel("advect", {
+    "fluid_advect_packed": [_P] * 11 + [_I] * 5 + [_F, _F, _P],
+})
+
+
+def _ptrs(tensors):
+    return [t.data_ptr() for t in tensors] + [None] * (3 - len(tensors))
 
 
 def _launch(planes, outs, u, v, stats, dt, decay_rate, dye: bool):
-    c = len(planes)
     h, w = u.shape
-    ptrs = [p.data_ptr() for p in planes] + [None] * (3 - c)
-    optrs = [o.data_ptr() for o in outs] + [None] * (3 - c)
     with torch.cuda.device(u.device):
         KERNEL.launch(
-            "fluid_advect", *ptrs, *optrs, u.data_ptr(), v.data_ptr(),
+            "fluid_advect", *_ptrs(planes), *_ptrs(outs), u.data_ptr(),
+            v.data_ptr(), stats.data_ptr() if stats is not None else None,
+            len(planes), h, w, int(dye), float(ref.f32(dt)),
+            ref.decay_factor(dt, decay_rate), stream_of(u))
+
+
+def _launch_packed(planes, outs, u, v, vel_stats, stats, dt, decay_rate,
+                   dye: bool, fast_path: bool):
+    h, w = u.shape
+    if vel_stats is not None:
+        check_f32("vel_stats", vel_stats, (2,))
+    # the kernel reduces max|u|, max|v| here when no bound is given
+    scratch = (torch.empty((2,), dtype=torch.float32, device=u.device)
+               if fast_path and vel_stats is None else None)
+    with torch.cuda.device(u.device):
+        PACKED.launch(
+            "fluid_advect_packed", *_ptrs(planes), *_ptrs(outs),
+            u.data_ptr(), v.data_ptr(),
+            vel_stats.data_ptr() if vel_stats is not None else None,
+            scratch.data_ptr() if scratch is not None else None,
             stats.data_ptr() if stats is not None else None,
-            c, h, w, int(dye), float(ref.f32(dt)), ref.decay_factor(dt, decay_rate),
-            stream_of(u))
+            len(planes), h, w, int(dye), int(bool(fast_path)),
+            float(ref.f32(dt)), ref.decay_factor(dt, decay_rate), stream_of(u))
+
+
+def _given(*tensors):
+    return [t for t in tensors if t is not None]
 
 
 def advect_velocity(u, v, dt, decay_rate, *, vel_stats=None,
-                    return_stats: bool = False):
+                    return_stats: bool = False, packed: bool = False,
+                    fast_path: bool = True):
     """Self-advection of (u, v) with decay; ``ops.ref.advect_velocity``
-    semantics.  ``return_stats`` also returns the kernel-emitted
-    [max|u'|, max|v'|]."""
-    if not on_card(u, v):
+    semantics, or ``ops.advect_packed.advect_velocity``'s with ``packed``
+    (kernel H8; ``fast_path`` and ``vel_stats`` steer its quiet branch).
+    ``return_stats`` also returns the kernel-emitted [max|u'|, max|v'|]."""
+    if not on_card(*_given(u, v, vel_stats)):
+        if packed:
+            return advect_packed.advect_velocity(
+                u, v, dt, decay_rate, vel_stats=vel_stats,
+                return_stats=return_stats, fast_path=fast_path)
         return ref.advect_velocity(u, v, dt, decay_rate, vel_stats=vel_stats,
                                    return_stats=return_stats)
     check_f32("u", u, u.shape)
     check_f32("v", v, u.shape)
     out = torch.empty((2,) + tuple(u.shape), dtype=torch.float32, device=u.device)
     stats = torch.empty((2,), dtype=torch.float32, device=u.device)
-    _launch([u, v], [out[0], out[1]], u, v, stats, dt, decay_rate, dye=False)
+    if packed:
+        _launch_packed([u, v], [out[0], out[1]], u, v, vel_stats, stats, dt,
+                       decay_rate, dye=False, fast_path=fast_path)
+    else:
+        _launch([u, v], [out[0], out[1]], u, v, stats, dt, decay_rate, dye=False)
     if return_stats:
         return out[0], out[1], stats
     return out[0], out[1]
 
 
-def advect_dye(dye, u, v, dt, decay_rate, *, vel_stats=None):
+def advect_dye(dye, u, v, dt, decay_rate, *, vel_stats=None,
+               packed: bool = False, fast_path: bool = True):
     """Dye advection through the advected velocity with the fade
-    fmin(1, c^1.005 * decay); ``ops.ref.advect_dye`` semantics."""
-    if not on_card(dye, u, v):
+    fmin(1, c^1.005 * decay); ``ops.ref.advect_dye`` semantics, or
+    ``ops.advect_packed.advect_dye``'s with ``packed`` (kernel H8)."""
+    if not on_card(*_given(dye, u, v, vel_stats)):
+        if packed:
+            return advect_packed.advect_dye(dye, u, v, dt, decay_rate,
+                                            vel_stats=vel_stats,
+                                            fast_path=fast_path)
         return ref.advect_dye(dye, u, v, dt, decay_rate, vel_stats=vel_stats)
     h, w = u.shape
     check_f32("u", u, (h, w))
@@ -82,5 +136,9 @@ def advect_dye(dye, u, v, dt, decay_rate, *, vel_stats=None):
         raise ValueError(f"dye: expected (C<=3, H, W), got {tuple(dye.shape)}")
     check_f32("dye", dye, (dye.shape[0], h, w))
     out = torch.empty_like(dye)
-    _launch(list(dye), list(out), u, v, None, dt, decay_rate, dye=True)
+    if packed:
+        _launch_packed(list(dye), list(out), u, v, vel_stats, None, dt,
+                       decay_rate, dye=True, fast_path=fast_path)
+    else:
+        _launch(list(dye), list(out), u, v, None, dt, decay_rate, dye=True)
     return out

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import types
 
-from cudafluidsimulation_tpu_torch.config import FluidConfig, check_ported
+from cudafluidsimulation_tpu_torch.config import FluidConfig
 from cudafluidsimulation_tpu_torch.ops import ref as _ref
 
 _OP_NAMES = [
@@ -50,9 +50,9 @@ def _namespace(overrides=None) -> types.SimpleNamespace:
 
 
 def get_ops(config: FluidConfig) -> types.SimpleNamespace:
-    """The op namespace for ``config``.  Raises for config values the port
-    has not ported yet, and for ``backend='cuda'`` without a CUDA device."""
-    check_ported(config)
+    """The op namespace for ``config``; raises for ``backend='cuda'``
+    without a CUDA device.  ``ref`` ignores the ``fast_*`` flags, as the
+    JAX package's ref backend does."""
     backend = config.resolve_backend()
     if backend == "ref":
         return _namespace()

@@ -1,0 +1,75 @@
+"""H7: separable fast diffusion on the card (``csrc/sepdiffuse.cu``).
+
+Replaces ``cudafluidsimulation_tpu/ops/fastdiffuse.py`` ``_sep_apply`` →
+``_sep_kernel`` and ``_sep_kernel_tiled``.  One launch covers up to five
+channels (grid z = channel), as the fast step's 5-channel pack needs; each block loads its 32×32 tile plus an
+rmax-deep ring at half-sample symmetric coordinates into shared memory,
+runs each rank's x pass into shared memory and its y pass into registers,
+then adds the optional splat tail.  The TPU kernels' strip and column-tile
+planning and their mirror padding have no counterpart: the kernel takes
+any grid and any radius, and reflects more than once when a radius
+reaches past the grid.
+
+What bounds it: shared-memory loads (a tap and an operand for each of
+~45 products a cell), not its 160 MiB a call at 2048²; it still replaces
+20 sweeps of 160 MiB each by H3 at a fifth of H3's time (PERF.md).
+
+The wrapper takes the plain version (``ops.fastdiffuse.sep_apply``) for
+CPU tensors and launches the kernel or raises for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from cudafluidsimulation_tpu_torch.ops import fastdiffuse, ref
+from cudafluidsimulation_tpu_torch.ops._build import Kernel, on_card, stream_of
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# fluid_sep_diffuse(in, out, c, h, w, taps*, tap_len, radii*, rank, amp*,
+#                   lx, ly, radius, stream); taps, radii and amp are host
+#                   pointers, amp null for no splat
+SEP = Kernel("sepdiffuse", {
+    "fluid_sep_diffuse": [_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _F, _F, _F, _P],
+})
+
+MAX_CHANNELS = 5  # csrc/sepdiffuse.cu SEP_MAX_CHANNELS
+MAX_RANK = 3  # SEP_MAX_RANK
+MAX_TAPS = 160  # SEP_MAX_TAPS, floats a channel
+
+
+def sep_apply(fields, taps, radii, splat=None):
+    """Rank-R separable blur of (C, H, W) ``fields`` with half-sample
+    symmetric edges and the optional splat tail (amps, last, radius);
+    ``ops.fastdiffuse.sep_apply`` semantics."""
+    if not on_card(fields):
+        return fastdiffuse.sep_apply(fields, taps, radii, splat)
+    taps = fastdiffuse.check_taps(fields, taps, radii)
+    if not fields.is_contiguous():
+        raise ValueError("fields: expected a contiguous tensor")
+    c, h, w = fields.shape
+    if c > MAX_CHANNELS or len(radii) > MAX_RANK or taps.shape[1] > MAX_TAPS:
+        raise ValueError(f"sepdiffuse takes at most {MAX_CHANNELS} channels, "
+                         f"{MAX_RANK} ranks and {MAX_TAPS} taps a channel, got "
+                         f"{c} channels and radii {tuple(radii)}")
+    if splat is None:
+        amps, lx, ly, radius = None, 0.0, 0.0, 1.0
+    else:
+        amps = np.ascontiguousarray(ref.f32_vec(splat[0]))  # read by pointer
+        if amps.shape[0] != c:
+            raise ValueError(f"amps: expected {c} values, got {amps.shape[0]}")
+        last = ref.f32_vec(splat[1])
+        lx, ly, radius = float(last[0]), float(last[1]), float(ref.f32(splat[2]))
+    radii_host = np.asarray(radii, np.int32)
+    out = torch.empty_like(fields)
+    with torch.cuda.device(fields.device):
+        SEP.launch(
+            "fluid_sep_diffuse", fields.data_ptr(), out.data_ptr(), c, h, w,
+            taps.ctypes.data, taps.shape[1], radii_host.ctypes.data, len(radii),
+            amps.ctypes.data if amps is not None else None,
+            lx, ly, radius, stream_of(fields))
+    return out

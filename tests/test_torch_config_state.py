@@ -83,14 +83,68 @@ def test_validation_matches(bad):
         FluidConfig(**bad)
 
 
-@pytest.mark.parametrize("kw", [dict(fast_dye=True), dict(fast_velocity=True),
-                                dict(fast_diffuse=True)])
-def test_unported_paths_raise(kw):
+FAST_FLAGS = [dict(fast_dye=True), dict(fast_velocity=True), dict(fast_diffuse=True)]
+FAST_IDS = ["fast_dye", "fast_velocity", "fast_diffuse"]
+
+
+def _driven(cfg):
+    """A state after 8 driven orbit steps on the exact ref ops, and the
+    next step's impulse."""
+    sim = Simulation(dataclasses.replace(cfg, fast_dye=False, fast_velocity=False,
+                                         fast_diffuse=False, backend="ref"))
+    imp = timp.orbit_impulse(9, cfg.dt, center=(16.0, 16.0), radius=8.0, omega=3.0)
+    state = sim.run(sim.init(), timp.Impulse(*(f[:8] for f in imp)))
+    return sim, state, timp.slice_step(imp, 8)
+
+
+@pytest.mark.parametrize("kw", FAST_FLAGS, ids=FAST_IDS)
+def test_fast_flags_ignored_on_ref(kw):
+    # backend="ref" runs the plain ref ops whatever the fast_* flags say,
+    # as the JAX package's ref backend does
     cfg = FluidConfig.gpu_reference(nx=32, ny=32, backend="ref", **kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_ops(cfg)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Simulation(cfg)
+    exact_sim, state, imp = _driven(cfg)
+    got, exp = Simulation(cfg).step(state, imp), exact_sim.step(state, imp)
+    for name in got._fields:
+        assert torch.equal(getattr(got, name), getattr(exp, name)), name
+
+
+@pytest.mark.parametrize("kw", FAST_FLAGS, ids=FAST_IDS)
+def test_fast_flags_engage_on_kernel_namespace(kw):
+    # the cuda backend's namespace, given CPU tensors, runs the fast ops'
+    # plain versions: the step differs from the exact one
+    from cudafluidsimulation_tpu_torch.models.pipelines import make_step
+    from cudafluidsimulation_tpu_torch.ops import backend, cuda_kernels, jacobi_cuda
+
+    cfg = FluidConfig.gpu_reference(nx=32, ny=32, backend="ref", **kw)
+    ns = backend._namespace(cuda_kernels.overrides(cfg))
+    assert ns.advect_velocity.keywords["packed"] is cfg.fast_velocity
+    assert ns.advect_dye.keywords["packed"] is cfg.fast_dye
+    assert ns.advect_dye.keywords["fast_path"] is cfg.advect_fast_path
+    assert (ns.diffuse_multi_splat is not jacobi_cuda.diffuse_multi_splat) == cfg.fast_diffuse
+    exact_sim, state, imp = _driven(cfg)
+    assert float(state.vel_stats.max()) * cfg.dt > 1.0  # the packed branch
+    got, exp = make_step(cfg, ns)(state, imp), exact_sim.step(state, imp)
+    for name in ("u", "v", "dye", "pressure", "vel_stats"):
+        assert bool(torch.isfinite(getattr(got, name)).all()), name
+    changed = "u" if kw != dict(fast_dye=True) else "dye"
+    assert not torch.equal(getattr(got, changed), getattr(exp, changed))
+
+
+def test_fast_step_on_cpu_tensors_launches_nothing():
+    from cudafluidsimulation_tpu_torch.models.pipelines import make_step
+    from cudafluidsimulation_tpu_torch.ops import (
+        advect_cuda, backend, cuda_kernels, fastdiffuse_cuda, jacobi_cuda,
+        multigrid_cuda)
+
+    kernels = (advect_cuda.KERNEL, advect_cuda.PACKED, fastdiffuse_cuda.SEP,
+               jacobi_cuda.VORTICITY, jacobi_cuda.DIFFUSE, jacobi_cuda.PRESSURE,
+               jacobi_cuda.PRESSURE_SOLVE, jacobi_cuda.STENCIL) + multigrid_cuda.KERNELS
+    cfg = FluidConfig.gpu_reference(nx=32, ny=32, backend="ref", fast_dye=True,
+                                    fast_velocity=True, fast_diffuse=True)
+    _, state, imp = _driven(cfg)
+    before = [k.launches for k in kernels]
+    make_step(cfg, backend._namespace(cuda_kernels.overrides(cfg)))(state, imp)
+    assert [k.launches for k in kernels] == before
 
 
 def _step_once(cfg):
