@@ -8,8 +8,9 @@ caught:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the six kernel sources from ``cudafluidsimulation_tpu_torch/csrc``
-   with ``nvcc`` (one compiler per source, all at once) and print the
-   seconds;
+   with ``nvcc`` (one compiler per source, all at once), print the seconds
+   and each kernel's ``ptxas`` registers and spills, and fail if the
+   temporally blocked H3 or H4 spills;
 3. hold each kernel against its plain PyTorch version on the same inputs:
    H1 advect in both modes, H2 vorticity, H3 diffusion with the splat, H4
    pressure with its velocity bound, H5 divergence and projection at
@@ -17,7 +18,10 @@ caught:
    and 16x16, the coarse levels' shapes; then, at 540x960, the dye's NaN
    saturation, the cpu variant's flags (vorticity sign and epsilon, full
    divergence, 2-channel diffusion), 0, 1 and 2 iterations, and H4's
-   standalone ``pressure_solve`` at 0, 1, 2 and 40 sweeps; H7 (separable
+   standalone ``pressure_solve`` at 0, 1, 2 and 40 sweeps; H3 and H4 at
+   k - 1, k, k + 1 and 2k + 1 sweeps (k the planner's burst depth) at
+   16x16, 4x8, 135x240 and 2049x2047 (ragged tiles), where H4, its solve
+   and H3 without the splat must be bit-identical; H7 (separable
    diffusion) with and without the splat, at 5 and 2 channels, at 2048x2048,
    540x960, 16x16 and 4x8 (where radius 5 reflects more than once), and
    against H3's 20 sweeps; H8 (bf16-tap advection) in both modes on driven
@@ -49,8 +53,12 @@ caught:
    that the step reads nothing back;
 8. timing with CUDA events after a warm-up: driven and quiet steps/s of
    the parity, quality and fast paths, the fixed-cycle path's ms/step, the
-   plain versions' ms/step on the card, and each kernel's ms at its path's
-   shapes beside its plain version's.
+   plain versions' ms/step on the card, the device launches one H3 and one
+   H4 call make (``torch.profiler``), H3 and H4 under a few other burst
+   plans (information), and each kernel's ms at its path's shapes beside
+   its plain version's and its bound: the larger of its bytes (each input
+   read once, each output written once) at 3.35 TB/s and its float32
+   operations at 67 TFLOP/s.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -77,17 +85,27 @@ CHECK_SHAPES = ((2048, 2048), (540, 960))
 MG_SHAPES = CHECK_SHAPES + ((135, 240), (16, 16))
 # max |kernel - plain| <= RTOL * max(max|plain|, 1) for each kernel.
 # The kernels are built without FMA contraction and use the same CUDA math
-# library as PyTorch's own kernels, so they round as the plain versions do;
-# what remains is the plain version's division by a host scalar, which
-# PyTorch computes as a multiply by the reciprocal (one ulp inside the
-# splat's expf), and the sums of 20 or 40 sweeps carrying that ulp along.
-# H5 and H6 are additions and multiplications by constants, one PyTorch op
-# per operation, so they should be bit-identical.  H7 runs the plain
-# version's products and sums in its order (bit-identical without the
-# splat) and adds the splat's exp, one ulp as H3.  H8 is H1's arithmetic
-# over taps rounded by integer operations, so bit-identical as H1.
-RTOL = {"H1": 1e-6, "H2": 1e-6, "H3": 1e-5, "H4": 1e-5, "H4 solve": 1e-5,
-        "H5": 1e-6, "H6": 1e-6, "H7": 1e-5, "H8": 1e-6}
+# library as PyTorch's own kernels, so they round as the plain versions do.
+# H4, its solve, H5 and H6, and H3 without the splat ("H3 sweeps"), are
+# additions and multiplications in the plain version's order, one PyTorch
+# op per operation, so they are bit-identical; H4, its solve and "H3
+# sweeps" are held to 0 at every burst plan (a blocked sweep computes each
+# cell as a global sweep does).  The splat's division by a host scalar is
+# a multiply by the reciprocal in PyTorch, one ulp inside the exp: H3 and
+# H7 (which runs the plain version's products and sums in its order) keep
+# 1e-5 for it.  H8 is H1's arithmetic over taps rounded by integer
+# operations, so bit-identical as H1.
+RTOL = {"H1": 1e-6, "H2": 1e-6, "H3": 1e-5, "H3 sweeps": 0.0, "H4": 0.0,
+        "H4 solve": 0.0, "H5": 1e-6, "H6": 1e-6, "H7": 1e-5, "H8": 1e-6}
+# the burst checks' shapes: one tile, a grid narrower than a 16-byte row,
+# the reference grid's odd coarse level, ragged tiles on both axes
+BURST_SHAPES = ((16, 16), (4, 8), (135, 240), (2049, 2047))
+# the most device launches one entry call may make at 2048²
+MAX_DEVICE_LAUNCHES = {"H3": 5, "H4": 8, "H4 solve": 8}
+# the card's peaks (NVIDIA's H100 SXM data sheet): device memory bytes/s,
+# float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 # one whole driven step, cuda against ref on the card:
 # max |cuda - ref| <= STEP_RTOL * max|ref| for each field
 STEP_RTOL = 1e-5
@@ -142,6 +160,30 @@ def _check_state(what, *states):
 def _check_frame(what, frame):
     if frame.shape != (N, N, 4) or frame.dtype.name != "uint8" or frame[..., :3].max() == 0:
         raise AssertionError(f"{what}: bad frame {frame.shape} {frame.dtype} max {frame.max()}")
+
+
+def _nbytes(obj):
+    """Bytes of every tensor in a (nested) tuple or list."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (tuple, list)):
+        return sum(_nbytes(o) for o in obj)
+    return 0
+
+
+def _device_kernels(fn):
+    """{name: count} of the device operations one call of ``fn`` makes,
+    from ``torch.profiler``'s trace of the card."""
+    torch.cuda.synchronize()
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return counts
 
 
 def _step_vs_ref(what, sim, ref_sim, state, imp):
@@ -215,6 +257,9 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+            if (name in ("diffuse", "pressure") and "spill" in line
+                    and "0 bytes spill stores, 0 bytes spill loads" not in line):
+                raise AssertionError(f"ptxas {name}: {line.strip()}")
     _json({"phase": "build", "seconds": build_s, "nvcc": _build.nvcc()})
 
     # -- 3. each kernel against its plain version ----------------------------
@@ -309,7 +354,7 @@ def main() -> int:
         _check(worst, "H3", f"splat iters={iters}", [(
             "fields", jacobi_cuda.diffuse_multi_splat(fields, dt, coeffs, iters, amps, last, 400.0),
             ref.diffuse_multi_splat(fields, dt, coeffs, iters, amps, last, 400.0))])
-    _check(worst, "H3", "diffuse 2-channel", [(
+    _check(worst, "H3 sweeps", "diffuse 2-channel", [(
         "uv", jacobi_cuda.diffuse(fields[:2].contiguous(), dt, 0.8, 5),
         ref.diffuse(fields[:2], dt, 0.8, 5))])
     for iters in (0, 1, 2):
@@ -322,6 +367,31 @@ def main() -> int:
         _check(worst, "H4 solve", f"iters={iters}", [(
             "p", jacobi_cuda.pressure_solve(div, iters), ref.pressure_solve(div, iters))])
     del u, v, dye, fields, sat, push, got, exp, p, rhs, div
+
+    # H3 and H4 around the burst depth k: one burst short of k, exactly k,
+    # one sweep into a second burst, and 2k + 1 (three bursts); one tile,
+    # a grid narrower than one 16-byte load, odd and ragged tiles
+    k = jacobi_cuda.DEPTH
+    for h, w in BURST_SHAPES:
+        u, v = randn(h, w, scale=200.0), randn(h, w, scale=200.0)
+        fields = torch.cat([torch.stack([u, v]), torch.rand((3, h, w), generator=gen, device=dev)])
+        last = (w * 0.4, h * 0.6)
+        div = ref.divergence(u, v, True)
+        for iters in (k - 1, k, k + 1, 2 * k + 1):
+            tag = f"iters={iters} {h}x{w}"
+            _check(worst, "H3 sweeps", tag, [(
+                "fields", jacobi_cuda.diffuse_multi(fields, dt, coeffs, iters),
+                ref.diffuse_multi(fields, dt, coeffs, iters))])
+            _check(worst, "H3", f"splat {tag}", [(
+                "fields", jacobi_cuda.diffuse_multi_splat(fields, dt, coeffs, iters, amps, last, 400.0),
+                ref.diffuse_multi_splat(fields, dt, coeffs, iters, amps, last, 400.0))])
+            for half in (True, False):
+                got = jacobi_cuda.pressure_project(u, v, iters, half, return_stats=True)
+                exp = ref.pressure_project(u, v, iters, half, return_stats=True)
+                _check(worst, "H4", f"half={half} {tag}", zip(("u", "v", "p", "stats"), got, exp))
+            _check(worst, "H4 solve", tag, [(
+                "p", jacobi_cuda.pressure_solve(div, iters), ref.pressure_solve(div, iters))])
+    del u, v, fields, div, got, exp
 
     # H7 at the shipped design (rank 2, radii 5 and 4): 5 channels with the
     # dye taps, 2 with the velocity taps; 16x16 is one tile, and at 4x8
@@ -623,13 +693,6 @@ def main() -> int:
                         advect_packed.advect_dye(kstate.dye, ku2, kv2, dt, decay_rate,
                                                  vel_stats=kst2))),
     }
-    # each row's launches come from the path that runs it
-    paths = {"H1": "parity", "H2": "parity", "H3": "parity", "H4": "parity",
-             "H4 solve": None, "H5": "quality", "H6 smooth_damped": "quality",
-             "H6 smooth_res": "quality", "H6 first_smooth_res": "quality",
-             "H6 last_smooth_project": "fixed-cycle", "H7": "fast", "H8": "fast"}
-    path_launches = {"parity": parity_launches, "quality": quality_launches,
-                     "fixed-cycle": fixed_launches, "fast": fast_launches}
     def per_call(fn, iters, warmup):
         # BATCH calls back to back in each timed window, as a step issues
         # them: a small kernel's row is then its device time wherever the
@@ -638,8 +701,72 @@ def main() -> int:
                               warmup=warmup)
         return [t / BATCH for t in times]
 
+    # what each row's call reads, for its bound (its outputs are counted
+    # from one call), and the float32 operations it does, counted per cell
+    # from its formulas (a transcendental as one operation)
+    cells, mg_cells = N * N, qu.numel()
+    sep_taps = sum(2 * (2 * r + 1) for r in radii)
+    io = {
+        "H1": ([u, v, dye, u2, v2], cells * 72),
+        "H2": ([u, v], cells * 25),
+        "H3": ([all5], 5 * cells * (6 * 20 + 10)),
+        "H4": ([u, v], cells * (4 + 5 * 40 + 8)),
+        "H4 solve": ([div], cells * 5 * 40),
+        "H5": ([qu, qv, qu, qv, p], mg_cells * 12),
+        "H6 smooth_damped": ([p, rhs], mg_cells * 16),
+        "H6 smooth_res": ([p, rhs, rhs], mg_cells * 46),
+        "H6 first_smooth_res": ([qu, qv], mg_cells * 27),
+        "H6 last_smooth_project": ([p, rhs, qu, qv], mg_cells * 24),
+        "H7": ([all5], 5 * cells * (2 * sep_taps + 10)),
+        "H8": ([ku, kv, kst, kstate.dye, ku2, kv2, kst2], cells * 82),
+    }
+
+    # the device operations one H3 and one H4 call make at the path's shapes
+    device_launches = {
+        "H3": _device_kernels(cases["H3"][0]),
+        "H4": _device_kernels(cases["H4"][0]),
+        "H4 solve": _device_kernels(cases["H4 solve"][0]),
+    }
+    plans = {"H3": jacobi_cuda.plan_bursts(N, N, 20, "diffuse"),
+             "H4": jacobi_cuda.plan_bursts(N, N, 40, "project"),
+             "H4 solve": jacobi_cuda.plan_bursts(N, N, 40, "solve")}
+    for k, counts in device_launches.items():
+        n = sum(counts.values())
+        _json({"phase": "device_launches_per_call", "kernel": k, "grid": f"{N}x{N}",
+               "launches": n, "by_name": counts, "plan_depths": plans[k].depths,
+               "plan_tile": plans[k].tile, "plan_smem": plans[k].smem})
+        if not 0 < n <= MAX_DEVICE_LAUNCHES[k]:
+            raise AssertionError(f"{k}: {n} device launches in one call")
+
+    # information: H3 and H4 under other burst plans, against the default
+    def plan_ms(fn):
+        return statistics.median(per_call(fn, iters=5, warmup=1))
+
+    plan_rows = []
+    for tile, depth in ((jacobi_cuda.TILE, jacobi_cuda.DEPTH), ((32, 112), 8), ((40, 112), 8),
+                        ((42, 112), 8), ((26, 112), 8), ((48, 104), 10), ((40, 104), 10)):
+        hp = jacobi_cuda.plan_bursts(N, N, 20, "diffuse", tile=tile, depth=depth)
+        pp = jacobi_cuda.plan_bursts(N, N, 40, "project", tile=tile, depth=depth)
+        plan_rows.append({
+            "tile": tile, "depth": depth,
+            "H3_depths": hp.depths, "H3_smem": max(hp.smem),
+            "H3_ms": plan_ms(lambda: jacobi_cuda._diffuse(all5, dt, [0.8] * 5, 20, splat, plan=hp)),
+            "H4_depths": pp.depths, "H4_smem": max(pp.smem),
+            "H4_ms": plan_ms(lambda: jacobi_cuda._pressure_project(u, v, 40, True, plan=pp))})
+    _json({"phase": "burst_plans", "grid": f"{N}x{N}", "plans": plan_rows, "smi": smi[0]})
+
+    # each row's launches come from the path that runs it
+    paths = {"H1": "parity", "H2": "parity", "H3": "parity", "H4": "parity",
+             "H4 solve": None, "H5": "quality", "H6 smooth_damped": "quality",
+             "H6 smooth_res": "quality", "H6 first_smooth_res": "quality",
+             "H6 last_smooth_project": "fixed-cycle", "H7": "fast", "H8": "fast"}
+    path_launches = {"parity": parity_launches, "quality": quality_launches,
+                     "fixed-cycle": fixed_launches, "fast": fast_launches}
     rows = []
     for k, (kern_fn, plain_fn) in cases.items():
+        inputs, ops = io[k]
+        nbytes = _nbytes(inputs) + _nbytes(kern_fn())
+        bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
         # plain, kernel, kernel, plain: drift affects both alike
         p1 = per_call(plain_fn, iters=3, warmup=1)
         k1 = per_call(kern_fn, iters=5, warmup=1)
@@ -653,7 +780,14 @@ def main() -> int:
             "replaces": f"cudafluidsimulation_tpu/ops/{replaces}",
             "launches": path_launches[path][k] if path else 0, "path": path,
             "max_abs_err": worst[k.split()[0] if k.startswith("H6") else k],
+            **({"max_abs_err_without_splat": worst["H3 sweeps"]} if k == "H3" else {}),
             "ms": statistics.median(k1 + k2), "plain_ms": statistics.median(p1 + p2),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "operations": ops,
+            # no single PyTorch call computes any of these functions (20 or
+            # 40 clamped sweeps, clamped bilinear gathers, the fused ends)
+            "library_ms": None,
         })
     print(smi[0], flush=True)
     _json({"kernels": rows})

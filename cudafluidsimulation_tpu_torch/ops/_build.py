@@ -12,7 +12,8 @@ No fast-math flag: the kernels' ``expf``/``powf``/``sqrtf`` and divisions
 stay IEEE, and the dye's NaN saturation relies on ``fminf``.  ``-fmad=false``
 keeps nvcc from contracting a multiply and an add into one FMA, so each
 kernel rounds as its plain version (one PyTorch op per operation) does;
-the kernels are bound by bytes, so the lost FMAs cost nothing measurable.
+most kernels are bound by bytes, where the lost FMAs cost nothing
+measurable, and H3's sweep loses one multiply-add a cell to it.
 """
 
 from __future__ import annotations
