@@ -14,7 +14,8 @@ driven steps is measured three ways:
 - a ``torch.profiler`` trace of the window: device busy ms a step (the sum
   of the device operations' durations; the port runs on one stream, so
   they do not overlap), the idle share of the window, and each device
-  operation's µs and launches a step, largest first.
+  operation's µs and launches a step, largest first, and the window's
+  first step op by op in launch order (µs each).
 
 Prints one JSON line per path, after the card's name and power limit.
 Needs a CUDA device; imports nothing of JAX.
@@ -58,16 +59,28 @@ def profile(sim, warm, window, cuda_times_ms):
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        # a session after the first may drop its first device records: let
+        # a few marker kernels take that place (not counted)
+        for _ in range(4):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.01)
         sim.run(state, window)
         torch.cuda.synchronize()
+    timeline = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and "spin_kernel" not in e.name), key=lambda e: e.time_range.start)
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    for e in timeline:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_us = sum(us for us, _ in by_name.values())
     ops = sorted(((name, us / steps, n / steps) for name, (us, n) in by_name.items()),
                  key=lambda r: -r[1])
+    # the window's first step op by op, when every step makes as many
+    per_step = len(timeline) // steps
+    first_step = [[e.name.split("(")[0][-40:], e.time_range.elapsed_us()]
+                  for e in timeline[:per_step]] if per_step * steps == len(timeline) else None
     return {
         "steps": steps, "ms_per_step": window_ms / steps,
         "host_enqueue_ms_per_step": 1e3 * enqueue_s / steps,
@@ -76,6 +89,7 @@ def profile(sim, warm, window, cuda_times_ms):
         "device_ops_per_step": sum(n for _, _, n in ops),
         "ops": [{"name": name, "us_per_step": us, "launches_per_step": n}
                 for name, us, n in ops],
+        "first_step_ops_us": first_step,
     }
 
 

@@ -9,22 +9,26 @@ caught:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the six kernel sources from ``cudafluidsimulation_tpu_torch/csrc``
    with ``nvcc`` (one compiler per source, all at once), print the seconds
-   and each kernel's ``ptxas`` registers and spills, and fail if the
-   temporally blocked H3 or H4 spills;
+   and each kernel's ``ptxas`` registers and spills, and fail if H3, H4, H6
+   or H7 spills;
 3. hold each kernel against its plain PyTorch version on the same inputs:
    H1 advect in both modes, H2 vorticity, H3 diffusion with the splat, H4
    pressure with its velocity bound, H5 divergence and projection at
    2048x2048 and 540x960; H6 (the multigrid smoother ends) also at 135x240
-   and 16x16, the coarse levels' shapes; then, at 540x960, the dye's NaN
+   and 16x16, the coarse levels' shapes, and its ends with the grid
+   transfers fused in at the level pairs 2048²→1024², 540x960→270x480,
+   32²→16² and 2050x2046→1025x1023 (ragged tiles), at 1, 2 and 9 sweeps
+   (9 is two bursts), every H6 entry held to 0; then, at 540x960, the dye's NaN
    saturation, the cpu variant's flags (vorticity sign and epsilon, full
    divergence, 2-channel diffusion), 0, 1 and 2 iterations, and H4's
    standalone ``pressure_solve`` at 0, 1, 2 and 40 sweeps; H3 and H4 at
    k - 1, k, k + 1 and 2k + 1 sweeps (k the planner's burst depth) at
    16x16, 4x8, 135x240 and 2049x2047 (ragged tiles), where H4, its solve
    and H3 without the splat must be bit-identical; H7 (separable
-   diffusion) with and without the splat, at 5 and 2 channels, at 2048x2048,
-   540x960, 16x16 and 4x8 (where radius 5 reflects more than once), and
-   against H3's 20 sweeps; H8 (bf16-tap advection) in both modes on driven
+   diffusion) with and without the splat (without it held to 0), at 5 and
+   2 channels, at 2048x2048, 540x960, 16x16 and 4x8 (where radius 5
+   reflects more than once), its generic kernel on another design's radii,
+   and against H3's 20 sweeps; H8 (bf16-tap advection) in both modes on driven
    fields (the rounded branch) and quiet ones (the exact branch, also equal
    to H1 bit for bit), with ``vel_stats`` given and absent, with
    ``advect_fast_path`` off, and the dye's clamp and NaN saturation;
@@ -35,12 +39,14 @@ caught:
    card;
 5. the quality path: ``FluidConfig.quality`` at 2048² (multigrid pressure,
    V-cycles until rms(A p + div) < 0.05) on ``backend="cuda"``, the same
-   rollouts and frame, launch counts read around them (H5 and H6 launched,
-   H4's ``pressure_project`` not), the V-cycles each step took, one driven
-   step against ``backend="ref"``, and the tolerance met by one projection
-   of the driven state;
+   rollouts and frame, launch counts read around them (H5 and H6's fused
+   ends launched, H4's ``pressure_project`` not), the V-cycles each step
+   took (from the H6 entries' counts), the device operations of one step
+   (``torch.profiler``, at most 80), one driven step against
+   ``backend="ref"``, and the tolerance met by one projection of the driven
+   state;
 6. the fixed-cycle multigrid path (``mg_cycles=2``, ``mg_tol=0``) at 2048²
-   for a few steps: its last cycle ends in ``last_smooth_project``; one
+   for a few steps: its last cycle ends in ``prolong_smooth_project``; one
    step against ``backend="ref"``;
 7. the fast path: ``bench.py``'s ``fast_steps_per_sec`` configuration
    (the parity step with ``fast_dye``, ``fast_velocity`` and
@@ -53,9 +59,12 @@ caught:
    that the step reads nothing back;
 8. timing with CUDA events after a warm-up: driven and quiet steps/s of
    the parity, quality and fast paths, the fixed-cycle path's ms/step, the
-   plain versions' ms/step on the card, the device launches one H3 and one
-   H4 call make (``torch.profiler``), H3 and H4 under a few other burst
-   plans (information), and each kernel's ms at its path's shapes beside
+   plain versions' ms/step on the card, the device launches one H3, one H4
+   and each H6 call of the quality path make (``torch.profiler``; one each
+   for H6), H3 and H4 under a few other burst
+   plans (information), and each kernel's ms at its path's shapes (by CUDA
+   events over 10 calls, and its device ms by ``torch.profiler``, which
+   differ where a kernel is shorter than its wrapper's host cost) beside
    its plain version's and its bound: the larger of its bytes (each input
    read once, each output written once) at 3.35 TB/s and its float32
    operations at 67 TFLOP/s.
@@ -83,6 +92,10 @@ FIXED_STEPS = 8
 BATCH = 10  # kernel calls in each timed window of the per-kernel rows
 CHECK_SHAPES = ((2048, 2048), (540, 960))
 MG_SHAPES = CHECK_SHAPES + ((135, 240), (16, 16))
+# the fine shapes of the level pairs H6's fused ends are checked at: the
+# 2048² fine level, the reference grid, the last pair above the 16² bottom,
+# and an even grid whose tiles are ragged on both axes
+MG_PAIRS = ((2048, 2048), (540, 960), (32, 32), (2050, 2046))
 # max |kernel - plain| <= RTOL * max(max|plain|, 1) for each kernel.
 # The kernels are built without FMA contraction and use the same CUDA math
 # library as PyTorch's own kernels, so they round as the plain versions do.
@@ -90,18 +103,27 @@ MG_SHAPES = CHECK_SHAPES + ((135, 240), (16, 16))
 # additions and multiplications in the plain version's order, one PyTorch
 # op per operation, so they are bit-identical; H4, its solve and "H3
 # sweeps" are held to 0 at every burst plan (a blocked sweep computes each
-# cell as a global sweep does).  The splat's division by a host scalar is
-# a multiply by the reciprocal in PyTorch, one ulp inside the exp: H3 and
-# H7 (which runs the plain version's products and sums in its order) keep
-# 1e-5 for it.  H8 is H1's arithmetic over taps rounded by integer
+# cell as a global sweep does), and so is H6 (blocked the same way, its
+# restriction and prolongation in the plain version's order).  The splat's
+# division by a host scalar is a multiply by the reciprocal in PyTorch,
+# one ulp inside the exp: H3 and H7 keep 1e-5 for it; H7 without the splat
+# ("H7 sweeps": the plain version's products and sums in its order) is
+# held to 0.  H8 is H1's arithmetic over taps rounded by integer
 # operations, so bit-identical as H1.
 RTOL = {"H1": 1e-6, "H2": 1e-6, "H3": 1e-5, "H3 sweeps": 0.0, "H4": 0.0,
-        "H4 solve": 0.0, "H5": 1e-6, "H6": 1e-6, "H7": 1e-5, "H8": 1e-6}
+        "H4 solve": 0.0, "H5": 1e-6, "H6": 0.0, "H7": 1e-5, "H7 sweeps": 0.0,
+        "H8": 1e-6}
 # the burst checks' shapes: one tile, a grid narrower than a 16-byte row,
 # the reference grid's odd coarse level, ragged tiles on both axes
 BURST_SHAPES = ((16, 16), (4, 8), (135, 240), (2049, 2047))
 # the most device launches one entry call may make at 2048²
-MAX_DEVICE_LAUNCHES = {"H3": 5, "H4": 8, "H4 solve": 8}
+MAX_DEVICE_LAUNCHES = {"H3": 5, "H4": 8, "H4 solve": 8,
+                       "H6 smooth_res_restrict": 1, "H6 first_smooth_res_restrict": 1,
+                       "H6 prolong_smooth": 1, "H6 smooth_damped": 1}
+# the most device operations one 2048² quality step may make
+MAX_QUALITY_STEP_OPS = 80
+# marker kernels launched before the work a profiler session counts
+MARKERS = 4
 # the card's peaks (NVIDIA's H100 SXM data sheet): device memory bytes/s,
 # float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -171,19 +193,41 @@ def _nbytes(obj):
     return 0
 
 
-def _device_kernels(fn):
-    """{name: count} of the device operations one call of ``fn`` makes,
+def _device_trace(fn, calls=1):
+    """[(name, µs)] of the device operations ``calls`` calls of ``fn`` make,
     from ``torch.profiler``'s trace of the card."""
     torch.cuda.synchronize()
-    cuda = torch.profiler.ProfilerActivity.CUDA
-    with torch.profiler.profile(activities=[cuda]) as prof:
-        fn()
+    # with the CUDA activity alone a short session can miss a kernel that
+    # ctypes launched; with the CPU activity too it records each launch
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        # a session after the first may drop its first device records: let
+        # a few marker kernels take that place, then count what fn launches
+        for _ in range(MARKERS):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
+        time.sleep(0.01)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name]
+
+
+def _device_kernels(fn):
+    """{name: count} of the device operations one call of ``fn`` makes."""
     counts = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            counts[e.name] = counts.get(e.name, 0) + 1
+    for name, _ in _device_trace(fn):
+        counts[name] = counts.get(name, 0) + 1
     return counts
+
+
+def _device_ms(fn, calls=10):
+    """Device ms a call of ``fn``: its device operations' durations, summed
+    over ``calls`` calls, over ``calls``.  Where a kernel is shorter than its
+    wrapper's host cost, the event-timed ms of a row is the host's; this is
+    the card's."""
+    return sum(us for _, us in _device_trace(fn, calls)) / calls / 1e3
 
 
 def _step_vs_ref(what, sim, ref_sim, state, imp):
@@ -228,6 +272,13 @@ def main() -> int:
         "H6 smooth_res": (multigrid_cuda.SMOOTH_RES, "multigrid.cu", f"{jp}:1000"),
         "H6 first_smooth_res": (multigrid_cuda.FIRST, "multigrid.cu", f"{jp}:1041"),
         "H6 last_smooth_project": (multigrid_cuda.LAST, "multigrid.cu", f"{jp}:1069"),
+        "H6 smooth_res_restrict": (multigrid_cuda.SMOOTH_RES_RESTRICT, "multigrid.cu",
+                                   f"{jp}:1000"),
+        "H6 first_smooth_res_restrict": (multigrid_cuda.FIRST_RESTRICT, "multigrid.cu",
+                                         f"{jp}:1041"),
+        "H6 prolong_smooth": (multigrid_cuda.PROLONG_SMOOTH, "multigrid.cu", f"{jp}:778"),
+        "H6 prolong_smooth_project": (multigrid_cuda.PROLONG_SMOOTH_PROJECT, "multigrid.cu",
+                                      f"{jp}:1069"),
         "H7": (fastdiffuse_cuda.SEP, "sepdiffuse.cu", "fastdiffuse.py:262"),
         "H8": (advect_cuda.PACKED, "advect.cu", "advect_pallas.py:195"),
     }
@@ -257,7 +308,7 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
-            if (name in ("diffuse", "pressure") and "spill" in line
+            if (name in ("diffuse", "pressure", "multigrid", "sepdiffuse") and "spill" in line
                     and "0 bytes spill stores, 0 bytes spill loads" not in line):
                 raise AssertionError(f"ptxas {name}: {line.strip()}")
     _json({"phase": "build", "seconds": build_s, "nvcc": _build.nvcc()})
@@ -329,8 +380,44 @@ def main() -> int:
             multigrid.first_smooth_res(u, v, 2, True)))
         got = multigrid_cuda.last_smooth_project(p, rhs, u, v, 2, return_stats=True)
         exp = multigrid.last_smooth_project(p, rhs, u, v, 2, return_stats=True)
-        _check(worst, "H6", f"last_smooth_project {tag}", zip(("u", "v", "p"), got[:3], exp[:3]))
+        _check(worst, "H6", f"last_smooth_project {tag}", zip(("u", "v", "p", "stats"), got, exp))
         _check_bound("H6", got[3], got[0], got[1])
+        _check(worst, "H6", f"smooth_damped zero plane {tag}", [(
+            "p", multigrid_cuda.smooth_damped(None, rhs, 20), multigrid.smooth_damped(None, rhs, 20))])
+
+    # H6's ends with the grid transfers, at each level pair; 9 sweeps make
+    # two bursts at the larger grids
+    for h, w in MG_PAIRS:
+        tag = f"{h}x{w}"
+        p, rhs = randn(h, w, scale=50.0), randn(h, w)
+        u, v = randn(h, w, scale=200.0), randn(h, w, scale=200.0)
+        e_c = randn(h // 2, w // 2, scale=5.0)
+        for s in (1, 2, 9):
+            case = f"sweeps={s} {tag}"
+            _check(worst, "H6", f"smooth_res_restrict {case}", zip(
+                ("p", "rhs_c", "res"), multigrid_cuda.smooth_res_restrict(p, rhs, s, return_res=True),
+                multigrid.smooth_res_restrict(p, rhs, s, return_res=True)))
+            _check(worst, "H6", f"smooth_res_restrict from_zero {case}", zip(
+                ("p", "rhs_c"), multigrid_cuda.smooth_res_restrict(None, rhs, s, from_zero=True),
+                multigrid.smooth_res_restrict(None, rhs, s, from_zero=True)))
+            for half in (True, False):
+                _check(worst, "H6", f"first_smooth_res_restrict half={half} {case}", zip(
+                    ("p", "rhs", "res", "rhs_c"),
+                    multigrid_cuda.first_smooth_res_restrict(u, v, s, half),
+                    multigrid.first_smooth_res_restrict(u, v, s, half)))
+            _check(worst, "H6", f"prolong_smooth {case}", [(
+                "p", multigrid_cuda.prolong_smooth(p, e_c, rhs, s),
+                multigrid.prolong_smooth(p, e_c, rhs, s))])
+            got = multigrid_cuda.prolong_smooth_project(p, e_c, rhs, u, v, s, return_stats=True)
+            exp = multigrid.prolong_smooth_project(p, e_c, rhs, u, v, s, return_stats=True)
+            _check(worst, "H6", f"prolong_smooth_project {case}",
+                   zip(("u", "v", "p", "stats"), got, exp))
+            _check_bound("H6", got[3], got[0], got[1])
+        rhs_c = randn(h // 2, w // 2)
+        _check(worst, "H6", f"bottom smooth_damped zero plane {h // 2}x{w // 2}", [(
+            "p", multigrid_cuda.smooth_damped(None, rhs_c, 20),
+            multigrid.smooth_damped(None, rhs_c, 20))])
+    del e_c, rhs_c
 
     # the variants' flags and the edge cases, at the reference GPU grid
     h, w = CHECK_SHAPES[1]
@@ -404,9 +491,19 @@ def main() -> int:
         last = (w * 0.4, h * 0.6)
         for c, taps in ((5, taps5), (2, taps2)):
             for splat in (None, (amps[:c], last, 400.0)):
-                _check(worst, "H7", f"{c}ch splat={splat is not None} {h}x{w}", [(
+                _check(worst, "H7" if splat else "H7 sweeps", f"{c}ch splat={splat is not None} {h}x{w}", [(
                     "fields", fastdiffuse_cuda.sep_apply(f5[:c], taps, radii, splat),
                     fastdiffuse.sep_apply(f5[:c], taps, radii, splat))])
+    # the generic kernel, on a design whose radii are not unrolled
+    taps_g, radii_g = fastdiffuse._taps_array([3.0] * 3, 6, 2e-4)
+    if fastdiffuse_cuda.plan(3, N, N, radii_g).variant != "generic":
+        raise AssertionError(f"H7: radii {radii_g} do not take the generic kernel")
+    for h, w in CHECK_SHAPES + ((4, 8),):
+        f3 = randn(3, h, w)
+        _check(worst, "H7 sweeps", f"generic radii={radii_g} {h}x{w}", [(
+            "fields", fastdiffuse_cuda.sep_apply(f3, taps_g, radii_g),
+            fastdiffuse.sep_apply(f3, taps_g, radii_g))])
+    del f3
     # information: the separable blur against H3's 20 exact sweeps
     f5 = randn(5, N, N)
     sep_err = _max_err(fastdiffuse_cuda.sep_apply(f5, taps5, radii),
@@ -504,23 +601,34 @@ def main() -> int:
     qsim = Simulation(qcfg)
     qstate, qquiet, quality_launches, qdriven, qdisp, qdye = drive("quality", qsim)
     levels = multigrid._levels(N, N)
-    # per completed V-cycle: a smooth_res at each of the levels - 1 levels
-    # above the bottom (the fine probe and the zero-start coarse levels) and
-    # a smooth_damped post-smooth at each, plus the bottom's
+    # per step one first_smooth_res_restrict (cycle 1's fine pre-smooth, the
+    # first probe); per completed V-cycle a smooth_res_restrict at each of
+    # the levels - 1 levels above the bottom (the zero-start coarse levels
+    # and the next cycle's fine probe), a prolong_smooth at each (the coarse
+    # levels' post-smooths and the fine one) and one smooth_damped (the
+    # bottom); no other H6 entry
     def cycles(counts, steps):
-        by_res = counts["H6 smooth_res"] / ((levels - 1) * steps)
-        by_smooth = counts["H6 smooth_damped"] / (levels * steps)
-        if by_res != by_smooth:
-            raise AssertionError(f"cycle counts disagree: {by_res} != {by_smooth}")
-        return by_res
+        if counts["H6 first_smooth_res_restrict"] != steps:
+            raise AssertionError(f"{counts['H6 first_smooth_res_restrict']} first pre-smooths "
+                                 f"in {steps} steps")
+        by = [counts["H6 smooth_res_restrict"] / ((levels - 1) * steps),
+              counts["H6 prolong_smooth"] / ((levels - 1) * steps),
+              counts["H6 smooth_damped"] / steps]
+        if len(set(by)) != 1:
+            raise AssertionError(f"cycle counts disagree: {by}")
+        for k in ("H6 smooth_res", "H6 first_smooth_res", "H6 last_smooth_project",
+                  "H6 prolong_smooth_project"):
+            if counts[k] != 0:
+                raise AssertionError(f"{k} ran on the quality path")
+        return by[0]
     driven_cycles = cycles(qdriven, STEPS)
     quiet_cycles = cycles({k: quality_launches[k] - qdriven[k] for k in qdriven}, STEPS)
     _json({"phase": "quality_path", "launches": quality_launches, "levels": levels,
            "realized_max_displacement": qdisp,
            "vcycles_per_step": {"driven": driven_cycles, "quiet": quiet_cycles},
            "host_reads_per_step": {"driven": driven_cycles + 1, "quiet": quiet_cycles + 1}})
-    for k in ("H1", "H2", "H3", "H5", "H6 smooth_damped", "H6 smooth_res",
-              "H6 first_smooth_res"):
+    for k in ("H1", "H2", "H3", "H5", "H6 smooth_damped", "H6 smooth_res_restrict",
+              "H6 first_smooth_res_restrict", "H6 prolong_smooth"):
         if quality_launches[k] == 0:
             raise AssertionError(f"{k} was not launched on the quality path")
     if quality_launches["H4"] != 0:
@@ -540,10 +648,10 @@ def main() -> int:
     qsim.step(qstate, slice_step(driven, STEPS - 1))
     qsim.ops.pressure_project_mg = project_mg
     u, v = seen["uv"]
-    before = multigrid_cuda.SMOOTH_RES.launches
+    before = multigrid_cuda.SMOOTH_RES_RESTRICT.launches
     p = project_mg(u, v, qcfg.mg_cycles, tol=qcfg.mg_tol, max_cycles=qcfg.mg_max_cycles,
                    half=True)[2]
-    taken = (multigrid_cuda.SMOOTH_RES.launches - before) / (levels - 1)
+    taken = (multigrid_cuda.SMOOTH_RES_RESTRICT.launches - before) / (levels - 1)
     residual = multigrid.residual_norm(p, ref.divergence(u, v, True)).item()
     if taken < qcfg.mg_max_cycles and not residual < qcfg.mg_tol:
         raise AssertionError(f"mg_tol contract: rms residual {residual} >= {qcfg.mg_tol}")
@@ -551,6 +659,15 @@ def main() -> int:
            "frames_equal": frames_equal, "dye_range": qdye,
            "rms_residual": residual, "mg_tol": qcfg.mg_tol, "vcycles": taken,
            "capped": taken >= qcfg.mg_max_cycles})
+    # the device operations of one driven quality step
+    before = multigrid_cuda.SMOOTH_RES_RESTRICT.launches
+    step_ops = _device_kernels(lambda: qsim.step(qstate, slice_step(driven, STEPS - 1)))
+    step_cycles = (multigrid_cuda.SMOOTH_RES_RESTRICT.launches - before) / (levels - 1)
+    n_ops = sum(step_ops.values())
+    _json({"phase": "quality_step_device_ops", "grid": f"{N}x{N}", "device_ops": n_ops,
+           "vcycles": step_cycles, "by_name": step_ops})
+    if not 0 < n_ops <= MAX_QUALITY_STEP_OPS:
+        raise AssertionError(f"one quality step made {n_ops} device operations")
     del seen, u, v, p
 
     # -- 6. fixed-cycle multigrid (its last cycle ends in last_smooth_project)
@@ -563,8 +680,8 @@ def main() -> int:
     torch.cuda.synchronize()
     fixed_launches = read_counts()
     _check_state("fixed-cycle", fstate)
-    for k in ("H6 first_smooth_res", "H6 smooth_res", "H6 smooth_damped",
-              "H6 last_smooth_project"):
+    for k in ("H6 first_smooth_res_restrict", "H6 smooth_res_restrict", "H6 prolong_smooth",
+              "H6 smooth_damped", "H6 prolong_smooth_project"):
         if fixed_launches[k] == 0:
             raise AssertionError(f"{k} was not launched on the fixed-cycle path")
     if fixed_launches["H4"] != 0 or fixed_launches["H5"] != 0:
@@ -652,6 +769,13 @@ def main() -> int:
     splat = (amps, last, 400.0)
     div = ref.divergence(qu, qv, True)
     rhs, p = -div, qstate.pressure
+    # a coarse correction for the fine post-smooth, and the 16² bottom's
+    # right-hand side, from the fine level's residual
+    mg_res = multigrid.smooth_res(p, rhs, 2)[1]
+    e_c = 4.0 * multigrid._restrict(mg_res)
+    rhs16 = rhs
+    for _ in range(levels - 1):
+        rhs16 = 4.0 * multigrid._restrict(rhs16)
     cases = {
         "H1": (lambda: (advect_cuda.advect_velocity(u, v, dt, decay_rate, return_stats=True),
                         advect_cuda.advect_dye(dye, u2, v2, dt, decay_rate)),
@@ -669,8 +793,9 @@ def main() -> int:
                         jacobi_cuda.project(qu, qv, p, return_stats=True)),
                lambda: (ref.divergence(qu, qv, True),
                         ref.project(qu, qv, p, return_stats=True))),
-        "H6 smooth_damped": (lambda: multigrid_cuda.smooth_damped(p, rhs, 2),
-                             lambda: multigrid.smooth_damped(p, rhs, 2)),
+        # the quality path's only smooth_damped: the bottom, from a zero plane
+        "H6 smooth_damped": (lambda: multigrid_cuda.smooth_damped(None, rhs16, 20),
+                             lambda: multigrid.smooth_damped(None, rhs16, 20)),
         "H6 smooth_res": (lambda: (multigrid_cuda.smooth_res(p, rhs, 2),
                                    multigrid_cuda.smooth_res(rhs, rhs, 2, from_zero=True)),
                           lambda: (multigrid.smooth_res(p, rhs, 2),
@@ -680,6 +805,21 @@ def main() -> int:
         "H6 last_smooth_project": (
             lambda: multigrid_cuda.last_smooth_project(p, rhs, qu, qv, 2, return_stats=True),
             lambda: multigrid.last_smooth_project(p, rhs, qu, qv, 2, return_stats=True)),
+        # the quality path's fine ends: the probe (pre-smooth, residual and
+        # its restriction), cycle 1's pre-smooth, the post-smooth
+        "H6 smooth_res_restrict": (
+            lambda: multigrid_cuda.smooth_res_restrict(p, rhs, 2, return_res=True),
+            lambda: multigrid.smooth_res_restrict(p, rhs, 2, return_res=True)),
+        "H6 first_smooth_res_restrict": (
+            lambda: multigrid_cuda.first_smooth_res_restrict(qu, qv, 2, True),
+            lambda: multigrid.first_smooth_res_restrict(qu, qv, 2, True)),
+        "H6 prolong_smooth": (lambda: multigrid_cuda.prolong_smooth(p, e_c, rhs, 2),
+                              lambda: multigrid.prolong_smooth(p, e_c, rhs, 2)),
+        "H6 prolong_smooth_project": (
+            lambda: multigrid_cuda.prolong_smooth_project(p, e_c, rhs, qu, qv, 2,
+                                                          return_stats=True),
+            lambda: multigrid.prolong_smooth_project(p, e_c, rhs, qu, qv, 2,
+                                                     return_stats=True)),
         # H7 on H3's inputs
         "H7": (lambda: fastdiffuse_cuda.sep_apply(all5, taps5, radii, splat),
                lambda: fastdiffuse.sep_apply(all5, taps5, radii, splat)),
@@ -703,7 +843,9 @@ def main() -> int:
 
     # what each row's call reads, for its bound (its outputs are counted
     # from one call), and the float32 operations it does, counted per cell
-    # from its formulas (a transcendental as one operation)
+    # from its formulas (a transcendental as one operation): a sweep 8, the
+    # residual 6, the restriction 1.25 a fine cell, the prolongation and its
+    # add 8, the divergence and its sign 5, the projection with its bound 10
     cells, mg_cells = N * N, qu.numel()
     sep_taps = sum(2 * (2 * r + 1) for r in radii)
     io = {
@@ -713,26 +855,32 @@ def main() -> int:
         "H4": ([u, v], cells * (4 + 5 * 40 + 8)),
         "H4 solve": ([div], cells * 5 * 40),
         "H5": ([qu, qv, qu, qv, p], mg_cells * 12),
-        "H6 smooth_damped": ([p, rhs], mg_cells * 16),
+        "H6 smooth_damped": ([rhs16], rhs16.numel() * 8 * 20),
         "H6 smooth_res": ([p, rhs, rhs], mg_cells * 46),
         "H6 first_smooth_res": ([qu, qv], mg_cells * 27),
         "H6 last_smooth_project": ([p, rhs, qu, qv], mg_cells * 24),
+        "H6 smooth_res_restrict": ([p, rhs], mg_cells * 23.25),
+        "H6 first_smooth_res_restrict": ([qu, qv], mg_cells * 22.25),
+        "H6 prolong_smooth": ([p, e_c, rhs], mg_cells * 24),
+        "H6 prolong_smooth_project": ([p, e_c, rhs, qu, qv], mg_cells * 34),
         "H7": ([all5], 5 * cells * (2 * sep_taps + 10)),
         "H8": ([ku, kv, kst, kstate.dye, ku2, kv2, kst2], cells * 82),
     }
 
-    # the device operations one H3 and one H4 call make at the path's shapes
-    device_launches = {
-        "H3": _device_kernels(cases["H3"][0]),
-        "H4": _device_kernels(cases["H4"][0]),
-        "H4 solve": _device_kernels(cases["H4 solve"][0]),
-    }
+    # the device operations one call makes at the path's shapes: H3, H4,
+    # and each H6 entry the quality path calls (the bottom at 16²)
+    device_launches = {k: _device_kernels(cases[k][0]) for k in MAX_DEVICE_LAUNCHES}
     plans = {"H3": jacobi_cuda.plan_bursts(N, N, 20, "diffuse"),
              "H4": jacobi_cuda.plan_bursts(N, N, 40, "project"),
-             "H4 solve": jacobi_cuda.plan_bursts(N, N, 40, "solve")}
+             "H4 solve": jacobi_cuda.plan_bursts(N, N, 40, "solve"),
+             "H6 smooth_res_restrict": jacobi_cuda.plan_bursts(N, N, 2, "smooth_res"),
+             "H6 first_smooth_res_restrict": jacobi_cuda.plan_bursts(N, N, 2, "smooth_res"),
+             "H6 prolong_smooth": jacobi_cuda.plan_bursts(N, N, 2, "smooth"),
+             "H6 smooth_damped": jacobi_cuda.plan_bursts(*rhs16.shape, 20, "smooth")}
     for k, counts in device_launches.items():
         n = sum(counts.values())
-        _json({"phase": "device_launches_per_call", "kernel": k, "grid": f"{N}x{N}",
+        _json({"phase": "device_launches_per_call", "kernel": k,
+               "grid": "x".join(map(str, rhs16.shape if k == "H6 smooth_damped" else (N, N))),
                "launches": n, "by_name": counts, "plan_depths": plans[k].depths,
                "plan_tile": plans[k].tile, "plan_smem": plans[k].smem})
         if not 0 < n <= MAX_DEVICE_LAUNCHES[k]:
@@ -758,8 +906,10 @@ def main() -> int:
     # each row's launches come from the path that runs it
     paths = {"H1": "parity", "H2": "parity", "H3": "parity", "H4": "parity",
              "H4 solve": None, "H5": "quality", "H6 smooth_damped": "quality",
-             "H6 smooth_res": "quality", "H6 first_smooth_res": "quality",
-             "H6 last_smooth_project": "fixed-cycle", "H7": "fast", "H8": "fast"}
+             "H6 smooth_res": None, "H6 first_smooth_res": None,
+             "H6 last_smooth_project": None, "H6 smooth_res_restrict": "quality",
+             "H6 first_smooth_res_restrict": "quality", "H6 prolong_smooth": "quality",
+             "H6 prolong_smooth_project": "fixed-cycle", "H7": "fast", "H8": "fast"}
     path_launches = {"parity": parity_launches, "quality": quality_launches,
                      "fixed-cycle": fixed_launches, "fast": fast_launches}
     rows = []
@@ -780,8 +930,10 @@ def main() -> int:
             "replaces": f"cudafluidsimulation_tpu/ops/{replaces}",
             "launches": path_launches[path][k] if path else 0, "path": path,
             "max_abs_err": worst[k.split()[0] if k.startswith("H6") else k],
-            **({"max_abs_err_without_splat": worst["H3 sweeps"]} if k == "H3" else {}),
-            "ms": statistics.median(k1 + k2), "plain_ms": statistics.median(p1 + p2),
+            **({"max_abs_err_without_splat": worst[f"{k} sweeps"]} if k in ("H3", "H7") else {}),
+            **({"variant": fastdiffuse_cuda.plan(5, N, N, radii).variant} if k == "H7" else {}),
+            "ms": statistics.median(k1 + k2), "device_ms": _device_ms(kern_fn),
+            "plain_ms": statistics.median(p1 + p2),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "operations": ops,

@@ -8,7 +8,8 @@ difference: ``backend`` is ``ref | cuda | auto``.
   lives on.  They are the port's oracle and the kernels' plain versions.
 - ``cuda``: the hand-written Hopper kernels (``ops/cuda_kernels.py``) over
   the ref ops.  Resolving it without a CUDA device raises.
-- ``auto``: ``cuda`` when a CUDA device is present, else ``ref``.
+- ``auto`` (the default): the same as ``cuda``, and it raises without a
+  CUDA device too, so a simulation never falls back to the CPU unasked.
 
 Fields that only steer the TPU kernels' scheduling (``block_rows``,
 ``jacobi_burst``) are carried for parity and have no effect here.
@@ -172,14 +173,17 @@ class FluidConfig:
         return np.asarray(PALETTE, dtype=np.float32)
 
     def resolve_backend(self) -> str:
-        """``ref`` or ``cuda``; ``cuda`` without a CUDA device raises."""
+        """``ref`` or ``cuda``; ``cuda`` and ``auto`` without a CUDA device
+        raise: the plain ops run on the CPU only when ``backend='ref'``
+        asks for them."""
         import torch
 
-        if self.backend == "auto":
-            return "cuda" if torch.cuda.is_available() else "ref"
-        if self.backend == "cuda" and not torch.cuda.is_available():
+        if self.backend == "ref":
+            return "ref"
+        if not torch.cuda.is_available():
             raise RuntimeError(
-                "backend='cuda' needs a CUDA device and torch.cuda.is_available() "
-                "is False; use backend='ref' to run the plain PyTorch ops")
-        return self.backend
+                f"backend={self.backend!r} runs the CUDA kernels and needs a "
+                "CUDA device, but torch.cuda.is_available() is False; pass "
+                "backend='ref' to run the plain PyTorch ops on the CPU")
+        return "cuda"
 

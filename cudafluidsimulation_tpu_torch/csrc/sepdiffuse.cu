@@ -1,4 +1,4 @@
-// H7: separable fast diffusion, one block per 32x32 output tile.
+// H7: separable fast diffusion.
 //
 // Replaces cudafluidsimulation_tpu/ops/fastdiffuse.py _sep_apply ->
 // _sep_kernel and _sep_kernel_tiled (_sep_core, _splat_tail).  Per channel
@@ -11,25 +11,37 @@
 // periodic with period 2n, so any radius reflects correctly, also several
 // times when r >= n).  The TPU kernels build the reflection from mirror
 // padding and in-kernel ghost rows; here each block loads its tile plus an
-// rmax-deep ring at reflected coordinates into shared memory, runs each
-// rank's x pass over the tile's rows plus that rank's ring rows into shared
-// memory, and its y pass into registers.  Sums run in the plain version's
-// order (ops/fastdiffuse.py sep_apply): x from tap -r upward, y across the
-// ranks in order, tap -r first.
+// rmax-deep ring at reflected coordinates into shared memory.  Sums run in
+// the plain version's order (ops/fastdiffuse.py sep_apply): x from tap -r
+// upward; y across the ranks in order, tap -r first, the first product of
+// rank 0 starting the sum and every later one added to it.
 //
 // What bounds it: not its bytes (C planes in and C planes out, 160 MiB a
-// call for 5 channels at 2048², ~50 us at HBM speed) but its shared-memory
-// loads: each tap product reads its tap and its operand from shared
-// memory, ~90 loads a cell at radii (5, 4).  Measured 0.48 ms a call on an
-// NVIDIA H100 80GB HBM3 at 700 W, against 2.45 ms for H3's 20 sweeps.
-// Keeping the taps in registers would cut that; this first version keeps
-// the taps (a few dozen floats a channel) in the launch parameters, as
-// H3's alphas ride, and copies them to shared memory.
+// call for 5 channels at 2048², 0.050 ms at 3.35 TB/s) but the issue of its
+// float32 operations: 40 products and 40 sums a cell at radii (5, 4), kept
+// apart (-fmad=false) so that each rounds as the plain version's.  The first
+// design (PR 4: taps and operands both from shared memory, ~90 shared loads
+// a cell) took 0.48 ms on an NVIDIA H100 80GB HBM3 at 700 W, bound by those
+// loads.  This one, sep_kernel_unrolled, is templated on the rank and the
+// radii, so the shipped design (rank 2, radii 5 and 4, ops/fastdiffuse.py)
+// is fully unrolled with each rank's taps in registers:
+//   - a block takes a 64 x 128 tile of one channel; 8 warps of 32 lanes;
+//   - x pass: a lane computes 4 neighbouring outputs of a row from one
+//     register window of 16 floats (four 16-byte shared loads, no tap
+//     loads), for the tile's rows plus the rank's ring (64 + 2r rows, so
+//     the ring costs 16% at r = 5), into a shared buffer of x sums;
+//   - y pass: a lane walks 8 output rows of its 4 columns down the x sums,
+//     one 16-byte load a row (8 + 2r loads for 8 x (2r + 1) x 4 products),
+//     adding each row's products to the 8 outputs it reaches, each output's
+//     terms in tap order.
+// Shared memory: the tile + ring (74 x 140 floats) and one rank's x sums
+// (74 x 128), 79 KB a block: 2 blocks an SM.  Other radii (design_taps can
+// give any, rank <= 3) run sep_kernel_generic, the first design: taps in
+// shared memory, one output a thread in the x pass.
+#include <stdint.h>
+
 #include "fluid_common.cuh"
 
-#define SEP_TW 32  // tile width = FLUID_BX: one warp a row
-#define SEP_TH 32  // tile height: 4 rows for each of the FLUID_BY thread rows
-#define SEP_ROWS (SEP_TH / FLUID_BY)
 #define SEP_MAX_CHANNELS 5
 #define SEP_MAX_RANK 3
 #define SEP_MAX_TAPS 160  // floats a channel; keeps SepParams under 4 KB
@@ -43,27 +55,200 @@ struct SepParams {
 };
 
 __device__ __forceinline__ int hs_reflect(int i, int n) {
+  if (static_cast<unsigned>(i) < static_cast<unsigned>(n)) return i;
   const int p = 2 * n;
   int m = i % p;
   if (m < 0) m += p;
   return m < n ? m : p - 1 - m;
 }
 
-__global__ void __launch_bounds__(FLUID_BX * FLUID_BY)
-sep_kernel(const float* __restrict__ in, float* __restrict__ out, int h,
-           int w, SepParams p) {
-  extern __shared__ float smem[];
-  const int R = p.rmax;
-  const int ew = SEP_TW + 2 * R;
-  const int eh = SEP_TH + 2 * R;
-  float* tile = smem;                // eh x ew field at reflected coords
-  float* xsum = tile + eh * ew;      // eh x SEP_TW x-pass sums
-  float* stap = xsum + eh * SEP_TW;  // this channel's taps
+// val + amp * exp(-d2 / radius) at (ox, oy), as the plain splat tail
+__device__ __forceinline__ float sep_splat(float val, float amp, float lx, float ly,
+                                           float radius, int ox, int oy) {
+  const float dx = static_cast<float>(ox) - lx;
+  const float dy = static_cast<float>(oy) - ly;
+  const float d2 = dx * dx + dy * dy;
+  return val + amp * expf(-d2 / radius);
+}
+
+// -- the unrolled kernel ---------------------------------------------------------
+
+#define SEP_TW 128  // tile width: 32 lanes x 4 columns
+#define SEP_TH 64   // tile height: 8 warps x SEP_Q output rows
+#define SEP_WARPS 8
+#define SEP_Q (SEP_TH / SEP_WARPS)
+#define SEP_THREADS (32 * SEP_WARPS)
+
+constexpr int sep_max(int a, int b) { return a > b ? a : b; }
+
+template <int RANK, int R0, int R1, int R2>
+struct SepDesign {
+  static constexpr int rmax = sep_max(R0, sep_max(RANK > 1 ? R1 : 0, RANK > 2 ? R2 : 0));
+  // float4 loads of a lane's rmax window, and the shared row stride: lane
+  // 31's window ends there
+  static constexpr int nv = (4 + 2 * rmax + 3) / 4;
+  static constexpr int ew = 4 * (31 + nv);
+  static constexpr int eh = SEP_TH + 2 * rmax;
+  static constexpr size_t smem = sizeof(float) * (eh * ew + eh * SEP_TW);
+};
+
+// One rank: the x pass of tile rows into xs, then the y pass onto acc.
+// The tile's column 0 is global column x0 - RM; the x sums of rank R start
+// at tile row RM - R (global row y0 - R).
+template <int R, bool FIRST, int RM, int EW>
+__device__ __forceinline__ void sep_rank_pass(const float* tile, float* xs,
+                                              const float (&taps)[2 * (2 * R + 1)],
+                                              float (&acc)[SEP_Q][4], int lane,
+                                              int warp) {
+  constexpr int N = 2 * R + 1, SH = RM - R;
+  constexpr int NW = (4 + SH + 2 * R + 3) / 4;  // float4 loads of the window
+  for (int row = warp; row < SEP_TH + 2 * R; row += SEP_WARPS) {
+    const float* src = tile + (row + SH) * EW + 4 * lane;
+    float win[4 * NW];
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const float4 q = *reinterpret_cast<const float4*>(src + 4 * i);
+      win[4 * i] = q.x;
+      win[4 * i + 1] = q.y;
+      win[4 * i + 2] = q.z;
+      win[4 * i + 3] = q.w;
+    }
+    float s[4];
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      s[o] = taps[0] * win[o + SH];
+#pragma unroll
+      for (int j = 1; j < N; ++j) s[o] = s[o] + taps[j] * win[o + SH + j];
+    }
+    *reinterpret_cast<float4*>(xs + row * SEP_TW + 4 * lane) = make_float4(s[0], s[1], s[2], s[3]);
+  }
+  __syncthreads();
+  // x-sum row yy of this warp feeds its output row q with tap j = yy - q
+  const float* col = xs + warp * SEP_Q * SEP_TW + 4 * lane;
+#pragma unroll
+  for (int yy = 0; yy < SEP_Q + 2 * R; ++yy) {
+    const float4 x4 = *reinterpret_cast<const float4*>(col + yy * SEP_TW);
+    const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+    for (int q = 0; q < SEP_Q; ++q) {
+      const int j = yy - q;
+      if (j < 0 || j >= N) continue;
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+        const float term = taps[N + j] * xv[o];
+        acc[q][o] = (FIRST && j == 0) ? term : acc[q][o] + term;
+      }
+    }
+  }
+  __syncthreads();  // xs is rewritten by the next rank
+}
+
+// this channel's taps of one rank, from the launch parameters into registers
+#define SEP_LOAD_TAPS(t, R, OFF)                                     \
+  float t[2 * (2 * (R) + 1)];                                        \
+  _Pragma("unroll") for (int i = 0; i < 2 * (2 * (R) + 1); ++i)      \
+      t[i] = p.taps[ch][(OFF) + i];
+
+template <int RANK, int R0, int R1, int R2>
+__global__ void __launch_bounds__(SEP_THREADS, 2)
+sep_kernel_unrolled(const float* __restrict__ in, float* __restrict__ out,
+                    int h, int w, const __grid_constant__ SepParams p) {
+  using D = SepDesign<RANK, R0, R1, R2>;
+  constexpr int RM = D::rmax, EW = D::ew, EH = D::eh;
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);  // EH x EW, reflected
+  float* xs = tile + EH * EW;                     // EH x SEP_TW x sums
   const int ch = blockIdx.z;
   const size_t plane = static_cast<size_t>(ch) * h * w;
   const float* f = in + plane;
-  const int x0 = blockIdx.x * SEP_TW;
-  const int y0 = blockIdx.y * SEP_TH;
+  const int x0 = blockIdx.x * SEP_TW, y0 = blockIdx.y * SEP_TH;
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  // the tile + ring: a warp takes every 8th row, a lane every 32nd column;
+  // the loads of FB rows are issued before their stores, so each thread
+  // keeps FB x FC loads in flight instead of waiting on each in turn
+  // (indices past the tile's rows or columns load a clamped cell and are
+  // not stored)
+  constexpr int FC = (EW + 31) / 32, FR = (EH + SEP_WARPS - 1) / SEP_WARPS, FB = 5;
+  int gx[FC];
+#pragma unroll
+  for (int j = 0; j < FC; ++j) gx[j] = hs_reflect(x0 + min(lane + 32 * j, EW - 1) - RM, w);
+#pragma unroll
+  for (int i0 = 0; i0 < FR; i0 += FB) {
+    float v[FB][FC];
+#pragma unroll
+    for (int i = 0; i < FB; ++i) {
+      const int r = min(warp + SEP_WARPS * (i0 + i), EH - 1);
+      const float* row = f + static_cast<size_t>(hs_reflect(y0 + r - RM, h)) * w;
+#pragma unroll
+      for (int j = 0; j < FC; ++j) v[i][j] = __ldg(row + gx[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < FB; ++i) {
+      const int r = warp + SEP_WARPS * (i0 + i);
+#pragma unroll
+      for (int j = 0; j < FC; ++j)
+        if (r < EH && lane + 32 * j < EW) tile[r * EW + lane + 32 * j] = v[i][j];
+    }
+  }
+  __syncthreads();
+
+  float acc[SEP_Q][4];
+  {
+    SEP_LOAD_TAPS(t, R0, 0)
+    sep_rank_pass<R0, true, RM, EW>(tile, xs, t, acc, lane, warp);
+  }
+  if constexpr (RANK > 1) {
+    SEP_LOAD_TAPS(t, R1, 2 * (2 * R0 + 1))
+    sep_rank_pass<R1, false, RM, EW>(tile, xs, t, acc, lane, warp);
+  }
+  if constexpr (RANK > 2) {
+    SEP_LOAD_TAPS(t, R2, 2 * (2 * R0 + 1) + 2 * (2 * R1 + 1))
+    sep_rank_pass<R2, false, RM, EW>(tile, xs, t, acc, lane, warp);
+  }
+
+  const int ox = x0 + 4 * lane;
+  const float amp = p.amp[ch], lx = p.lx, ly = p.ly, radius = p.radius;
+  const bool splat = p.splat;
+#pragma unroll
+  for (int q = 0; q < SEP_Q; ++q) {
+    const int oy = y0 + warp * SEP_Q + q;
+    if (oy >= h) break;
+    float v[4];
+#pragma unroll
+    for (int o = 0; o < 4; ++o)
+      v[o] = splat ? sep_splat(acc[q][o], amp, lx, ly, radius, ox + o, oy) : acc[q][o];
+    float* dst = out + plane + static_cast<size_t>(oy) * w + ox;
+    if (ox + 3 < w && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int o = 0; o < 4; ++o)
+        if (ox + o < w) dst[o] = v[o];
+    }
+  }
+}
+
+// -- the generic kernel: any rank <= 3 and radii ------------------------------------
+
+#define GEN_TW 32  // tile width = FLUID_BX: one warp a row
+#define GEN_TH 32  // tile height: 4 rows for each of the FLUID_BY thread rows
+#define GEN_ROWS (GEN_TH / FLUID_BY)
+
+__global__ void __launch_bounds__(FLUID_BX * FLUID_BY)
+sep_kernel_generic(const float* __restrict__ in, float* __restrict__ out, int h,
+                   int w, SepParams p) {
+  extern __shared__ float smem[];
+  const int R = p.rmax;
+  const int ew = GEN_TW + 2 * R;
+  const int eh = GEN_TH + 2 * R;
+  float* tile = smem;                // eh x ew field at reflected coords
+  float* xsum = tile + eh * ew;      // eh x GEN_TW x-pass sums
+  float* stap = xsum + eh * GEN_TW;  // this channel's taps
+  const int ch = blockIdx.z;
+  const size_t plane = static_cast<size_t>(ch) * h * w;
+  const float* f = in + plane;
+  const int x0 = blockIdx.x * GEN_TW;
+  const int y0 = blockIdx.y * GEN_TH;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthr = blockDim.x * blockDim.y;
 
@@ -77,30 +262,30 @@ sep_kernel(const float* __restrict__ in, float* __restrict__ out, int h,
   }
   __syncthreads();
 
-  float acc[SEP_ROWS];
+  float acc[GEN_ROWS];
   int off = 0;
   for (int k = 0; k < p.rank; ++k) {
     const int r = p.radii[k];
     const int n = 2 * r + 1;
-    // x pass over tile rows [R - r, R + SEP_TH + r)
-    const int rows = SEP_TH + 2 * r;
-    for (int i = tid; i < rows * SEP_TW; i += nthr) {
-      const int ty = i / SEP_TW + (R - r);
-      const int tx = i % SEP_TW;
+    // x pass over tile rows [R - r, R + GEN_TH + r)
+    const int rows = GEN_TH + 2 * r;
+    for (int i = tid; i < rows * GEN_TW; i += nthr) {
+      const int ty = i / GEN_TW + (R - r);
+      const int tx = i % GEN_TW;
       const float* src = tile + ty * ew + tx + (R - r);
       float s = stap[off] * src[0];
       for (int j = 1; j < n; ++j) s = s + stap[off + j] * src[j];
-      xsum[ty * SEP_TW + tx] = s;
+      xsum[ty * GEN_TW + tx] = s;
     }
     __syncthreads();
-    // y pass onto this thread's SEP_ROWS output rows
+    // y pass onto this thread's GEN_ROWS output rows
 #pragma unroll
-    for (int q = 0; q < SEP_ROWS; ++q) {
+    for (int q = 0; q < GEN_ROWS; ++q) {
       const int oy = threadIdx.y + q * FLUID_BY;
-      const float* src = xsum + (oy + R - r) * SEP_TW + threadIdx.x;
+      const float* src = xsum + (oy + R - r) * GEN_TW + threadIdx.x;
       const float t0 = stap[off + n] * src[0];
       float a = (k == 0) ? t0 : acc[q] + t0;
-      for (int j = 1; j < n; ++j) a = a + stap[off + n + j] * src[j * SEP_TW];
+      for (int j = 1; j < n; ++j) a = a + stap[off + n + j] * src[j * GEN_TW];
       acc[q] = a;
     }
     __syncthreads();  // xsum is rewritten by the next rank
@@ -109,27 +294,32 @@ sep_kernel(const float* __restrict__ in, float* __restrict__ out, int h,
 
   const int ox = x0 + threadIdx.x;
 #pragma unroll
-  for (int q = 0; q < SEP_ROWS; ++q) {
+  for (int q = 0; q < GEN_ROWS; ++q) {
     const int oy = y0 + threadIdx.y + q * FLUID_BY;
     if (ox >= w || oy >= h) continue;
-    float val = acc[q];
-    if (p.splat) {
-      const float dx = static_cast<float>(ox) - p.lx;
-      const float dy = static_cast<float>(oy) - p.ly;
-      const float d2 = dx * dx + dy * dy;
-      val = val + p.amp[ch] * expf(-d2 / p.radius);
-    }
-    out[plane + static_cast<size_t>(oy) * w + ox] = val;
+    out[plane + static_cast<size_t>(oy) * w + ox] =
+        p.splat ? sep_splat(acc[q], p.amp[ch], p.lx, p.ly, p.radius, ox, oy) : acc[q];
   }
+}
+
+// The radii the unrolled kernel is instantiated for (ops/fastdiffuse_cuda.py
+// UNROLLED): rank 2, radii 5 and 4.
+template <class K>
+static cudaError_t sep_allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 // in, out: (c, h, w) planes, c <= SEP_MAX_CHANNELS.  taps: c rows of
 // tap_len host floats, each row the ranks' x taps then y taps in rank
 // order; radii: rank host ints; amp: c host floats or null (no splat).
+// unrolled: 1 runs sep_kernel_unrolled, which needs rank 2 and radii (5, 4);
+// 0 runs sep_kernel_generic.
 FLUID_API int fluid_sep_diffuse(const float* in, float* out, int c, int h,
                                 int w, const float* taps, int tap_len,
                                 const int* radii, int rank, const float* amp,
-                                float lx, float ly, float radius,
+                                float lx, float ly, float radius, int unrolled,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (c < 1 || c > SEP_MAX_CHANNELS || h < 1 || w < 1 || rank < 1 ||
@@ -154,19 +344,24 @@ FLUID_API int fluid_sep_diffuse(const float* in, float* out, int c, int h,
   p.lx = lx;
   p.ly = ly;
   p.radius = radius;
-  const int eh = SEP_TH + 2 * p.rmax;
-  const int ew = SEP_TW + 2 * p.rmax;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(eh) * ew +
-                                       static_cast<size_t>(eh) * SEP_TW +
-                                       tap_len);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        sep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+  cudaError_t e;
+  if (unrolled) {
+    if (rank != 2 || radii[0] != 5 || radii[1] != 4) return cudaErrorInvalidValue;
+    auto kernel = sep_kernel_unrolled<2, 5, 4, 0>;
+    const size_t smem = SepDesign<2, 5, 4, 0>::smem;
+    e = sep_allow_smem(kernel, smem);
     if (e != cudaSuccess) return e;
+    const dim3 grid((w + SEP_TW - 1) / SEP_TW, (h + SEP_TH - 1) / SEP_TH, c);
+    kernel<<<grid, dim3(32, SEP_WARPS), smem, s>>>(in, out, h, w, p);
+    return cudaGetLastError();
   }
-  const dim3 block(FLUID_BX, FLUID_BY);
-  const dim3 grid((w + SEP_TW - 1) / SEP_TW, (h + SEP_TH - 1) / SEP_TH, c);
-  sep_kernel<<<grid, block, smem, s>>>(in, out, h, w, p);
+  const int eh = GEN_TH + 2 * p.rmax;
+  const int ew = GEN_TW + 2 * p.rmax;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(eh) * ew +
+                                       static_cast<size_t>(eh) * GEN_TW + tap_len);
+  e = sep_allow_smem(sep_kernel_generic, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((w + GEN_TW - 1) / GEN_TW, (h + GEN_TH - 1) / GEN_TH, c);
+  sep_kernel_generic<<<grid, dim3(FLUID_BX, FLUID_BY), smem, s>>>(in, out, h, w, p);
   return cudaGetLastError();
 }

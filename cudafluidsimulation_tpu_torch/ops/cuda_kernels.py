@@ -21,8 +21,8 @@ Pallas kernels.
 - H6 multigrid smoother ends (``ops/multigrid_cuda.py``,
   ``csrc/multigrid.cu``) under ``pressure_solve_mg`` and the optional
   ``pressure_project_mg`` hook that the pipeline takes for
-  ``pressure_solver="multigrid"`` (multigrid's restriction and
-  prolongation stay plain torch, ``ops/multigrid.py``).
+  ``pressure_solver="multigrid"``; on that hook the restriction and the
+  prolongation ride the ends' launches (``ops/multigrid.py``).
 
 The TPU kernels' planners (strip heights, bursts, column tiles, padding)
 have no counterpart: every kernel here takes any grid shape, so every

@@ -2,17 +2,25 @@
 
 Replaces ``cudafluidsimulation_tpu/ops/fastdiffuse.py`` ``_sep_apply`` →
 ``_sep_kernel`` and ``_sep_kernel_tiled``.  One launch covers up to five
-channels (grid z = channel), as the fast step's 5-channel pack needs; each block loads its 32×32 tile plus an
-rmax-deep ring at half-sample symmetric coordinates into shared memory,
-runs each rank's x pass into shared memory and its y pass into registers,
-then adds the optional splat tail.  The TPU kernels' strip and column-tile
-planning and their mirror padding have no counterpart: the kernel takes
-any grid and any radius, and reflects more than once when a radius
-reaches past the grid.
+channels (grid z = channel), as the fast step's 5-channel pack needs.  Each
+block loads its tile plus an rmax-deep ring at half-sample symmetric
+coordinates into shared memory, runs each rank's x pass into shared memory
+and its y pass into registers, then adds the optional splat tail.  The TPU
+kernels' strip and column-tile planning and their mirror padding have no
+counterpart: the kernel takes any grid and any radius, and reflects more
+than once when a radius reaches past the grid.
 
-What bounds it: shared-memory loads (a tap and an operand for each of
-~45 products a cell), not its 160 MiB a call at 2048²; it still replaces
-20 sweeps of 160 MiB each by H3 at a fifth of H3's time (PERF.md).
+Two kernels, chosen by the radii (:func:`plan`):
+
+- ``unrolled`` for the radii in :data:`UNROLLED` (the shipped design, rank
+  2, radii 5 and 4): templated on rank and radii, taps in registers, 64×128
+  tiles, a lane computing 4 outputs of a row in the x pass from one
+  register window and walking 8 output rows in the y pass;
+- ``generic`` for any other rank <= 3: taps in shared memory, 32×32 tiles.
+
+What bounds it: the issue of its float32 operations (40 products and 40
+sums a cell at radii (5, 4), unfused so each rounds as the plain version's
+does), not its 160 MiB a call at 2048² (PERF.md).
 
 The wrapper takes the plain version (``ops.fastdiffuse.sep_apply``) for
 CPU tensors and launches the kernel or raises for CUDA tensors.
@@ -21,6 +29,8 @@ CPU tensors and launches the kernel or raises for CUDA tensors.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -31,15 +41,51 @@ from cudafluidsimulation_tpu_torch.ops._build import Kernel, on_card, stream_of
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # fluid_sep_diffuse(in, out, c, h, w, taps*, tap_len, radii*, rank, amp*,
-#                   lx, ly, radius, stream); taps, radii and amp are host
-#                   pointers, amp null for no splat
+#                   lx, ly, radius, unrolled, stream); taps, radii and amp
+#                   are host pointers, amp null for no splat
 SEP = Kernel("sepdiffuse", {
-    "fluid_sep_diffuse": [_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _F, _F, _F, _P],
+    "fluid_sep_diffuse": [_P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _F, _F, _F, _I, _P],
 })
 
 MAX_CHANNELS = 5  # csrc/sepdiffuse.cu SEP_MAX_CHANNELS
 MAX_RANK = 3  # SEP_MAX_RANK
 MAX_TAPS = 160  # SEP_MAX_TAPS, floats a channel
+# the radii sep_kernel_unrolled is instantiated for (fluid_sep_diffuse)
+UNROLLED = ((5, 4),)
+# (rows, columns) of a block's output tile: SEP_TH x SEP_TW, GEN_TH x GEN_TW
+TILES = {"unrolled": (64, 128), "generic": (32, 32)}
+
+
+@dataclass(frozen=True)
+class SepPlan:
+    """One H7 launch: the kernel, its output tile, its grid (columns, rows,
+    channels of tiles) and a block's dynamic shared memory."""
+
+    variant: str
+    tile: Tuple[int, int]
+    grid: Tuple[int, int, int]
+    rmax: int
+    smem: int
+
+
+def plan(c: int, h: int, w: int, radii) -> SepPlan:
+    """The launch ``fluid_sep_diffuse`` makes for ``c`` (H, W) channels and
+    ``radii``: the unrolled kernel for radii in :data:`UNROLLED`, else the
+    generic one."""
+    radii = tuple(int(r) for r in radii)
+    variant = "unrolled" if radii in UNROLLED else "generic"
+    th, tw = TILES[variant]
+    rmax = max(radii)
+    if variant == "unrolled":
+        # the tile + ring (a row padded so lane 31's 16-byte loads end in
+        # it) and one rank's x sums
+        stride = 4 * (31 + (4 + 2 * rmax + 3) // 4)
+        smem = 4 * (th + 2 * rmax) * (stride + tw)
+    else:
+        taps = sum(2 * (2 * r + 1) for r in radii)
+        smem = 4 * ((th + 2 * rmax) * (tw + 2 * rmax) + (th + 2 * rmax) * tw + taps)
+    grid = (-(-w // tw), -(-h // th), c)
+    return SepPlan(variant, (th, tw), grid, rmax, smem)
 
 
 def sep_apply(fields, taps, radii, splat=None):
@@ -65,11 +111,12 @@ def sep_apply(fields, taps, radii, splat=None):
         last = ref.f32_vec(splat[1])
         lx, ly, radius = float(last[0]), float(last[1]), float(ref.f32(splat[2]))
     radii_host = np.asarray(radii, np.int32)
+    unrolled = plan(c, h, w, radii).variant == "unrolled"
     out = torch.empty_like(fields)
     with torch.cuda.device(fields.device):
         SEP.launch(
             "fluid_sep_diffuse", fields.data_ptr(), out.data_ptr(), c, h, w,
             taps.ctypes.data, taps.shape[1], radii_host.ctypes.data, len(radii),
             amps.ctypes.data if amps is not None else None,
-            lx, ly, radius, stream_of(fields))
+            lx, ly, radius, int(unrolled), stream_of(fields))
     return out

@@ -108,8 +108,13 @@ SMEM_LIMIT = 227 * 1024 - 1024
 # halos up to 8 a shared row is 128 floats, one warp's 4 columns a lane
 TILE = (48, 112)
 DEPTH = 8
-# shared buffers a block holds: two iterates, and the divergence for H4
-_BUFFERS = {"diffuse": 2, "project": 3, "solve": 3}
+# shared buffers a block holds: two iterates, and the divergence for H4 or
+# the right-hand side for H6's "smooth" (sweeps only) and "smooth_res"
+# (sweeps, then a residual or a gradient on the tile) bursts
+_BUFFERS = {"diffuse": 2, "project": 3, "solve": 3, "smooth": 3, "smooth_res": 3}
+# kinds whose last burst runs one ring deeper, for a tail that reads p
+# beyond the tile
+_RING = ("project", "smooth_res")
 
 
 @dataclass(frozen=True)
@@ -143,14 +148,15 @@ def burst_smem(kind: str, h: int, w: int, tile, halo: int) -> int:
 def plan_bursts(h: int, w: int, iters: int, kind: str, *,
                 tile: Optional[Tuple[int, int]] = None,
                 depth: Optional[int] = None) -> BurstPlan:
-    """Split ``iters`` sweeps of a ``kind`` call ("diffuse", "project" or
-    "solve") into bursts of at most ``depth`` sweeps, as even as they come,
-    one launch each; the whole of them in one launch when the grid fits in
-    one tile (no halo to recompute).  The last "project" burst runs one
-    ring deeper (the gradient reads p beyond the tile).  ``iters`` = 0 is
-    one burst of no sweeps (the splat alone; p = 0 and the projection),
-    or none for "solve".  A depth whose shared memory exceeds
-    :data:`SMEM_LIMIT` is lowered."""
+    """Split ``iters`` sweeps of a ``kind`` call ("diffuse", "project",
+    "solve", or H6's "smooth" and "smooth_res") into bursts of at most
+    ``depth`` sweeps, as even as they come, one launch each; the whole of
+    them in one launch when the grid fits in one tile (no halo to
+    recompute).  The last "project" or "smooth_res" burst runs one ring
+    deeper (the gradient or the residual reads p beyond the tile).
+    ``iters`` = 0 is one burst of no sweeps (the splat alone; p = 0 and the
+    projection), or none for "solve" and H6.  A depth whose shared memory
+    exceeds :data:`SMEM_LIMIT` is lowered."""
     if kind not in _BUFFERS:
         raise ValueError(f"kind must be one of {sorted(_BUFFERS)}, got {kind!r}")
     if h < 1 or w < 1 or iters < 0:
@@ -159,10 +165,10 @@ def plan_bursts(h: int, w: int, iters: int, kind: str, *,
     depth = depth or DEPTH
     if min(tile) < 1 or depth < 1:
         raise ValueError(f"bad tile or depth: {tile}, {depth}")
-    project = kind == "project"
+    project = kind in _RING
     while True:
         if iters == 0:
-            depths = () if kind == "solve" else (0,)
+            depths = (0,) if kind in ("diffuse", "project") else ()
         elif h <= tile[0] and w <= tile[1]:
             depths = (iters,)
         else:

@@ -15,16 +15,18 @@ Two entry points:
   with a namespace of smoother ends (the H6 kernel wrappers,
   ``ops.multigrid_cuda.ENDS``).
 - :func:`pressure_project_mg` (the ``cuda`` backend's hook): divergence,
-  V-cycles and projection over a namespace of smoother ends, with the
-  divergence folded into cycle 1's fine pre-smooth (``first_smooth_res``),
-  every pre-smooth emitting its residual (``smooth_res``) and, for a fixed
-  cycle count, the projection folded into the last post-smooth
-  (``last_smooth_project``).  :data:`PLAIN` holds the ends' plain versions;
-  the ``cuda`` backend passes the kernel wrappers, which run the same plain
-  versions for CPU tensors.
-
-Restriction and prolongation are plain torch on every backend, as the JAX
-package leaves them to XLA.
+  V-cycles and projection over a namespace of smoother ends, one end call
+  per level on the way down and one on the way up.  Every pre-smooth
+  restricts its residual into the next level's right-hand side
+  (``smooth_res_restrict``; cycle 1's fine one also computes the
+  divergence, ``first_smooth_res_restrict``), every post-smooth starts from
+  p plus the prolonged coarse correction (``prolong_smooth``; for a fixed
+  cycle count the last one also projects, ``prolong_smooth_project``), and
+  the coarsest level sweeps from a zero plane (``smooth_damped(None, ...)``).
+  :data:`PLAIN` holds the ends' plain versions, compositions of the sweeps,
+  :func:`_restrict` and :func:`_prolong`; the ``cuda`` backend passes the
+  kernel wrappers, which run the same plain versions for CPU tensors, so on
+  the card no restriction, prolongation or zero plane runs outside H6.
 
 Residual-targeted stopping (``tol > 0``) needs the residual's value on the
 host: :func:`probed_tol_loop` reads ``mean(res**2)`` once per loop test, so
@@ -116,7 +118,10 @@ def apply_a(p: torch.Tensor) -> torch.Tensor:
 
 def smooth_damped(p, rhs, sweeps: int, omega: float = OMEGA):
     """``sweeps`` damped-Jacobi sweeps p + omega*((L+R+B+T+rhs)*0.25 - p);
-    the centre term is the current iterate."""
+    the centre term is the current iterate.  ``p`` None is a plane of
+    zeros (the coarsest level's start), swept as given."""
+    if p is None:
+        p = torch.zeros_like(rhs)
     for _ in range(sweeps):
         l, r, b, t = neighbors(p)
         p = p + omega * ((l + r + b + t + rhs) * 0.25 - p)
@@ -153,11 +158,51 @@ def last_smooth_project(p, rhs, u, v, sweeps: int, omega: float = OMEGA, *,
     return (out[0], out[1], p) + tuple(out[2:])
 
 
+# The ends with the grid transfers folded in: a pre-smooth hands the level
+# below its right-hand side, a post-smooth takes the level below's
+# correction.  Each is one H6 launch on the card.
+
+
+def smooth_res_restrict(p, rhs, sweeps: int, omega: float = OMEGA, *,
+                        from_zero: bool = False, return_res: bool = False):
+    """A pre-smooth and its residual, restricted: (p', rhs_c[, res]) with
+    rhs_c = 4 * restrict(rhs - A p'), the next level's right-hand side.
+    With ``from_zero`` ``p`` is not read (it may be None)."""
+    p, res = smooth_res(p, rhs, sweeps, omega, from_zero=from_zero)
+    rhs_c = 4.0 * _restrict(res)
+    return (p, rhs_c, res) if return_res else (p, rhs_c)
+
+
+def first_smooth_res_restrict(u, v, sweeps: int, half: bool,
+                              omega: float = OMEGA):
+    """Cycle 1's fine pre-smooth, divergence folded in and residual
+    restricted: (p, rhs, res, rhs_c)."""
+    p, rhs, res = first_smooth_res(u, v, sweeps, half, omega)
+    return p, rhs, res, 4.0 * _restrict(res)
+
+
+def prolong_smooth(p, e_c, rhs, sweeps: int, omega: float = OMEGA):
+    """A post-smooth of p plus the prolonged coarse correction ``e_c``."""
+    return smooth_damped(p + _prolong(e_c), rhs, sweeps, omega)
+
+
+def prolong_smooth_project(p, e_c, rhs, u, v, sweeps: int,
+                           omega: float = OMEGA, *, return_stats: bool = False):
+    """The fixed-cycle path's last post-smooth: the prolonged correction,
+    the sweeps and the projection, (u', v', p'[, vel_stats])."""
+    return last_smooth_project(p + _prolong(e_c), rhs, u, v, sweeps, omega,
+                               return_stats=return_stats)
+
+
 PLAIN = types.SimpleNamespace(
     smooth_damped=smooth_damped,
     smooth_res=smooth_res,
     first_smooth_res=first_smooth_res,
     last_smooth_project=last_smooth_project,
+    smooth_res_restrict=smooth_res_restrict,
+    first_smooth_res_restrict=first_smooth_res_restrict,
+    prolong_smooth=prolong_smooth,
+    prolong_smooth_project=prolong_smooth_project,
     divergence=ref.divergence,
     project=ref.project,
 )
@@ -319,17 +364,16 @@ def residual_norm(p, div) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _coarse_correction(ends, res, level, nu1, nu2, coarse_sweeps):
-    """restrict -> zero-start V-cycle one level down -> prolong."""
-    rhs = 4.0 * _restrict(res)
-    level -= 1
+def _coarse_solve(ends, rhs, level, nu1, nu2, coarse_sweeps):
+    """The zero-start V-cycle of a coarse level: its correction e, one end
+    call a level on the way down and one on the way up.  The pre-smooth
+    restricts its residual into the level below's right-hand side; the
+    post-smooth adds the prolonged correction of the level below."""
     if level == 1:
-        e = ends.smooth_damped(torch.zeros_like(rhs), rhs, coarse_sweeps, OMEGA)
-    else:
-        e, r = ends.smooth_res(rhs, rhs, nu1, OMEGA, from_zero=True)
-        e = e + _coarse_correction(ends, r, level, nu1, nu2, coarse_sweeps)
-        e = ends.smooth_damped(e, rhs, nu2, OMEGA)
-    return _prolong(e)
+        return ends.smooth_damped(None, rhs, coarse_sweeps, OMEGA)
+    e, rhs_c = ends.smooth_res_restrict(None, rhs, nu1, OMEGA, from_zero=True)
+    e_c = _coarse_solve(ends, rhs_c, level - 1, nu1, nu2, coarse_sweeps)
+    return ends.prolong_smooth(e, e_c, rhs, nu2, OMEGA)
 
 
 def pressure_project_mg(u, v, cycles: int = 2, nu1: int = 2, nu2: int = 2,
@@ -355,22 +399,31 @@ def pressure_project_mg(u, v, cycles: int = 2, nu1: int = 2, nu2: int = 2,
         out = ends.project(u, v, p, return_stats=return_stats)
         return (out[0], out[1], p) + tuple(out[2:])
 
-    p, rhs, res = ends.first_smooth_res(u, v, nu1, half, OMEGA)
+    p, rhs, res, rhs_c = ends.first_smooth_res_restrict(u, v, nu1, half, OMEGA)
 
-    def correct(p, res):
-        return p + _coarse_correction(ends, res, lv, nu1, nu2, coarse_sweeps)
-
-    def finish(p, res):
-        return ends.smooth_damped(correct(p, res), rhs, nu2, OMEGA)
+    def coarse(rhs_c):
+        return _coarse_solve(ends, rhs_c, lv - 1, nu1, nu2, coarse_sweeps)
 
     if tol <= 0:
         for _ in range(cycles - 1):
-            p, res = ends.smooth_res(finish(p, res), rhs, nu1, OMEGA)
-        return ends.last_smooth_project(correct(p, res), rhs, u, v, nu2, OMEGA,
-                                        return_stats=return_stats)
+            p = ends.prolong_smooth(p, coarse(rhs_c), rhs, nu2, OMEGA)
+            p, rhs_c = ends.smooth_res_restrict(p, rhs, nu1, OMEGA)
+        return ends.prolong_smooth_project(p, coarse(rhs_c), rhs, u, v, nu2,
+                                           OMEGA, return_stats=return_stats)
 
-    p = probed_tol_loop(lambda q: ends.smooth_res(q, rhs, nu1, OMEGA), finish,
-                        _res_mean, torch.zeros_like(rhs), (p, res), tol,
-                        max_cycles)
+    # a probe's "residual" is (res, rhs_c): the test reads res, the cycle
+    # it completes goes on from rhs_c
+    def probe(q):
+        q, rhs_c, res = ends.smooth_res_restrict(q, rhs, nu1, OMEGA,
+                                                 return_res=True)
+        return q, (res, rhs_c)
+
+    def finish(q, pending):
+        return ends.prolong_smooth(q, coarse(pending[1]), rhs, nu2, OMEGA)
+
+    # the loop returns p0 only when it may complete no cycle
+    p0 = torch.zeros_like(rhs) if max_cycles < 1 else None
+    p = probed_tol_loop(probe, finish, lambda pending: _res_mean(pending[0]),
+                        p0, (p, (res, rhs_c)), tol, max_cycles)
     out = ends.project(u, v, p, return_stats=return_stats)
     return (out[0], out[1], p) + tuple(out[2:])

@@ -5,26 +5,30 @@ Replaces ``cudafluidsimulation_tpu/ops/jacobi_pallas.py``:
 - ``smooth_damped`` → ``_smooth_kernel``, ``_smooth_kernel_tiled``;
 - ``smooth_res`` → ``_smooth_res_kernel``, ``_smooth_res_kernel_tiled``;
 - ``first_smooth_res`` → ``_first_smooth_res_kernel``;
-- ``last_smooth_project`` → ``_last_smooth_project_kernel``.
+- ``last_smooth_project`` → ``_last_smooth_project_kernel``;
+
+and, with the restriction and prolongation that the JAX package leaves to
+XLA fused in, the ends that ``ops/multigrid.py`` runs its V-cycles over:
+``smooth_res_restrict``, ``first_smooth_res_restrict`` (pre-smooths that
+write the next level's right-hand side), ``prolong_smooth`` and
+``prolong_smooth_project`` (post-smooths that start from p plus the
+prolonged coarse correction).
 
 Each wrapper takes its plain version (``ops/multigrid.py``) for CPU
-tensors and launches its kernel or raises for CUDA tensors; each entry has
-its own launch count.  The TPU kernels run k sweeps per trip to VMEM over
-row strips with mirror halos; here a sweep is one launch over the whole
-level, ping-ponging two planes so the last sweep lands in the output (the
-centre term is the current iterate), and the residual or the projection is
-one more launch reading the final p.
+tensors and launches the kernel or raises for CUDA tensors; each entry has
+its own launch count.  Every entry runs one kernel, temporally blocked as
+H3 and H4 are (``csrc/burst.cuh``): a launch is a burst of sweeps on a tile
+plus a halo in shared memory, planned by ``jacobi_cuda.plan_bursts`` (kind
+"smooth", or "smooth_res" when the tail reads p beyond the tile).  At the
+quality path's shapes (2 sweeps, or 20 at the 16² bottom) every call is one
+launch; ``prolong_smooth_project`` with the velocity bound adds the memset
+of its two floats.
 
-Bound by bytes.  At the 2048² fine level (one plane is 16 MiB) a sweep
-reads p and rhs and writes p (48 MiB), and so does the residual, so the
-pre-smooth ``smooth_res`` (2 sweeps + residual) moves 144 MiB, 128 MiB
-from zero (the first sweep reads only rhs); ``first_smooth_res`` reads u,
-v and writes rhs and p in its first launch (64 MiB), then one sweep and
-the residual (96 MiB); ``last_smooth_project`` moves 2 × 48 MiB of sweeps
-and the projection's 80 MiB.  Levels at or below 1024² (4 MiB a plane)
-stay in the 50 MB L2; the 16² bottom (20 sweeps) is bound by launch
-latency.  Fusing the residual into the last sweep and temporal blocking
-are later work.
+Bound by bytes: at the 2048² fine level (16 MiB a plane) the pre-smooth
+with restriction reads p and rhs and writes p, res and rhs_c (68 MiB);
+the post-smooth reads p, rhs and e_c and writes p (52 MiB);
+``first_smooth_res_restrict`` reads u and v and writes p, rhs, res and
+rhs_c (84 MiB).  The levels at or below 1024² sit in the 50 MB L2.
 
 ``ENDS`` is the namespace of these wrappers, with H5's ``divergence`` and
 ``project``, that ``ops/multigrid.py`` runs its V-cycles over.
@@ -33,6 +37,7 @@ are later work.
 from __future__ import annotations
 
 import ctypes
+import functools
 import types
 
 import torch
@@ -44,26 +49,26 @@ from cudafluidsimulation_tpu_torch.ops._build import (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 OMEGA = multigrid.OMEGA
 
-# fluid_smooth_damped(p, rhs, out, scratch, h, w, sweeps, omega, stream)
-SMOOTH = Kernel("multigrid", {
-    "fluid_smooth_damped": [_P] * 4 + [_I] * 3 + [_F, _P],
-})
-# fluid_smooth_res(p, rhs, out, res, scratch, h, w, sweeps, omega,
-#                  from_zero, stream)
-SMOOTH_RES = Kernel("multigrid", {
-    "fluid_smooth_res": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
-})
-# fluid_first_smooth_res(u, v, p, rhs, res, scratch, h, w, sweeps, half,
-#                        omega, stream)
-FIRST = Kernel("multigrid", {
-    "fluid_first_smooth_res": [_P] * 6 + [_I] * 4 + [_F, _P],
-})
-# fluid_last_smooth_project(p, rhs, u, v, u2, v2, p2, scratch, stats, h, w,
-#                           sweeps, omega, stream), stats may be null
-LAST = Kernel("multigrid", {
-    "fluid_last_smooth_project": [_P] * 9 + [_I] * 3 + [_F, _P],
-})
-KERNELS = (SMOOTH, SMOOTH_RES, FIRST, LAST)
+# fluid_mg_smooth(u, v, p_in, e_c, rhs_in, rhs_out, p_out, res_out, rhs_c,
+#                 u2, v2, stats, scratch, h, w, tile_h, tile_w, depths*,
+#                 nbursts, start, tail, half, omega, stream); depths is a
+#                 host pointer, every other pointer may be null where unused
+_ENTRY = {"fluid_mg_smooth": [_P] * 13 + [_I] * 4 + [_P] + [_I] * 4 + [_F, _P]}
+# one counter per entry, all over the one C entry
+SMOOTH = Kernel("multigrid", _ENTRY)
+SMOOTH_RES = Kernel("multigrid", _ENTRY)
+FIRST = Kernel("multigrid", _ENTRY)
+LAST = Kernel("multigrid", _ENTRY)
+SMOOTH_RES_RESTRICT = Kernel("multigrid", _ENTRY)
+FIRST_RESTRICT = Kernel("multigrid", _ENTRY)
+PROLONG_SMOOTH = Kernel("multigrid", _ENTRY)
+PROLONG_SMOOTH_PROJECT = Kernel("multigrid", _ENTRY)
+KERNELS = (SMOOTH, SMOOTH_RES, FIRST, LAST, SMOOTH_RES_RESTRICT, FIRST_RESTRICT,
+           PROLONG_SMOOTH, PROLONG_SMOOTH_PROJECT)
+
+# csrc/multigrid.cu MgStart and MgTail
+LOAD, ZERO_PLANE, FROM_ZERO, FROM_UV = range(4)
+STORE, RESIDUAL, PROJECT = range(3)
 
 
 def _planes(**named):
@@ -82,28 +87,147 @@ def _check_sweeps(sweeps: int, least: int) -> None:
         raise ValueError(f"sweeps must be >= {least}, got {sweeps}")
 
 
-def _scratch(like, sweeps: int):
-    return torch.empty_like(like) if sweeps >= 2 else None
+def _check_even(h: int, w: int) -> None:
+    if h % 2 or w % 2:
+        raise ValueError(f"restriction and prolongation need even extents, got {h}x{w}")
 
 
 def _ptr(t) -> int | None:
     return t.data_ptr() if t is not None else None
 
 
+def _given(*tensors):
+    """The tensors that are not None, for ``on_card``."""
+    return [t for t in tensors if t is not None]
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(h: int, w: int, sweeps: int, kind: str):
+    """(tile, host depths array, its pointer, bursts) of a call; cached, as
+    a V-cycle asks for the same few plans every step (the array lives in
+    the cache, so its pointer stays valid)."""
+    plan = jacobi_cuda.plan_bursts(h, w, sweeps, kind)
+    return (plan.tile,) + jacobi_cuda._depths(plan)
+
+
+def _launch(kernel, like, sweeps, start, tail, *, u=None, v=None, p=None,
+            e_c=None, rhs=None, rhs_out=None, res=None, rhs_c=None,
+            uv2=None, stats=None, half=True, omega=OMEGA):
+    """Allocate p' and launch ``fluid_mg_smooth`` on ``like``'s stream;
+    the caller allocates the other outputs it asks for."""
+    h, w = like.shape
+    tile, _, depths_ptr, nbursts = _plan(h, w, int(sweeps),
+                                         "smooth" if tail == STORE else "smooth_res")
+    p_out = torch.empty_like(like)
+    scratch = torch.empty_like(like) if nbursts >= 2 else None
+    u2, v2 = (None, None) if uv2 is None else (uv2[0], uv2[1])
+    with torch.cuda.device(like.device):
+        kernel.launch(
+            "fluid_mg_smooth", _ptr(u), _ptr(v), _ptr(p), _ptr(e_c), _ptr(rhs),
+            _ptr(rhs_out), p_out.data_ptr(), _ptr(res), _ptr(rhs_c), _ptr(u2),
+            _ptr(v2), _ptr(stats), _ptr(scratch), h, w, *tile, depths_ptr,
+            nbursts, start, tail, int(bool(half)), float(ref.f32(omega)),
+            stream_of(like))
+    return p_out
+
+
+def _coarse(like):
+    h, w = like.shape
+    return torch.empty((h // 2, w // 2), dtype=torch.float32, device=like.device)
+
+
+# -- the ends the V-cycle runs over ------------------------------------------------
+
+
 def smooth_damped(p, rhs, sweeps: int, omega: float = OMEGA):
-    """``sweeps`` damped-Jacobi sweeps; ``multigrid.smooth_damped``."""
+    """``sweeps`` damped-Jacobi sweeps, ``p`` None a plane of zeros (the
+    kernel starts from zeros in shared memory; no plane is written);
+    ``multigrid.smooth_damped``."""
     _check_sweeps(sweeps, 0)
-    if not on_card(p, rhs):
+    if not on_card(*_given(p, rhs)):
         return multigrid.smooth_damped(p, rhs, sweeps, omega)
+    _planes(rhs=rhs, **({} if p is None else {"p": p}))
     if sweeps == 0:
-        return p
+        return torch.zeros_like(rhs) if p is None else p
+    return _launch(SMOOTH, rhs, sweeps, LOAD if p is not None else ZERO_PLANE, STORE,
+                   p=p, rhs=rhs, omega=omega)
+
+
+def smooth_res_restrict(p, rhs, sweeps: int, omega: float = OMEGA, *,
+                        from_zero: bool = False, return_res: bool = False):
+    """``sweeps`` >= 1 sweeps, the residual and its restriction, (p', rhs_c
+    [, res]) with rhs_c = 4 * restrict(rhs - A p'); ``from_zero`` starts
+    from p = 0 without reading ``p`` (None allowed);
+    ``multigrid.smooth_res_restrict``."""
+    _check_sweeps(sweeps, 1)
+    if p is None and not from_zero:
+        raise ValueError("p is None: only a from_zero pre-smooth reads no p")
+    if not on_card(*_given(None if from_zero else p, rhs)):
+        return multigrid.smooth_res_restrict(p, rhs, sweeps, omega, from_zero=from_zero,
+                                             return_res=return_res)
+    h, w = _planes(rhs=rhs, **({} if from_zero else {"p": p}))
+    _check_even(h, w)
+    rhs_c = _coarse(rhs)
+    res = torch.empty_like(rhs) if return_res else None
+    out = _launch(SMOOTH_RES_RESTRICT, rhs, sweeps, FROM_ZERO if from_zero else LOAD,
+                  RESIDUAL, p=None if from_zero else p, rhs=rhs, res=res,
+                  rhs_c=rhs_c, omega=omega)
+    return (out, rhs_c, res) if return_res else (out, rhs_c)
+
+
+def first_smooth_res_restrict(u, v, sweeps: int, half: bool, omega: float = OMEGA):
+    """Divergence, ``sweeps`` >= 1 sweeps from zero, the residual and its
+    restriction: (p, rhs, res, rhs_c) with rhs = -div;
+    ``multigrid.first_smooth_res_restrict``."""
+    _check_sweeps(sweeps, 1)
+    if not on_card(u, v):
+        return multigrid.first_smooth_res_restrict(u, v, sweeps, half, omega)
+    h, w = _planes(u=u, v=v)
+    _check_even(h, w)
+    rhs, res, rhs_c = torch.empty_like(u), torch.empty_like(u), _coarse(u)
+    p = _launch(FIRST_RESTRICT, u, sweeps, FROM_UV, RESIDUAL, u=u, v=v,
+                rhs_out=rhs, res=res, rhs_c=rhs_c, half=half, omega=omega)
+    return p, rhs, res, rhs_c
+
+
+def prolong_smooth(p, e_c, rhs, sweeps: int, omega: float = OMEGA):
+    """``sweeps`` >= 1 sweeps from p plus the prolonged correction ``e_c``
+    (half the extents of p); ``multigrid.prolong_smooth``."""
+    _check_sweeps(sweeps, 1)
+    if not on_card(p, e_c, rhs):
+        return multigrid.prolong_smooth(p, e_c, rhs, sweeps, omega)
     h, w = _planes(p=p, rhs=rhs)
-    out, scratch = torch.empty_like(p), _scratch(p, sweeps)
-    with torch.cuda.device(p.device):
-        SMOOTH.launch("fluid_smooth_damped", p.data_ptr(), rhs.data_ptr(),
-                      out.data_ptr(), _ptr(scratch), h, w,
-                      int(sweeps), float(ref.f32(omega)), stream_of(p))
-    return out
+    _check_even(h, w)
+    check_f32("e_c", e_c, (h // 2, w // 2))
+    return _launch(PROLONG_SMOOTH, p, sweeps, LOAD, STORE, p=p, e_c=e_c, rhs=rhs,
+                   omega=omega)
+
+
+def prolong_smooth_project(p, e_c, rhs, u, v, sweeps: int, omega: float = OMEGA, *,
+                           return_stats: bool = False):
+    """``prolong_smooth`` then the gradient subtraction: (u', v', p'[,
+    vel_stats]); ``multigrid.prolong_smooth_project``."""
+    _check_sweeps(sweeps, 1)
+    if not on_card(p, e_c, rhs, u, v):
+        return multigrid.prolong_smooth_project(p, e_c, rhs, u, v, sweeps, omega,
+                                                return_stats=return_stats)
+    h, w = _planes(p=p, rhs=rhs, u=u, v=v)
+    _check_even(h, w)
+    check_f32("e_c", e_c, (h // 2, w // 2))
+    return _project(PROLONG_SMOOTH_PROJECT, p, e_c, rhs, u, v, sweeps, omega,
+                    return_stats)
+
+
+def _project(kernel, p, e_c, rhs, u, v, sweeps, omega, return_stats):
+    uv2 = torch.empty((2,) + tuple(p.shape), dtype=torch.float32, device=p.device)
+    stats = (torch.empty((2,), dtype=torch.float32, device=p.device)
+             if return_stats else None)
+    p2 = _launch(kernel, p, sweeps, LOAD, PROJECT, u=u, v=v, p=p, e_c=e_c, rhs=rhs,
+                 uv2=uv2, stats=stats, omega=omega)
+    return (uv2[0], uv2[1], p2) + ((stats,) if return_stats else ())
+
+
+# -- the ends without the grid transfers (pressure_solve_mg, one-level grids) -------
 
 
 def smooth_res(p, rhs, sweeps: int, omega: float = OMEGA, *,
@@ -114,15 +238,10 @@ def smooth_res(p, rhs, sweeps: int, omega: float = OMEGA, *,
     _check_sweeps(sweeps, 1)
     if not on_card(p, rhs):
         return multigrid.smooth_res(p, rhs, sweeps, omega, from_zero=from_zero)
-    h, w = _planes(rhs=rhs, p=p)
-    out, res = torch.empty_like(rhs), torch.empty_like(rhs)
-    scratch = _scratch(rhs, sweeps)
-    with torch.cuda.device(rhs.device):
-        SMOOTH_RES.launch(
-            "fluid_smooth_res", None if from_zero else p.data_ptr(),
-            rhs.data_ptr(), out.data_ptr(), res.data_ptr(),
-            _ptr(scratch), h, w, int(sweeps),
-            float(ref.f32(omega)), int(bool(from_zero)), stream_of(rhs))
+    _planes(rhs=rhs, p=p)
+    res = torch.empty_like(rhs)
+    out = _launch(SMOOTH_RES, rhs, sweeps, FROM_ZERO if from_zero else LOAD, RESIDUAL,
+                  p=None if from_zero else p, rhs=rhs, res=res, omega=omega)
     return out, res
 
 
@@ -132,15 +251,10 @@ def first_smooth_res(u, v, sweeps: int, half: bool, omega: float = OMEGA):
     _check_sweeps(sweeps, 1)
     if not on_card(u, v):
         return multigrid.first_smooth_res(u, v, sweeps, half, omega)
-    h, w = _planes(u=u, v=v)
-    p, rhs, res = (torch.empty_like(u) for _ in range(3))
-    scratch = _scratch(u, sweeps)
-    with torch.cuda.device(u.device):
-        FIRST.launch(
-            "fluid_first_smooth_res", u.data_ptr(), v.data_ptr(),
-            p.data_ptr(), rhs.data_ptr(), res.data_ptr(),
-            _ptr(scratch), h, w, int(sweeps), int(bool(half)),
-            float(ref.f32(omega)), stream_of(u))
+    _planes(u=u, v=v)
+    rhs, res = torch.empty_like(u), torch.empty_like(u)
+    p = _launch(FIRST, u, sweeps, FROM_UV, RESIDUAL, u=u, v=v, rhs_out=rhs,
+                res=res, half=half, omega=omega)
     return p, rhs, res
 
 
@@ -152,21 +266,8 @@ def last_smooth_project(p, rhs, u, v, sweeps: int, omega: float = OMEGA, *,
     if not on_card(p, rhs, u, v):
         return multigrid.last_smooth_project(p, rhs, u, v, sweeps, omega,
                                              return_stats=return_stats)
-    h, w = _planes(p=p, rhs=rhs, u=u, v=v)
-    dev = p.device
-    uv2 = torch.empty((2, h, w), dtype=torch.float32, device=dev)
-    p2, scratch = torch.empty_like(p), _scratch(p, sweeps)
-    stats = (torch.empty((2,), dtype=torch.float32, device=dev)
-             if return_stats else None)
-    with torch.cuda.device(dev):
-        LAST.launch(
-            "fluid_last_smooth_project", p.data_ptr(), rhs.data_ptr(),
-            u.data_ptr(), v.data_ptr(), uv2[0].data_ptr(), uv2[1].data_ptr(),
-            p2.data_ptr(), _ptr(scratch), _ptr(stats), h, w,
-            int(sweeps), float(ref.f32(omega)), stream_of(p))
-    if return_stats:
-        return uv2[0], uv2[1], p2, stats
-    return uv2[0], uv2[1], p2
+    _planes(p=p, rhs=rhs, u=u, v=v)
+    return _project(LAST, p, None, rhs, u, v, sweeps, omega, return_stats)
 
 
 ENDS = types.SimpleNamespace(
@@ -174,6 +275,10 @@ ENDS = types.SimpleNamespace(
     smooth_res=smooth_res,
     first_smooth_res=first_smooth_res,
     last_smooth_project=last_smooth_project,
+    smooth_res_restrict=smooth_res_restrict,
+    first_smooth_res_restrict=first_smooth_res_restrict,
+    prolong_smooth=prolong_smooth,
+    prolong_smooth_project=prolong_smooth_project,
     divergence=jacobi_cuda.divergence,
     project=jacobi_cuda.project,
 )

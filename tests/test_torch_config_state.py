@@ -69,8 +69,15 @@ def test_backend_values():
     with pytest.raises(ValueError):
         FluidConfig(backend="pallas")
     assert FluidConfig(backend="ref").resolve_backend() == "ref"
-    if not torch.cuda.is_available():
-        assert FluidConfig(backend="auto").resolve_backend() == "ref"
+    if torch.cuda.is_available():
+        assert FluidConfig().resolve_backend() == "cuda"
+    else:
+        # the default never falls back to the plain ops on the CPU unasked
+        for b in ("auto", "cuda"):
+            with pytest.raises(RuntimeError, match="backend='ref'"):
+                FluidConfig(backend=b).resolve_backend()
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            Simulation(FluidConfig(nx=16, ny=16))
 
 
 @pytest.mark.parametrize("bad", [dict(variant="x"), dict(pressure_solver="sor"),
