@@ -14,7 +14,8 @@ driven steps is measured three ways:
 - a ``torch.profiler`` trace of the window: device busy ms a step (the sum
   of the device operations' durations; the port runs on one stream, so
   they do not overlap), the idle share of the window, and each device
-  operation's µs and launches a step, largest first, and the window's
+  operation's µs and launches a step, largest first (with the count of
+  ``torch.cat``/``torch.stack`` copies among them), and the window's
   first step op by op in launch order (µs each).
 
 Prints one JSON line per path, after the card's name and power limit.
@@ -87,6 +88,9 @@ def profile(sim, warm, window, cuda_times_ms):
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "idle_share": 1.0 - (busy_us / 1e3) / window_ms if busy_us else None,
         "device_ops_per_step": sum(n for _, _, n in ops),
+        # torch.cat / torch.stack copies (the 5-channel pack is written in
+        # place, so none is expected)
+        "cat_ops_per_step": sum(n for name, _, n in ops if "CatArray" in name),
         "ops": [{"name": name, "us_per_step": us, "launches_per_step": n}
                 for name, us, n in ops],
         "first_step_ops_us": first_step,

@@ -9,12 +9,17 @@ caught:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the six kernel sources from ``cudafluidsimulation_tpu_torch/csrc``
    with ``nvcc`` (one compiler per source, all at once), print the seconds
-   and each kernel's ``ptxas`` registers and spills, and fail if H3, H4, H6
-   or H7 spills;
+   and each kernel's ``ptxas`` registers and spills, and fail if H2, H3,
+   H4, H6 or H7 spills;
 3. hold each kernel against its plain PyTorch version on the same inputs:
-   H1 advect in both modes, H2 vorticity, H3 diffusion with the splat, H4
-   pressure with its velocity bound, H5 divergence and projection at
-   2048x2048 and 540x960; H6 (the multigrid smoother ends) also at 135x240
+   H2 vorticity, both variants, bit-identical at 2048², 540x960,
+   2049x2047, 2050x2046, 135x240, 16x16, 4x8, 3x5 and 1x1 (odd widths
+   and unaligned planes take its scalar path), into a fresh (2, H, W)
+   tensor and into channels 0-1 of a (5, H, W) pack whose other channels
+   it must leave alone; H1 advect in both modes (its dye also into
+   channels 2-4 of a pack, equal to the fresh call), H3 diffusion with
+   the splat, H4 pressure with its velocity bound, H5 divergence and
+   projection at 2048x2048 and 540x960; H6 (the multigrid smoother ends) also at 135x240
    and 16x16, the coarse levels' shapes, and its ends with the grid
    transfers fused in at the level pairs 2048²→1024², 540x960→270x480,
    32²→16² and 2050x2046→1025x1023 (ragged tiles), at 1, 2 and 9 sweeps
@@ -31,20 +36,23 @@ caught:
    and against H3's 20 sweeps; H8 (bf16-tap advection) in both modes on driven
    fields (the rounded branch) and quiet ones (the exact branch, also equal
    to H1 bit for bit), with ``vel_stats`` given and absent, with
-   ``advect_fast_path`` off, and the dye's clamp and NaN saturation;
+   ``advect_fast_path`` off, the dye into a pack as with H1, and the dye's
+   clamp and NaN saturation;
 4. the gpu-parity path: the 2048² step (``bench.py``'s configuration) on
    ``backend="cuda"`` — a driven 200-step orbit rollout, a quiet rollout
    and one rendered frame, with every kernel's launch count read around
    that run — then one driven step held against ``backend="ref"`` on the
-   card;
+   card, and bit for bit against the same step with the 5-channel pack
+   built by ``torch.cat`` (:func:`cat_form`), and the device operations
+   of one step (13, none a ``cat``);
 5. the quality path: ``FluidConfig.quality`` at 2048² (multigrid pressure,
    V-cycles until rms(A p + div) < 0.05) on ``backend="cuda"``, the same
    rollouts and frame, launch counts read around them (H5 and H6's fused
    ends launched, H4's ``pressure_project`` not), the V-cycles each step
    took (from the H6 entries' counts), the device operations of one step
-   (``torch.profiler``, at most 80), one driven step against
-   ``backend="ref"``, and the tolerance met by one projection of the driven
-   state;
+   (``torch.profiler``: 52 at its 2 V-cycles, none a ``cat``), one driven
+   step against ``backend="ref"`` and against the ``torch.cat`` pack, and
+   the tolerance met by one projection of the driven state;
 6. the fixed-cycle multigrid path (``mg_cycles=2``, ``mg_tol=0``) at 2048²
    for a few steps: its last cycle ends in ``prolong_smooth_project``; one
    step against ``backend="ref"``;
@@ -53,7 +61,8 @@ caught:
    ``fast_diffuse``) on ``backend="cuda"``, the same rollouts and frame,
    launch counts read around them (H7 and H8 launched, H1 and H3 not), one
    driven step against the same step on the plain versions of every
-   kernel on the card, that step's distance from the exact parity step
+   kernel on the card and against the ``torch.cat`` pack, the device
+   operations of one step (11, none a ``cat``), that step's distance from the exact parity step
    and of its advected velocity from the exact one (information), and one
    step under ``torch.cuda.set_sync_debug_mode("error")``, which shows
    that the step reads nothing back;
@@ -81,6 +90,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -99,9 +109,10 @@ MG_PAIRS = ((2048, 2048), (540, 960), (32, 32), (2050, 2046))
 # max |kernel - plain| <= RTOL * max(max|plain|, 1) for each kernel.
 # The kernels are built without FMA contraction and use the same CUDA math
 # library as PyTorch's own kernels, so they round as the plain versions do.
-# H4, its solve, H5 and H6, and H3 without the splat ("H3 sweeps"), are
-# additions and multiplications in the plain version's order, one PyTorch
-# op per operation, so they are bit-identical; H4, its solve and "H3
+# H2, H4, its solve, H5 and H6, and H3 without the splat ("H3 sweeps"), are
+# additions, multiplications, divisions and square roots in the plain
+# version's order, one PyTorch op per operation, so they are
+# bit-identical; H4, its solve and "H3
 # sweeps" are held to 0 at every burst plan (a blocked sweep computes each
 # cell as a global sweep does), and so is H6 (blocked the same way, its
 # restriction and prolongation in the plain version's order).  The splat's
@@ -110,18 +121,24 @@ MG_PAIRS = ((2048, 2048), (540, 960), (32, 32), (2050, 2046))
 # ("H7 sweeps": the plain version's products and sums in its order) is
 # held to 0.  H8 is H1's arithmetic over taps rounded by integer
 # operations, so bit-identical as H1.
-RTOL = {"H1": 1e-6, "H2": 1e-6, "H3": 1e-5, "H3 sweeps": 0.0, "H4": 0.0,
+RTOL = {"H1": 1e-6, "H2": 0.0, "H3": 1e-5, "H3 sweeps": 0.0, "H4": 0.0,
         "H4 solve": 0.0, "H5": 1e-6, "H6": 0.0, "H7": 1e-5, "H7 sweeps": 0.0,
         "H8": 1e-6}
 # the burst checks' shapes: one tile, a grid narrower than a 16-byte row,
 # the reference grid's odd coarse level, ragged tiles on both axes
 BURST_SHAPES = ((16, 16), (4, 8), (135, 240), (2049, 2047))
+# H2's shapes: its 128x16 tiles whole, ragged, odd widths (the scalar
+# path), one tile, narrower than one tile, a single cell
+VORT_SHAPES = CHECK_SHAPES + ((2049, 2047), (2050, 2046), (135, 240), (16, 16), (4, 8),
+                              (3, 5), (1, 1))
+# device operations of one driven 2048² step: the kernels' launches and
+# the memsets of their velocity bounds, no copy into the 5-channel pack
+STEP_DEVICE_OPS = {"parity": 13, "fast": 11, "quality": 52}
+QUALITY_STEP_VCYCLES = 2  # the V-cycles of the quality step counted
 # the most device launches one entry call may make at 2048²
 MAX_DEVICE_LAUNCHES = {"H3": 5, "H4": 8, "H4 solve": 8,
                        "H6 smooth_res_restrict": 1, "H6 first_smooth_res_restrict": 1,
                        "H6 prolong_smooth": 1, "H6 smooth_damped": 1}
-# the most device operations one 2048² quality step may make
-MAX_QUALITY_STEP_OPS = 80
 # marker kernels launched before the work a profiler session counts
 MARKERS = 4
 # the card's peaks (NVIDIA's H100 SXM data sheet): device memory bytes/s,
@@ -242,6 +259,60 @@ def _step_vs_ref(what, sim, ref_sim, state, imp):
     return step_err, bool(torch.equal(sim.render_fn(got), ref_sim.render_fn(exp)))
 
 
+def cat_form(ops):
+    """``ops`` with the step's 5-channel pack built as it was before the
+    dye advection and the confinement wrote into it: they return fresh
+    tensors, and diffusion takes ``torch.cat`` of their results in place
+    of the pack it is handed."""
+    ns = types.SimpleNamespace(**vars(ops))
+    made = {}
+
+    def fresh(key, fn):
+        def call(*args, out=None, **kw):
+            made[key] = fn(*args, **kw)
+            return made[key]
+        return call
+
+    def from_cat(fn):
+        def call(pack, *args, **kw):
+            return fn(torch.cat([torch.stack(made["uv"]), made["dye"]]), *args, **kw)
+        return call
+
+    ns.advect_dye = fresh("dye", ops.advect_dye)
+    ns.vorticity_confinement_gpu = fresh("uv", ops.vorticity_confinement_gpu)
+    ns.vorticity_confinement_cpu = fresh("uv", ops.vorticity_confinement_cpu)
+    ns.diffuse_multi = from_cat(ops.diffuse_multi)
+    ns.diffuse_multi_splat = from_cat(ops.diffuse_multi_splat)
+    return ns
+
+
+def _step_vs_cat(what, sim, state, imp):
+    """One step with the pack written in place, bit for bit against the
+    same step with the pack built by ``torch.cat``, on the same kernels."""
+    from cudafluidsimulation_tpu_torch.models.pipelines import make_step
+
+    got = sim.step(state, imp)
+    exp = make_step(sim.config, cat_form(sim.ops))(state, imp)
+    for name in STATE_FIELDS:
+        if not torch.equal(getattr(got, name), getattr(exp, name)):
+            raise AssertionError(f"{what}: the in-place pack changed {name}: max abs diff "
+                                 f"{_max_err(getattr(got, name), getattr(exp, name))[0]}")
+
+
+def _step_device_ops(what, fn):
+    """The device operations of one step, asserted against STEP_DEVICE_OPS;
+    none may be a ``torch.cat`` or ``torch.stack`` copy."""
+    ops = _device_kernels(fn)
+    n = sum(ops.values())
+    cats = sum(c for name, c in ops.items() if "CatArray" in name)
+    _json({"phase": "step_device_ops", "path": what, "grid": f"{N}x{N}", "device_ops": n,
+           "cat_ops": cats, "by_name": ops})
+    if n != STEP_DEVICE_OPS[what] or cats:
+        raise AssertionError(f"{what}: one step made {n} device operations "
+                             f"({cats} cat), not {STEP_DEVICE_OPS[what]}")
+    return n
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -308,7 +379,8 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
-            if (name in ("diffuse", "pressure", "multigrid", "sepdiffuse") and "spill" in line
+            if (name in ("vorticity", "diffuse", "pressure", "multigrid", "sepdiffuse")
+                    and "spill" in line
                     and "0 bytes spill stores, 0 bytes spill loads" not in line):
                 raise AssertionError(f"ptxas {name}: {line.strip()}")
     _json({"phase": "build", "seconds": build_s, "nvcc": _build.nvcc()})
@@ -322,6 +394,42 @@ def main() -> int:
     dt, decay_rate = 1.0 / 60.0, 1.2
     worst = {k: 0.0 for k in RTOL}
     coeffs, amps = [0.8] * 5, [-3.5, 2.25, 1.0, 0.5, 0.3]
+
+    def _pack_out(what, call, exp, first):
+        """``call(out=...)`` into channels first.. of a (5, H, W) pack of
+        NaNs must equal ``exp`` (the fresh call's result) bit for bit and
+        leave the pack's other channels alone."""
+        exp = torch.stack(list(exp)) if isinstance(exp, tuple) else exp
+        pack = torch.full((5,) + tuple(exp.shape[1:]), float("nan"), device=dev)
+        view = pack[first:first + exp.shape[0]]
+        got = call(view)
+        got = torch.stack(list(got)) if isinstance(got, tuple) else got
+        rest = torch.cat([pack[:first], pack[first + exp.shape[0]:]])
+        if not (torch.equal(got, exp) and torch.equal(view, exp) and bool(rest.isnan().all())):
+            raise AssertionError(f"{what}: out=pack[{first}:] differs from the fresh call")
+
+    # H2 at every shape class, both variants, held to 0; into a fresh
+    # tensor and into a pack; then with planes one float off 16-byte
+    # alignment (the scalar path at any width)
+    for h, w in VORT_SHAPES:
+        tag = f"{h}x{w}"
+        u, v = randn(h, w, scale=200.0), randn(h, w, scale=200.0)
+        for variant, vort in (("gpu", 50.0), ("cpu", 0.35)):
+            plain = getattr(ref, f"vorticity_confinement_{variant}")
+            got = jacobi_cuda.vorticity_confinement(u, v, dt, vort, variant=variant)
+            _check(worst, "H2", f"{variant} {tag}", zip("uv", got, plain(u, v, dt, vort)))
+            _pack_out(f"H2 {variant} {tag}", lambda out: jacobi_cuda.vorticity_confinement(
+                u, v, dt, vort, variant=variant, out=out), got, 0)
+            if h * w > 1:
+                buf = torch.empty(2 * h * w + 1, device=dev)[1:]
+                uo, vo = buf[:h * w].view(h, w), buf[h * w:].view(h, w)
+                uo.copy_(u)
+                vo.copy_(v)
+                _check(worst, "H2", f"{variant} unaligned {tag}", zip(
+                    "uv", jacobi_cuda.vorticity_confinement(uo, vo, dt, vort, variant=variant),
+                    plain(uo, vo, dt, vort)))
+    del buf, uo, vo
+
     for h, w in CHECK_SHAPES:
         tag = f"{h}x{w}"
         # velocities of ~200 cells/s (a few cells a step) with a tail that
@@ -332,12 +440,11 @@ def main() -> int:
         exp = ref.advect_velocity(u, v, dt, decay_rate, return_stats=True)
         _check(worst, "H1", f"velocity {tag}", zip("uv", got[:2], exp[:2]))
         _check_bound("H1", got[2], got[0], got[1])
+        h1_dye = advect_cuda.advect_dye(dye, got[0], got[1], dt, decay_rate)
         _check(worst, "H1", f"dye {tag}", [(
-            "dye", advect_cuda.advect_dye(dye, got[0], got[1], dt, decay_rate),
-            ref.advect_dye(dye, got[0], got[1], dt, decay_rate))])
-        _check(worst, "H2", f"gpu {tag}", zip(
-            "uv", jacobi_cuda.vorticity_confinement(u, v, dt, 50.0, variant="gpu"),
-            ref.vorticity_confinement_gpu(u, v, dt, 50.0)))
+            "dye", h1_dye, ref.advect_dye(dye, got[0], got[1], dt, decay_rate))])
+        _pack_out(f"H1 dye {tag}", lambda out: advect_cuda.advect_dye(
+            dye, got[0], got[1], dt, decay_rate, out=out), h1_dye, 2)
         fields = torch.cat([torch.stack([u, v]), dye])
         last = (w * 0.4, h * 0.6)
         _check(worst, "H3", f"splat {tag}", [(
@@ -434,9 +541,6 @@ def main() -> int:
     if not bool((got[:, :, 0] == 1.0).all()) or bool(torch.isnan(got).any()):
         raise AssertionError("H1 dye: NaN saturation to 1 failed")
     _check(worst, "H1", "dye saturation", [("dye", got, ref.advect_dye(sat, push, v, dt, decay_rate))])
-    _check(worst, "H2", "cpu", zip(
-        "uv", jacobi_cuda.vorticity_confinement(u, v, dt, 0.35, variant="cpu"),
-        ref.vorticity_confinement_cpu(u, v, dt, 0.35)))
     for iters in (0, 1, 2):
         _check(worst, "H3", f"splat iters={iters}", [(
             "fields", jacobi_cuda.diffuse_multi_splat(fields, dt, coeffs, iters, amps, last, 400.0),
@@ -537,6 +641,9 @@ def main() -> int:
                                                      packed=True, **kw)
                     _check(worst, "H8", f"dye {case}", [("dye", got_dye, advect_packed.advect_dye(
                         dye, got[0], got[1], dt, decay_rate, **kw))])
+                    _pack_out(f"H8 dye {case}", lambda out: advect_cuda.advect_dye(
+                        dye, got[0], got[1], dt, decay_rate, packed=True, out=out, **kw),
+                        got_dye, 2)
                     exact = all(torch.equal(a, b) for a, b in zip(got, h1))
                     exact = exact and torch.equal(got_dye, h1_dye)
                     if exact != (flow == "quiet" and fast_path):
@@ -595,6 +702,8 @@ def main() -> int:
     _json({"phase": "parity_step_vs_ref", "max_rel_err": step_err, "tol": STEP_RTOL,
            "frames_equal": frames_equal, "dye_range": dye_range,
            "quiet_u_max": quiet_state.u.abs().max().item()})
+    _step_vs_cat("parity", sim, state, slice_step(driven, STEPS - 1))
+    _step_device_ops("parity", lambda: sim.step(state, slice_step(driven, STEPS - 1)))
 
     # -- 5. the quality path (multigrid, residual-targeted) --------------------
     qcfg = FluidConfig.quality(nx=N, ny=N, backend="cuda")
@@ -659,15 +768,14 @@ def main() -> int:
            "frames_equal": frames_equal, "dye_range": qdye,
            "rms_residual": residual, "mg_tol": qcfg.mg_tol, "vcycles": taken,
            "capped": taken >= qcfg.mg_max_cycles})
-    # the device operations of one driven quality step
+    _step_vs_cat("quality", qsim, qstate, slice_step(driven, STEPS - 1))
+    # the device operations of one driven quality step, at its V-cycles
     before = multigrid_cuda.SMOOTH_RES_RESTRICT.launches
-    step_ops = _device_kernels(lambda: qsim.step(qstate, slice_step(driven, STEPS - 1)))
+    qsim.step(qstate, slice_step(driven, STEPS - 1))
     step_cycles = (multigrid_cuda.SMOOTH_RES_RESTRICT.launches - before) / (levels - 1)
-    n_ops = sum(step_ops.values())
-    _json({"phase": "quality_step_device_ops", "grid": f"{N}x{N}", "device_ops": n_ops,
-           "vcycles": step_cycles, "by_name": step_ops})
-    if not 0 < n_ops <= MAX_QUALITY_STEP_OPS:
-        raise AssertionError(f"one quality step made {n_ops} device operations")
+    if step_cycles != QUALITY_STEP_VCYCLES:
+        raise AssertionError(f"the counted quality step takes {step_cycles} V-cycles")
+    _step_device_ops("quality", lambda: qsim.step(qstate, slice_step(driven, STEPS - 1)))
     del seen, u, v, p
 
     # -- 6. fixed-cycle multigrid (its last cycle ends in last_smooth_project)
@@ -716,6 +824,8 @@ def main() -> int:
     if not float(kstate.vel_stats.max()) * dt >= 1.0:
         raise AssertionError("fast path: the checked step is quiet; H8 would not round")
     step_err, frames_equal = _step_vs_ref("fast", ksim, kplain, kstate, last_imp)
+    _step_vs_cat("fast", ksim, kstate, last_imp)
+    _step_device_ops("fast", lambda: ksim.step(kstate, last_imp))
     # information: how far one fast step lands from the exact parity step,
     # and how far its advected velocity alone (bf16 taps against f32 ones)
     fast_next, parity_next = ksim.step(kstate, last_imp), ref_sim.step(kstate, last_imp)

@@ -2,89 +2,206 @@
 //
 // Replaces cudafluidsimulation_tpu/ops/jacobi_pallas.py
 // vorticity_confinement -> _vorticity_kernel (_curl_taps, _confinement).
-// The curl is 0.5*(vR - vL - uT + uB) with clamped taps.  Each block
-// computes the curl of its 32x8 tile and a one-cell ring into shared
-// memory; a ring cell outside the domain holds the curl of the clamped cell
-// (ops/ref.py clamps the curl field itself), then each thread applies the
-// confinement force to its cell.  The curl never goes to device memory.
+// The curl is 0.5*(vR - vL - uT + uB) with clamped taps, and the force
+// reads the curl field with clamped taps too: a ring cell outside the grid
+// holds the curl of the clamped cell (ops/ref.py clamps the curl field).
 //
 // gpu variant (GPUFluidSim.cu:536-573): f = 0.5*(|wT|-|wB|, |wL|-|wR|),
 //   normalised by (len + 1e-3), scaled by w*vorticity, not negated.
 // cpu variant (cpuFluidSim.cpp:271-296): f = 0.5*(|wT|-|wB|, |wR|-|wL|),
 //   normalised by (len + 1e-4), scaled by w*vorticity, negated.
 //
-// Bound by bytes: u, v in, u', v' out; the ring's extra curl work reads
-// through L1.
+// Bound by bytes: u, v in, u', v' out (16 bytes a cell).  The first design
+// (32x8 tiles, 4 scalar loads per ring curl, u and v read again for the
+// update) ran at half its bound, held back by L1 requests.  Here a block
+// takes a 128 x VORT_TH tile and reads each plane once, with its halo:
+//
+// 1. fill: u rows y0-2 .. y0+TH+1 with one ring column each side, v rows
+//    y0-1 .. y0+TH with two ring columns each side, into shared memory at
+//    clamped coordinates; the tile's columns as 16-byte loads (every load a
+//    thread issues before its first shared store), the ring columns as
+//    scalars;
+// 2. curl of the tile and its one-cell ring from shared memory, 4 columns
+//    a thread (16-byte shared accesses);
+// 3. force, 4 columns a thread: the curl's neighbours at clamped
+//    coordinates, the centre u and v from the tile; 16-byte stores.
+//
+// Where W is not a multiple of 4 or a plane is not 16-byte aligned, the
+// same kernel loads and stores each cell as a scalar (vec = 0).  Ring cells
+// outside the grid hold values computed from clamped loads and are never
+// read: the force's taps clamp against the grid first.  The outputs are two
+// pointers, so the caller may hand it channels 0 and 1 of a larger pack.
+#include <stdint.h>
+
 #include "fluid_common.cuh"
 
-#define TW (FLUID_BX + 2)
-#define TH (FLUID_BY + 2)
+#define VORT_TH 16        // tile rows (8 measured no faster, 24 slower)
+#define VORT_TW 128      // tile columns: 32 threads x 4
+#define VORT_THREADS 256  // 8 warps
+#define VORT_PAD 4        // shared column of tile column 0 (16-byte aligned)
+#define VORT_S (VORT_TW + 2 * VORT_PAD)  // floats a shared row
 
-__device__ __forceinline__ float curl_at(const float* __restrict__ u,
-                                         const float* __restrict__ v, int y,
-                                         int x, int h, int w) {
-  const int row = y * w;
-  const float vl = __ldg(v + row + fluid_clamp(x - 1, w));
-  const float vr = __ldg(v + row + fluid_clamp(x + 1, w));
-  const float ub = __ldg(u + fluid_clamp(y - 1, h) * w + x);
-  const float ut = __ldg(u + fluid_clamp(y + 1, h) * w + x);
-  return 0.5f * (vr - vl - ut + ub);
+struct VortTile {
+  float u[VORT_TH + 4][VORT_S];  // rows y0-2 .., columns x0-1 .. x0+TW
+  float v[VORT_TH + 2][VORT_S];  // rows y0-1 .., columns x0-2 .. x0+TW+1
+  float w[VORT_TH + 2][VORT_S];  // curl: rows y0-1 .., columns x0-1 .. x0+TW
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+__device__ __forceinline__ void st4(float* p, float4 a) { *reinterpret_cast<float4*>(p) = a; }
+
+__device__ __forceinline__ float at(const float4& a, int j) {
+  return j == 0 ? a.x : j == 1 ? a.y : j == 2 ? a.z : a.w;
 }
 
 template <bool CPU>
-__global__ void vorticity_kernel(const float* __restrict__ u,
-                                 const float* __restrict__ v,
-                                 float* __restrict__ u2,
-                                 float* __restrict__ v2, int h, int w,
-                                 float dt, float vorticity) {
-  __shared__ float tile[TH][TW];
-  const int x0 = blockIdx.x * FLUID_BX;
-  const int y0 = blockIdx.y * FLUID_BY;
-  const int tid = threadIdx.y * FLUID_BX + threadIdx.x;
-  for (int k = tid; k < TH * TW; k += FLUID_BX * FLUID_BY) {
-    const int gy = fluid_clamp(y0 - 1 + k / TW, h);
-    const int gx = fluid_clamp(x0 - 1 + k % TW, w);
-    tile[k / TW][k % TW] = curl_at(u, v, gy, gx, h, w);
+__global__ void __launch_bounds__(VORT_THREADS)
+    vorticity_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                     float* __restrict__ u2, float* __restrict__ v2, int h, int w,
+                     int vec, float dt, float vorticity) {
+  __shared__ __align__(16) VortTile t;
+  const int x0 = blockIdx.x * VORT_TW;
+  const int y0 = blockIdx.y * VORT_TH;
+  const int tid = threadIdx.x;
+
+  // -- 1. fill: 32 four-column groups a row, u's rows first, then v's
+  constexpr int UG = (VORT_TH + 4) * 32;
+  constexpr int NG = UG + (VORT_TH + 2) * 32;
+  constexpr int PER = (NG + VORT_THREADS - 1) / VORT_THREADS;
+  float4 buf[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = tid + k * VORT_THREADS;
+    if (i < NG) {
+      const bool is_u = i < UG;
+      const int j = is_u ? i : i - UG;
+      const int gy = fluid_clamp(y0 + (j >> 5) - (is_u ? 2 : 1), h);
+      const int gx = x0 + 4 * (j & 31);
+      const float* src = (is_u ? u : v) + static_cast<size_t>(gy) * w;
+      if (vec && gx < w) {
+        buf[k] = __ldg(reinterpret_cast<const float4*>(src + gx));
+      } else {
+        buf[k] = make_float4(__ldg(src + min(gx, w - 1)), __ldg(src + min(gx + 1, w - 1)),
+                             __ldg(src + min(gx + 2, w - 1)), __ldg(src + min(gx + 3, w - 1)));
+      }
+    }
+  }
+  // the ring columns: u's -1 and TW on each of its rows, v's -2, -1, TW and
+  // TW + 1 on each of its rows
+  constexpr int URING = (VORT_TH + 4) * 2;
+  constexpr int NRING = URING + (VORT_TH + 2) * 4;
+  static_assert(NRING <= VORT_THREADS, "one ring cell a thread");
+  float ring = 0.f;
+  float* ring_dst = nullptr;
+  if (tid < NRING) {
+    const bool is_u = tid < URING;
+    const int j = is_u ? tid : tid - URING;
+    const int r = is_u ? j >> 1 : j >> 2;
+    const int c = is_u ? ((j & 1) ? VORT_TW : -1) : ((j & 3) < 2 ? (j & 3) - 2 : VORT_TW + (j & 3) - 2);
+    const int gy = fluid_clamp(y0 + r - (is_u ? 2 : 1), h);
+    ring = __ldg((is_u ? u : v) + static_cast<size_t>(gy) * w + fluid_clamp(x0 + c, w));
+    ring_dst = (is_u ? t.u[r] : t.v[r]) + VORT_PAD + c;
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = tid + k * VORT_THREADS;
+    if (i < NG) {
+      const bool is_u = i < UG;
+      const int j = is_u ? i : i - UG;
+      st4((is_u ? t.u[j >> 5] : t.v[j >> 5]) + VORT_PAD + 4 * (j & 31), buf[k]);
+    }
+  }
+  if (ring_dst != nullptr) *ring_dst = ring;
+  __syncthreads();
+
+  // -- 2. the curl of the tile and its ring; shared row r is grid row
+  //    y0 - 1 + r (u's row r + 1)
+  constexpr int CG = (VORT_TH + 2) * 32;
+  for (int i = tid; i < CG; i += VORT_THREADS) {
+    const int r = i >> 5, c = VORT_PAD + 4 * (i & 31);
+    const float4 vc = ld4(&t.v[r][c]);
+    const float vl = t.v[r][c - 1], vr = t.v[r][c + 4];
+    const float4 ub = ld4(&t.u[r][c]), ut = ld4(&t.u[r + 2][c]);
+    float4 cw;
+    cw.x = 0.5f * (vc.y - vl - ut.x + ub.x);
+    cw.y = 0.5f * (vc.z - vc.x - ut.y + ub.y);
+    cw.z = 0.5f * (vc.w - vc.y - ut.z + ub.z);
+    cw.w = 0.5f * (vr - vc.z - ut.w + ub.w);
+    st4(&t.w[r][c], cw);
+  }
+  if (tid < (VORT_TH + 2) * 2) {
+    const int r = tid >> 1, c = VORT_PAD + ((tid & 1) ? VORT_TW : -1);
+    t.w[r][c] = 0.5f * (t.v[r][c + 1] - t.v[r][c - 1] - t.u[r + 2][c] + t.u[r][c]);
   }
   __syncthreads();
-  const int x = x0 + threadIdx.x;
-  const int y = y0 + threadIdx.y;
-  if (x >= w || y >= h) return;
-  const int ty = threadIdx.y + 1, tx = threadIdx.x + 1;
-  const float wc = tile[ty][tx];
-  const float wl = fabsf(tile[ty][tx - 1]);
-  const float wr = fabsf(tile[ty][tx + 1]);
-  const float wb = fabsf(tile[ty - 1][tx]);
-  const float wt = fabsf(tile[ty + 1][tx]);
-  float fx = 0.5f * (wt - wb);
-  float fy = CPU ? 0.5f * (wr - wl) : 0.5f * (wl - wr);
-  const float ln = sqrtf(fx * fx + fy * fy) + (CPU ? 1e-4f : 1e-3f);
-  const float s = wc * vorticity / ln;
-  if (CPU) {
-    fx = -fx * s;
-    fy = -fy * s;
-  } else {
-    fx = fx * s;
-    fy = fy * s;
+
+  // -- 3. the force on the tile, 4 columns a thread
+  for (int i = tid; i < VORT_TH * 32; i += VORT_THREADS) {
+    const int r = i >> 5, g = i & 31;
+    const int gy = y0 + r, gx = x0 + 4 * g;
+    if (gy >= h || gx >= w) continue;
+    const int c = VORT_PAD + 4 * g;
+    // the curl rows of the clamped neighbours (shared row of grid row y is
+    // y - y0 + 1) and the clamped neighbour columns outside this group
+    const int rt = min(gy + 1, h - 1) - y0 + 1, rb = max(gy - 1, 0) - y0 + 1;
+    const float4 wc = ld4(&t.w[r + 1][c]);
+    const float4 wt = ld4(&t.w[rt][c]), wb = ld4(&t.w[rb][c]);
+    const float wl_edge = t.w[r + 1][VORT_PAD + max(gx - 1, 0) - x0];
+    const float wr_edge = t.w[r + 1][VORT_PAD + min(gx + 4, w - 1) - x0];
+    const float4 uc = ld4(&t.u[r + 2][c]), vc = ld4(&t.v[r + 1][c]);
+    float ou[4], ov[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float left = j == 0 ? wl_edge : at(wc, j - 1);
+      const float right = gx + j + 1 >= w ? at(wc, j) : j == 3 ? wr_edge : at(wc, j + 1);
+      const float wl = fabsf(left), wr = fabsf(right);
+      const float wbj = fabsf(at(wb, j)), wtj = fabsf(at(wt, j));
+      float fx = 0.5f * (wtj - wbj);
+      float fy = CPU ? 0.5f * (wr - wl) : 0.5f * (wl - wr);
+      const float ln = sqrtf(fx * fx + fy * fy) + (CPU ? 1e-4f : 1e-3f);
+      const float s = at(wc, j) * vorticity / ln;
+      if (CPU) {
+        fx = -fx * s;
+        fy = -fy * s;
+      } else {
+        fx = fx * s;
+        fy = fy * s;
+      }
+      ou[j] = at(uc, j) + fx * dt;
+      ov[j] = at(vc, j) + fy * dt;
+    }
+    const size_t o = static_cast<size_t>(gy) * w + gx;
+    if (vec) {
+      st4(u2 + o, make_float4(ou[0], ou[1], ou[2], ou[3]));
+      st4(v2 + o, make_float4(ov[0], ov[1], ov[2], ov[3]));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (gx + j < w) {
+          u2[o + j] = ou[j];
+          v2[o + j] = ov[j];
+        }
+      }
+    }
   }
-  const int i = y * w + x;
-  u2[i] = u[i] + fx * dt;
-  v2[i] = v[i] + fy * dt;
 }
+
+static bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 FLUID_API int fluid_vorticity(const float* u, const float* v, float* u2,
                               float* v2, int h, int w, int cpu_variant,
                               float dt, float vorticity, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (h < 1 || w < 1) return cudaErrorInvalidValue;
-  const dim3 block(FLUID_BX, FLUID_BY);
-  const dim3 grid = fluid_grid2d(h, w);
+  const int vec = w % 4 == 0 && aligned16(u) && aligned16(v) && aligned16(u2) && aligned16(v2);
+  const dim3 grid((w + VORT_TW - 1) / VORT_TW, (h + VORT_TH - 1) / VORT_TH);
   if (cpu_variant) {
-    vorticity_kernel<true><<<grid, block, 0, s>>>(u, v, u2, v2, h, w, dt,
-                                                  vorticity);
+    vorticity_kernel<true><<<grid, VORT_THREADS, 0, s>>>(u, v, u2, v2, h, w, vec, dt,
+                                                         vorticity);
   } else {
-    vorticity_kernel<false><<<grid, block, 0, s>>>(u, v, u2, v2, h, w, dt,
-                                                   vorticity);
+    vorticity_kernel<false><<<grid, VORT_THREADS, 0, s>>>(u, v, u2, v2, h, w, vec, dt,
+                                                          vorticity);
   }
   return cudaGetLastError();
 }

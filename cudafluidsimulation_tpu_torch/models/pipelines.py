@@ -8,7 +8,10 @@ The same stage order as the JAX package's ``models/pipelines.py``
     -> project -> [cpu only: boundary strip] -> render (pack [+ gpu bloom])
 
 ``make_step`` builds ``step(state, impulse) -> state`` over an ops
-namespace (``ops.backend.get_ops``).
+namespace (``ops.backend.get_ops``).  Where diffusion runs on five channels
+(velocity and dye), the step allocates the (5, H, W) pack once and the dye
+advection and the confinement write into it (their ``out=``), so no copy
+builds it; the JAX package's XLA fuses the same concatenation.
 
 Host syncs: the impulse stream and the scalar state (t, press_time,
 time_since_press, mouse, step) depend on the impulse stream alone, so they
@@ -50,22 +53,28 @@ def make_step(config: FluidConfig, ops=None) -> StepFn:
     coeffs5 = np.asarray([config.velocity_diffusion] * 2
                          + [config.color_diffusion] * 3, np.float32)
 
+    # diffusion takes velocity and dye as one (5, H, W) pack: the dye
+    # advection writes channels 2-4 of it and the confinement channels 0-1
+    five = config.color_diffusion_enabled and (not cpu_variant or config.diffusion_iters > 0)
+
     def step(state: FluidState, imp: Impulse) -> FluidState:
         dt = f32(imp.dt)
         u, v, dye = state.u, state.v, state.dye
+        pack = (torch.empty((5,) + tuple(u.shape), dtype=torch.float32, device=u.device)
+                if five else None)
 
         # -- advection: velocity first; dye through the advected velocity
         #    (cpuFluidSim.cpp:340-341 / GPUFluidSim.cu:620-622)
         u, v, vstats = ops.advect_velocity(u, v, dt, config.decay_rate,
                                            vel_stats=state.vel_stats,
                                            return_stats=True)
-        dye = ops.advect_dye(dye, u, v, dt, config.decay_rate, vel_stats=vstats)
+        dye = ops.advect_dye(dye, u, v, dt, config.decay_rate, vel_stats=vstats,
+                             out=None if pack is None else pack[2:])
 
         # -- vorticity confinement
-        if cpu_variant:
-            u, v = ops.vorticity_confinement_cpu(u, v, dt, config.vorticity)
-        else:
-            u, v = ops.vorticity_confinement_gpu(u, v, dt, config.vorticity)
+        confine = ops.vorticity_confinement_cpu if cpu_variant else ops.vorticity_confinement_gpu
+        u, v = confine(u, v, dt, config.vorticity,
+                       out=None if pack is None else pack[:2])
 
         # -- impulse parameters, on the host ("if pressed" as data: the
         #    force scale and colour are zero when unpressed, which makes the
@@ -91,17 +100,14 @@ def make_step(config: FluidConfig, ops=None) -> StepFn:
                 color_eff,
             ])
             all5 = ops.diffuse_multi_splat(
-                torch.cat([torch.stack([u, v]), dye]), dt, coeffs5,
-                config.diffusion_iters, amps, last, config.splat_radius,
+                pack, dt, coeffs5, config.diffusion_iters, amps, last,
+                config.splat_radius,
             )
             u, v, dye = all5[0], all5[1], all5[2:]
         else:
             if config.diffusion_iters > 0:
                 if config.color_diffusion_enabled:
-                    all5 = ops.diffuse_multi(
-                        torch.cat([torch.stack([u, v]), dye]), dt, coeffs5,
-                        config.diffusion_iters,
-                    )
+                    all5 = ops.diffuse_multi(pack, dt, coeffs5, config.diffusion_iters)
                     u, v, dye = all5[0], all5[1], all5[2:]
                 else:
                     uv = ops.diffuse(torch.stack([u, v]), dt,

@@ -16,7 +16,7 @@ import torch
 from cudafluidsimulation_tpu_torch.config import FluidConfig
 from cudafluidsimulation_tpu_torch.models.pipelines import make_render, make_step
 from cudafluidsimulation_tpu_torch.ops.backend import get_ops
-from cudafluidsimulation_tpu_torch.state import FluidState, init_state
+from cudafluidsimulation_tpu_torch.state import FluidState, default_device, init_state
 from cudafluidsimulation_tpu_torch.utils.impulse import (
     Impulse, no_impulse, num_steps, slice_step)
 from cudafluidsimulation_tpu_torch.utils.timing import StageReport, cuda_times_ms
@@ -43,9 +43,7 @@ class Simulation:
         self.config = config
         self.ops = get_ops(config) if ops is None else ops
         backend = config.resolve_backend()
-        if device is None:
-            device = "cuda" if backend == "cuda" else "cpu"
-        self.device = torch.device(device)
+        self.device = torch.device(default_device(config) if device is None else device)
         if backend == "cuda" and self.device.type != "cuda":
             raise ValueError(f"backend='cuda' runs on a CUDA device, not {self.device}")
         self.step_fn = make_step(config, self.ops)

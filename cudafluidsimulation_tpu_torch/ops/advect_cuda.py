@@ -119,23 +119,28 @@ def advect_velocity(u, v, dt, decay_rate, *, vel_stats=None,
 
 
 def advect_dye(dye, u, v, dt, decay_rate, *, vel_stats=None,
-               packed: bool = False, fast_path: bool = True):
+               packed: bool = False, fast_path: bool = True, out=None):
     """Dye advection through the advected velocity with the fade
     fmin(1, c^1.005 * decay); ``ops.ref.advect_dye`` semantics, or
-    ``ops.advect_packed.advect_dye``'s with ``packed`` (kernel H8)."""
-    if not on_card(*_given(dye, u, v, vel_stats)):
+    ``ops.advect_packed.advect_dye``'s with ``packed`` (kernel H8).  The
+    kernel writes each channel through its own pointer, so ``out`` may be
+    channels 2-4 of the step's 5-channel pack (``ref.check_out``)."""
+    if out is not None:
+        ref.check_out(out, dye.shape, dye, u, v, vel_stats)
+    if not on_card(*_given(dye, u, v, vel_stats, out)):
         if packed:
             return advect_packed.advect_dye(dye, u, v, dt, decay_rate,
                                             vel_stats=vel_stats,
-                                            fast_path=fast_path)
-        return ref.advect_dye(dye, u, v, dt, decay_rate, vel_stats=vel_stats)
+                                            fast_path=fast_path, out=out)
+        return ref.advect_dye(dye, u, v, dt, decay_rate, vel_stats=vel_stats,
+                              out=out)
     h, w = u.shape
     check_f32("u", u, (h, w))
     check_f32("v", v, (h, w))
     if dye.dim() != 3 or not 1 <= dye.shape[0] <= 3:
         raise ValueError(f"dye: expected (C<=3, H, W), got {tuple(dye.shape)}")
     check_f32("dye", dye, (dye.shape[0], h, w))
-    out = torch.empty_like(dye)
+    out = torch.empty_like(dye) if out is None else out
     if packed:
         _launch_packed(list(dye), list(out), u, v, vel_stats, None, dt,
                        decay_rate, dye=True, fast_path=fast_path)

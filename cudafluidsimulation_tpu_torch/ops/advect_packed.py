@@ -71,16 +71,19 @@ def advect_velocity(u: Tensor, v: Tensor, dt, decay_rate, *, vel_stats=None,
 
 
 def advect_dye(dye: Tensor, u: Tensor, v: Tensor, dt, decay_rate, *,
-               vel_stats=None, fast_path: bool = True) -> Tensor:
+               vel_stats=None, fast_path: bool = True, out=None) -> Tensor:
     """Dye advection over taps with channels 0 and 1 bf16-rounded, the
-    blend clamped to >= 0, then the fade fmin(1, c^1.005 * decay)."""
+    blend clamped to >= 0, then the fade fmin(1, c^1.005 * decay).
+    ``out`` as in ``ref.advect_dye``."""
+    if out is not None:
+        ref.check_out(out, dye.shape, dye, u, v, vel_stats)
     decay = ref.decay_factor(dt, decay_rate)
     px, py = ref._backtrace(u, v, dt)
     taps = torch.cat([bf16_round(dye[:2]), dye[2:]])
     c = ref.bilerp(taps, px, py)
     c = torch.where(c < 0, 0.0, c)
-    out = torch.fmin(torch.pow(c, 1.005) * decay, c.new_ones(()))
+    res = torch.fmin(torch.pow(c, 1.005) * decay, c.new_ones(()))
     if fast_path:
         exact = ref.advect_dye(dye, u, v, dt, decay_rate)
-        out = torch.where(quiet(u, v, dt, vel_stats), exact, out)
-    return out
+        res = torch.where(quiet(u, v, dt, vel_stats), exact, res)
+    return ref._into(out, res)

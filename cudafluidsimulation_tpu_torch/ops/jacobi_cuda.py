@@ -7,11 +7,14 @@ the 2048² main path (one float32 plane is 16 MiB).
 **H2 vorticity** (``csrc/vorticity.cu``) replaces
 ``cudafluidsimulation_tpu/ops/jacobi_pallas.py`` ``vorticity_confinement``
 → ``_vorticity_kernel`` (``_curl_taps``, ``_confinement``).  Bound by bytes:
-read u, v and write u', v' (64 MiB).  One kernel: each block computes the
-curl of its tile plus a one-cell ring into shared memory (the ring cells at
-a physical edge hold the curl of the clamped cell, as ``ops.ref`` clamps
-the curl field), then the confinement force from the tile, so the curl
-never goes to device memory.
+read u, v and write u', v' (64 MiB).  One kernel: a block loads its
+128 × 16 tile of u and v once, with the halo the curl's ring needs, into
+shared memory as 16-byte loads, computes the curl of the tile and its
+one-cell ring there, then the confinement force, 4 columns a thread with
+16-byte stores; the force reads the curl at clamped coordinates, as
+``ops.ref`` clamps the curl field.  The curl never goes to device memory.
+A width that is not a multiple of 4, or a plane that is not 16-byte
+aligned, takes scalar loads and stores in the same kernel.
 
 **H3 diffusion** (``csrc/diffuse.cu``) replaces ``_diffuse_bursts`` →
 ``_diffuse_kernel`` and ``_diffuse_burst_tiled`` → ``_diffuse_kernel_tiled``
@@ -192,19 +195,24 @@ def _depths(plan: BurstPlan):
     return depths, (depths.ctypes.data if depths.size else None), int(depths.size)
 
 
-def vorticity_confinement(u, v, dt, vorticity, variant: str = "gpu"):
+def vorticity_confinement(u, v, dt, vorticity, variant: str = "gpu", *,
+                          out=None):
     """Curl + confinement force; ``ops.ref.vorticity_confinement_{gpu,cpu}``
-    semantics."""
+    semantics.  ``out`` (2, H, W) receives u' and v' (``ref.check_out``):
+    the step hands it channels 0-1 of its 5-channel pack."""
     if variant not in ("gpu", "cpu"):
         raise ValueError(f"variant must be 'gpu' or 'cpu', got {variant!r}")
-    if not on_card(u, v):
+    if out is not None:
+        ref.check_out(out, (2,) + tuple(u.shape), u, v)
+    if not on_card(*[t for t in (u, v, out) if t is not None]):
         fn = (ref.vorticity_confinement_gpu if variant == "gpu"
               else ref.vorticity_confinement_cpu)
-        return fn(u, v, dt, vorticity)
+        return fn(u, v, dt, vorticity, out=out)
     h, w = u.shape
     check_f32("u", u, (h, w))
     check_f32("v", v, (h, w))
-    out = torch.empty((2, h, w), dtype=torch.float32, device=u.device)
+    if out is None:
+        out = torch.empty((2, h, w), dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
         VORTICITY.launch(
             "fluid_vorticity", u.data_ptr(), v.data_ptr(), out[0].data_ptr(),

@@ -38,6 +38,47 @@ def f32_vec(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float32).reshape(-1)
 
 
+def _extent(t: Tensor) -> Tuple[int, int]:
+    """[first, last + 1) byte addresses that ``t`` spans."""
+    lo = t.data_ptr()
+    if t.is_contiguous():
+        return lo, lo + t.nbytes
+    span = sum((n - 1) * s for n, s in zip(t.shape, t.stride())) + 1
+    return lo, lo + span * t.element_size()
+
+
+def check_out(out: Tensor, shape, *inputs) -> None:
+    """The contract of an op's ``out=``: a contiguous float32 tensor of
+    ``shape`` that shares no memory with any of ``inputs`` (None entries
+    skipped), since a kernel writes it while it reads them.  Addresses of
+    different devices do not collide (CUDA's unified virtual addressing),
+    so the overlap test compares addresses alone."""
+    if out.dtype != torch.float32:
+        raise TypeError(f"out: expected float32, got {out.dtype}")
+    if out.shape != tuple(shape):
+        raise ValueError(f"out: expected shape {tuple(shape)}, got {tuple(out.shape)}")
+    if not out.is_contiguous():
+        raise ValueError("out: expected a contiguous tensor")
+    lo, hi = _extent(out)
+    for t in inputs:
+        if t is not None and t.numel():
+            a, b = _extent(t)
+            if a < hi and lo < b:
+                raise ValueError("out: shares memory with an input")
+
+
+def _into(out, *results):
+    """``results`` (one tensor or a tuple), or with ``out`` the same values
+    copied into ``out`` (one result) or its leading slices (several)."""
+    if out is None:
+        return results[0] if len(results) == 1 else results
+    if len(results) == 1:
+        return out.copy_(results[0])
+    for dst, src in zip(out, results):
+        dst.copy_(src)
+    return tuple(out[:len(results)])
+
+
 # ---------------------------------------------------------------------------
 # Bilinear sampling + semi-Lagrangian advection
 # ---------------------------------------------------------------------------
@@ -108,16 +149,19 @@ def advect_velocity(u: Tensor, v: Tensor, dt, decay_rate, *, vel_stats=None,
 
 
 def advect_dye(dye: Tensor, u: Tensor, v: Tensor, dt, decay_rate, *,
-               vel_stats=None) -> Tensor:
+               vel_stats=None, out=None) -> Tensor:
     """Dye advection with the fade c = fmin(1, c^1.005 * decay)
     (GPUFluidSim.cu:275-294), through the already advected velocity.  fmin,
     not min: C fminf(1, NaN) is 1, so a negative extrapolated sample (pow
-    NaN) saturates to 1."""
+    NaN) saturates to 1.  ``out``, a (C, H, W) tensor (:func:`check_out`),
+    receives the result."""
     del vel_stats
+    if out is not None:
+        check_out(out, dye.shape, dye, u, v)
     decay = decay_factor(dt, decay_rate)
     px, py = _backtrace(u, v, dt)
     c = bilerp(dye, px, py)
-    return torch.fmin(torch.pow(c, 1.005) * decay, c.new_ones(()))
+    return _into(out, torch.fmin(torch.pow(c, 1.005) * decay, c.new_ones(())))
 
 
 # ---------------------------------------------------------------------------
@@ -132,9 +176,12 @@ def curl(u: Tensor, v: Tensor) -> Tensor:
     return 0.5 * (vr - vl - ut + ub)
 
 
-def vorticity_confinement_cpu(u, v, dt, vorticity):
+def vorticity_confinement_cpu(u, v, dt, vorticity, *, out=None):
     """CPU-path confinement (cpuFluidSim.cpp:271-296): gradient of |curl|,
-    normalised by (len + 1e-4), scaled by curl * vorticity, negated."""
+    normalised by (len + 1e-4), scaled by curl * vorticity, negated.
+    ``out``, a (2, H, W) tensor (:func:`check_out`), receives u' and v'."""
+    if out is not None:
+        check_out(out, (2,) + tuple(u.shape), u, v)
     w = curl(u, v)
     ac = w.abs()
     al, ar, ab, at = neighbors(ac)
@@ -145,14 +192,17 @@ def vorticity_confinement_cpu(u, v, dt, vorticity):
     fx = -fx * s
     fy = -fy * s
     dt = float(f32(dt))
-    return u + fx * dt, v + fy * dt
+    return _into(out, u + fx * dt, v + fy * dt)
 
 
-def vorticity_confinement_gpu(u, v, dt, vorticity):
+def vorticity_confinement_gpu(u, v, dt, vorticity, *, out=None):
     """GPU-path confinement (GPUFluidSim.cu:536-573): force
     ((|wT|-|wB|), (|wL|-|wR|)) * 0.5, normalised by (len + 1e-3), scaled by
     curl * vorticity, not negated; the whole curl field first (the clean
-    semantics of the reference's grid-wide race)."""
+    semantics of the reference's grid-wide race).  ``out`` as in
+    :func:`vorticity_confinement_cpu`."""
+    if out is not None:
+        check_out(out, (2,) + tuple(u.shape), u, v)
     w = curl(u, v)
     wl, wr, wb, wt = neighbors(w)
     fx = 0.5 * (wt.abs() - wb.abs())
@@ -162,7 +212,7 @@ def vorticity_confinement_gpu(u, v, dt, vorticity):
     fx = fx * s
     fy = fy * s
     dt = float(f32(dt))
-    return u + fx * dt, v + fy * dt
+    return _into(out, u + fx * dt, v + fy * dt)
 
 
 # ---------------------------------------------------------------------------

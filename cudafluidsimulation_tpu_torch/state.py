@@ -32,8 +32,19 @@ class FluidState(NamedTuple):
     vel_stats: torch.Tensor  # (2,) f32 upper bound [max|u|, max|v|], device
 
 
-def init_state(config: FluidConfig, device="cpu") -> FluidState:
-    """Zero fields, like the reference's init (cpuFluidSim.cpp:103-106)."""
+def default_device(config: FluidConfig) -> str:
+    """The CUDA device, or the CPU when ``config`` resolves to the ``ref``
+    backend; raises without a card unless ``backend='ref'``."""
+    return "cuda" if config.resolve_backend() == "cuda" else "cpu"
+
+
+def init_state(config: FluidConfig, device=None) -> FluidState:
+    """Zero fields, like the reference's init (cpuFluidSim.cpp:103-106), on
+    ``device`` (:func:`default_device` when None: the kernels take CPU
+    tensors for their plain versions, so the state goes on the card unless
+    asked for the CPU)."""
+    if device is None:
+        device = default_device(config)
     h, w = config.shape
     f32 = torch.float32
     return FluidState(

@@ -182,7 +182,7 @@ def test_quality_preset_steps_on_ref(fine):
 @pytest.mark.parametrize("preset", ["cpu_64", "gpu_reference"])
 def test_init_state_shapes_and_dtypes(preset):
     js = j_init_state(_make(JConfig, preset))
-    ts = init_state(_make(FluidConfig, preset))
+    ts = init_state(_make(FluidConfig, preset), device="cpu")
     assert ts._fields == js._fields
     for name in FluidState._fields:
         a, b = np.asarray(getattr(js, name)), getattr(ts, name).numpy()
