@@ -66,7 +66,24 @@ caught:
    and of its advected velocity from the exact one (information), and one
    step under ``torch.cuda.set_sync_debug_mode("error")``, which shows
    that the step reads nothing back;
-8. timing with CUDA events after a warm-up: driven and quiet steps/s of
+8. ensembles (``models/ensemble.py``), at 64 members x 512² with
+   ``gpu_reference(nx=512, ny=512, pressure_iters=40)``: batched H1 (into
+   channels 2-4 of a NaN pack), H2 (both variants, into channels 0-1), H3
+   (with the splat, without it, and 2-channel) and H4 (from the pack's
+   velocity planes) against their batched plain versions and, member by
+   member, bit for bit against the single (B = 1) launches, at 64x512²,
+   3x540x960, 5x135x240 and 7x4x8; a 200-step ``make_diffusion_sweep_run``
+   over viscosities ``linspace(0.1, 2.0, 64)`` (the one nearest the
+   config's 0.8 set to it) of ``orbit_impulse(200, dt, center=(256, 256),
+   radius=64, omega=3.0)`` jittered by up to 32 cells a member, with the
+   batched launch counts read around it (no single-member launch), and
+   members 0, 31, 63 and the one at the config's viscosity bit for bit
+   against their single-member rollouts; the device operations of one
+   batched step (14: the members' parameter copy and the parity step's
+   13), one batched step under ``set_sync_debug_mode("error")``; a
+   cpu-variant ensemble (8 x 512², 10 steps) and one of its steps against
+   the plain versions on the card;
+9. timing with CUDA events after a warm-up: driven and quiet steps/s of
    the parity, quality and fast paths, the fixed-cycle path's ms/step, the
    plain versions' ms/step on the card, the device launches one H3, one H4
    and each H6 call of the quality path make (``torch.profiler``; one each
@@ -76,7 +93,13 @@ caught:
    differ where a kernel is shorter than its wrapper's host cost) beside
    its plain version's and its bound: the larger of its bytes (each input
    read once, each output written once) at 3.35 TB/s and its float32
-   operations at 67 TFLOP/s.
+   operations at 67 TFLOP/s; the ensemble's member-steps/s batched and
+   with the same members run one after another as single-member steps,
+   and the batched kernels' rows (``H1 batched`` ... ``H4 batched``, each
+   asserted to make one device launch a stage or a burst for all members).
+
+Every ``torch.profiler`` trace runs marker kernels before and after the
+work it counts, and is taken again when it lost device records.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -124,6 +147,9 @@ MG_PAIRS = ((2048, 2048), (540, 960), (32, 32), (2050, 2046))
 RTOL = {"H1": 1e-6, "H2": 0.0, "H3": 1e-5, "H3 sweeps": 0.0, "H4": 0.0,
         "H4 solve": 0.0, "H5": 1e-6, "H6": 0.0, "H7": 1e-5, "H7 sweeps": 0.0,
         "H8": 1e-6}
+# the batched kernels against their batched plain versions: the single
+# kernels' tolerances (and each member equals its B = 1 launch bit for bit)
+RTOL.update({f"{k} batched": RTOL[k] for k in ("H1", "H2", "H3", "H3 sweeps", "H4")})
 # the burst checks' shapes: one tile, a grid narrower than a 16-byte row,
 # the reference grid's odd coarse level, ragged tiles on both axes
 BURST_SHAPES = ((16, 16), (4, 8), (135, 240), (2049, 2047))
@@ -139,8 +165,13 @@ QUALITY_STEP_VCYCLES = 2  # the V-cycles of the quality step counted
 MAX_DEVICE_LAUNCHES = {"H3": 5, "H4": 8, "H4 solve": 8,
                        "H6 smooth_res_restrict": 1, "H6 first_smooth_res_restrict": 1,
                        "H6 prolong_smooth": 1, "H6 smooth_damped": 1}
-# marker kernels launched before the work a profiler session counts
-MARKERS = 4
+# marker kernels launched before and after the work a profiler session
+# counts, and the sessions tried before a trace that lost records fails
+MARKERS = 8
+TRACE_TRIES = 5
+# the profiler sessions this run opened, and how many of them had each
+# pattern of markers seen before/between/after the work's records
+TRACES = {"sessions": 0, "patterns": {}}
 # the card's peaks (NVIDIA's H100 SXM data sheet): device memory bytes/s,
 # float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -150,6 +181,22 @@ F32_OPS_PER_S = 67e12
 STEP_RTOL = 1e-5
 STATE_FIELDS = ("u", "v", "dye", "pressure", "vel_stats")
 FAST = dict(fast_dye=True, fast_velocity=True, fast_diffuse=True)
+# the ensemble phase: 64 members at 512² (BASELINE.json config 4, the JAX
+# package's viscosity sweep), and the batched kernels' other check shapes:
+# the reference grid, an odd coarse grid (ragged tiles), a grid narrower
+# than one 16-byte row (the scalar paths)
+ENS_B, ENS_N, ENS_STEPS = 64, 512, 200
+ENS_SHAPES = ((ENS_B, ENS_N, ENS_N), (3, 540, 960), (5, 135, 240), (7, 4, 8))
+ENS_JITTER = 32.0  # each member's orbit centre moves by up to this many cells
+# device operations of one batched step: one copy of the members'
+# parameters, then the parity step's 13 (H1 velocity with its bound's
+# memset, H1 dye, H2, H3's 3 bursts, H4's memset and 5 bursts)
+ENS_STEP_DEVICE_OPS = 14
+# device launches one call of each batched entry makes at 64 x 512²: one a
+# stage (a burst for H3 and H4) for all 64 members, with the memsets of
+# the velocity bounds
+ENS_CALL_LAUNCHES = {"H1 batched": 3, "H2 batched": 1, "H3 batched": 3, "H4 batched": 6}
+ENS_CPU_B, ENS_CPU_STEPS = 8, 10
 
 
 def _json(obj) -> None:
@@ -210,25 +257,59 @@ def _nbytes(obj):
     return 0
 
 
+def _markers():
+    """MARKERS marker kernels, between pauses of the host."""
+    time.sleep(0.01)
+    for _ in range(MARKERS):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(0.01)
+
+
+def _marker_pattern(marker):
+    """(markers before the first of the work's records, markers between
+    its records, markers after its last one); (markers, 0, 0) where the
+    trace holds markers alone."""
+    work = [i for i, m in enumerate(marker) if not m]
+    if not work:
+        return len(marker), 0, 0
+    return work[0], sum(marker[work[0]:work[-1]]), len(marker) - 1 - work[-1]
+
+
 def _device_trace(fn, calls=1):
     """[(name, µs)] of the device operations ``calls`` calls of ``fn`` make,
-    from ``torch.profiler``'s trace of the card."""
-    torch.cuda.synchronize()
+    from ``torch.profiler``'s trace of the card.
+
+    A session can lose device records at either end of its trace, or every
+    one.  So MARKERS marker kernels run before the calls and MARKERS after
+    them, and a trace counts only if a marker survived on each side of the
+    calls' records (a trace of markers alone: more than MARKERS of them);
+    else the calls are traced again, at most TRACE_TRIES times."""
     # with the CUDA activity alone a short session can miss a kernel that
     # ctypes launched; with the CPU activity too it records each launch
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        # a session after the first may drop its first device records: let
-        # a few marker kernels take that place, then count what fn launches
-        for _ in range(MARKERS):
-            torch.cuda._sleep(1000)
+    for attempt in range(TRACE_TRIES):
         torch.cuda.synchronize()
-        time.sleep(0.01)
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name]
+        with torch.profiler.profile(activities=acts) as prof:
+            _markers()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            _markers()
+        recs = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+        marker = ["spin_kernel" in e.name for e in recs]
+        lead, mid, trail = _marker_pattern(marker)
+        has_work = len(marker) > sum(marker)
+        key = f"{lead}/{mid}/{trail}" if has_work else f"markers only {lead}"
+        TRACES["sessions"] += 1
+        TRACES["patterns"][key] = TRACES["patterns"].get(key, 0) + 1
+        if (lead and trail and not mid) if has_work else lead > MARKERS:
+            return [(e.name, e.time_range.elapsed_us()) for e, m in zip(recs, marker) if not m]
+        _json({"phase": "profiler_retry", "try": attempt + 1, "device_records": len(recs),
+               "markers_before_between_after": [lead, mid, trail], "markers_launched": 2 * MARKERS})
+    raise AssertionError(f"torch.profiler lost device records in {TRACE_TRIES} sessions in a row")
 
 
 def _device_kernels(fn):
@@ -313,6 +394,343 @@ def _step_device_ops(what, fn):
     return n
 
 
+def _check_bound_batched(name, stats, u, v):
+    """Fail if a member's kernel-emitted [max|u|, max|v|] is below its true max."""
+    true = torch.stack([u.abs().amax(dim=(1, 2)), v.abs().amax(dim=(1, 2))], dim=1)
+    if not bool((stats >= true).all()):
+        raise AssertionError(f"{name}: a member's vel_stats is below its true max")
+
+
+def _members_equal(what, got, single, i):
+    """Member i of a batched kernel's outputs against the B = 1 launch of
+    the same kernel on member i, bit for bit."""
+    for g, e in zip(got, single):
+        if not torch.equal(g[i], e):
+            raise AssertionError(f"{what}: member {i} differs from its single launch: max abs "
+                                 f"diff {_max_err(g[i], e)[0]}")
+
+
+def ensemble_phase(smi, gen, worst, reset_counts, read_counts, kernels):
+    """Phase 8: H1-H4 over B members a launch.  Checks the batched kernels
+    against their batched plain versions and each member against its B = 1
+    launch at ENS_SHAPES; runs the 64 x 512² viscosity sweep for ENS_STEPS
+    driven steps and holds members 0, 31, 63 and the one at the config's
+    viscosity bit for bit against their single-member rollouts; counts the
+    device operations of one batched step and runs one under
+    ``set_sync_debug_mode("error")``; steps a cpu-variant ensemble and holds
+    one step against the plain versions on the card.  Returns the timing
+    part, called in phase 9, which returns the batched rows of the kernels
+    line."""
+    import dataclasses
+
+    import numpy as np
+
+    from cudafluidsimulation_tpu_torch import FluidConfig, Simulation
+    from cudafluidsimulation_tpu_torch.models.ensemble import (
+        batched_impulse, batched_state, make_diffusion_sweep_run, make_ensemble_run,
+        run_batched, step_of)
+    from cudafluidsimulation_tpu_torch.models.pipelines import make_batched_step
+    from cudafluidsimulation_tpu_torch.ops import (
+        advect_cuda, backend, jacobi_cuda, member_params, ref)
+    from cudafluidsimulation_tpu_torch.utils.impulse import Impulse, orbit_impulse
+    from cudafluidsimulation_tpu_torch.utils.timing import cuda_times_ms
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    dt, rate, radius = 1.0 / 60.0, 1.2, 400.0
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def member_scalars(b, h, w):
+        """Per-member dt (within 25% of 1/60), coefficients (the viscosity
+        swept over channels 0-1), splat amplitudes and centres."""
+        dts = (dt * (1.0 + 0.25 * rng.random(b))).astype(np.float32)
+        coeffs = np.full((b, 5), 0.8, np.float32)
+        coeffs[:, :2] = np.linspace(0.1, 2.0, b, dtype=np.float32)[:, None]
+        amps = rng.uniform(-4.0, 4.0, (b, 5)).astype(np.float32)
+        last = (rng.random((b, 2)) * [w, h]).astype(np.float32)
+        return dts, coeffs, amps, last
+
+    # -- the batched kernels against their plain versions and their single launches
+    for b, h, w in ENS_SHAPES:
+        tag = f"{b}x{h}x{w}"
+        dts, coeffs, amps, last = member_scalars(b, h, w)
+        u, v = randn(b, h, w, scale=200.0), randn(b, h, w, scale=200.0)
+        dye = torch.rand((b, 3, h, w), generator=gen, device=dev)
+        got = advect_cuda.advect_velocity_batched(u, v, dts, rate, return_stats=True)
+        _check(worst, "H1 batched", f"velocity {tag}", zip(
+            "uv", got[:2], ref.advect_velocity_batched(u, v, dts, rate)))
+        _check_bound_batched("H1 batched", got[2], got[0], got[1])
+        u2, v2 = got[:2]
+        pack = torch.full((b, 5, h, w), float("nan"), device=dev)
+        dye2 = advect_cuda.advect_dye_batched(dye, u2, v2, dts, rate, out=pack[:, 2:])
+        _check(worst, "H1 batched", f"dye into pack {tag}", [(
+            "dye", dye2, ref.advect_dye_batched(dye, u2, v2, dts, rate))])
+        if not bool(pack[:, :2].isnan().all()):
+            raise AssertionError(f"H1 batched {tag}: the dye wrote outside pack[:, 2:5]")
+        vorts = {"gpu": 50.0, "cpu": 0.35}
+        uvs = {}
+        for variant, vort in vorts.items():
+            plain = getattr(ref, f"vorticity_confinement_{variant}_batched")
+            uv = jacobi_cuda.vorticity_confinement_batched(u2, v2, dts, vort, variant,
+                                                           out=pack[:, :2])
+            _check(worst, "H2 batched", f"{variant} into pack {tag}",
+                   zip("uv", uv, plain(u2, v2, dts, vort)))
+            uvs[variant] = torch.stack(uv, dim=1).clone()
+            if not torch.equal(pack[:, 2:], dye2):
+                raise AssertionError(f"H2 batched {tag}: the confinement wrote outside pack[:, 0:2]")
+        h3 = jacobi_cuda.diffuse_multi_splat_batched(pack, dts, coeffs, 20, amps, last, radius)
+        _check(worst, "H3 batched", f"splat {tag}", [(
+            "fields", h3, ref.diffuse_multi_splat_batched(pack, dts, coeffs, 20, amps, last,
+                                                          radius))])
+        h3s = jacobi_cuda.diffuse_multi_batched(pack, dts, coeffs, 20)
+        _check(worst, "H3 sweeps batched", tag, [(
+            "fields", h3s, ref.diffuse_multi_batched(pack, dts, coeffs, 20))])
+        h3v = jacobi_cuda.diffuse_batched(pack[:, :2].contiguous(), dts, coeffs[:, 0], 5)
+        _check(worst, "H3 sweeps batched", f"2-channel {tag}", [(
+            "uv", h3v, ref.diffuse_batched(pack[:, :2], dts, coeffs[:, 0], 5))])
+        # H4 from the pack's velocity planes (member stride 5 planes), as the step
+        pu, pv = pack[:, 0], pack[:, 1]
+        h4 = jacobi_cuda.pressure_project_batched(pu, pv, 40, True, return_stats=True)
+        _check(worst, "H4 batched", f"half {tag}", zip(
+            ("u", "v", "p", "stats"), h4,
+            ref.pressure_project_batched(pu, pv, 40, True, return_stats=True)))
+        _check_bound_batched("H4 batched", h4[3], h4[0], h4[1])
+        # each member against the single (B = 1) entries on its planes
+        for i in range(b):
+            _members_equal(f"H1 batched {tag}", got, advect_cuda.advect_velocity(
+                u[i], v[i], dts[i], rate, return_stats=True), i)
+            _members_equal(f"H1 batched dye {tag}", [dye2], [advect_cuda.advect_dye(
+                dye[i], u2[i], v2[i], dts[i], rate)], i)
+            for variant, vort in vorts.items():
+                _members_equal(f"H2 batched {variant} {tag}", uvs[variant].unbind(1),
+                               jacobi_cuda.vorticity_confinement(u2[i], v2[i], dts[i], vort,
+                                                                 variant=variant), i)
+            _members_equal(f"H3 batched {tag}", [h3, h3s], [
+                jacobi_cuda.diffuse_multi_splat(pack[i], dts[i], coeffs[i], 20, amps[i],
+                                                last[i], radius),
+                jacobi_cuda.diffuse_multi(pack[i], dts[i], coeffs[i], 20)], i)
+            _members_equal(f"H3 batched 2-channel {tag}", [h3v], [jacobi_cuda.diffuse(
+                pack[i, :2].contiguous(), dts[i], coeffs[i, 0], 5)], i)
+            _members_equal(f"H4 batched {tag}", h4, jacobi_cuda.pressure_project(
+                pu[i].contiguous(), pv[i].contiguous(), 40, True, return_stats=True), i)
+        _json({"phase": "ensemble_kernel_members", "shape": tag, "members": b,
+               "bit_equal_to_single_launch": True})
+    del u, v, dye, got, u2, v2, pack, dye2, uv, uvs, h3, h3s, h3v, h4, pu, pv
+    # a single call of more than the 8 planes H3 takes by value: one member
+    # of device parameter rows
+    f11 = randn(11, 135, 240)
+    c11 = np.linspace(0.2, 1.8, 11, dtype=np.float32)
+    a11 = rng.uniform(-4.0, 4.0, 11).astype(np.float32)
+    _check(worst, "H3 sweeps", "11 planes 135x240", [(
+        "fields", jacobi_cuda.diffuse_multi(f11, dt, c11, 20), ref.diffuse_multi(f11, dt, c11, 20))])
+    _check(worst, "H3", "11 planes splat 135x240", [(
+        "fields", jacobi_cuda.diffuse_multi_splat(f11, dt, c11, 20, a11, (96.0, 54.0), radius),
+        ref.diffuse_multi_splat(f11, dt, c11, 20, a11, (96.0, 54.0), radius))])
+    del f11
+
+    # -- the 64 x 512² viscosity sweep, 200 driven steps -------------------------
+    cfg = FluidConfig.gpu_reference(nx=ENS_N, ny=ENS_N, pressure_iters=40, backend="cuda")
+    visc = np.linspace(0.1, 2.0, ENS_B, dtype=np.float32)
+    # no point of the linspace is the config's 0.8: the nearest takes it, so
+    # one member is the config's own single rollout
+    at_cfg = int(np.argmin(np.abs(visc - cfg.velocity_diffusion)))
+    visc[at_cfg] = np.float32(cfg.velocity_diffusion)
+    jitter = rng.uniform(-ENS_JITTER, ENS_JITTER, (ENS_B, 2)).astype(np.float32)
+    c = ENS_N / 2
+    imp = orbit_impulse(ENS_STEPS, cfg.dt, center=(c, c), radius=64, omega=3.0)
+    bimp = batched_impulse(imp, ENS_B, jitter_pos=jitter)
+    sweep = make_diffusion_sweep_run(cfg)
+    single_keys = ("H1", "H2", "H3", "H4")
+    batched_keys = tuple(f"{k} batched" for k in single_keys)
+    reset_counts()
+    state = sweep(visc, batched_state(cfg, ENS_B), bimp)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for k in batched_keys:
+        if launches[k] == 0:
+            raise AssertionError(f"{k} was not launched by the sweep")
+    for k in single_keys:
+        if launches[k] != 0:
+            raise AssertionError(f"the sweep launched the single {k}: a loop over members")
+    for name in ("u", "v", "dye", "pressure"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"ensemble: {name} is not finite after the sweep")
+    dmin, dmax = state.dye.min().item(), state.dye.max().item()
+    if not (0.0 <= dmin and dmax <= 2.0):
+        raise AssertionError(f"ensemble: dye outside [0, 2]: [{dmin}, {dmax}]")
+    checked = sorted({0, ENS_B // 2 - 1, ENS_B - 1, at_cfg})
+    for i in checked:
+        mcfg = cfg if i == at_cfg else dataclasses.replace(cfg, velocity_diffusion=float(visc[i]))
+        sim = Simulation(mcfg)
+        single = sim.run(sim.init(), Impulse(*(f[i] for f in bimp)))
+        for name in single._fields:
+            if not torch.equal(getattr(state, name)[i].cpu(), getattr(single, name).cpu()):
+                raise AssertionError(f"ensemble member {i} (viscosity {visc[i]}): {name} differs "
+                                     f"from its single-member rollout")
+    ke = (0.5 * (state.u ** 2 + state.v ** 2).mean(dim=(1, 2))).tolist()
+    _json({"phase": "ensemble_sweep", "members": ENS_B, "grid": f"{ENS_N}x{ENS_N}",
+           "steps": ENS_STEPS, "launches": {k: launches[k] for k in batched_keys},
+           "members_bit_equal_to_single_rollout": checked, "at_config_viscosity": at_cfg,
+           "dye_range": [dmin, dmax], "kinetic_energy_first_last": [ke[0], ke[-1]]})
+
+    # the device operations of one batched step; the step reads nothing back
+    estep = make_batched_step(cfg, backend.get_batched_ops(cfg), visc)
+    last_imp = step_of(bimp, ENS_STEPS - 1)
+    ops = _device_kernels(lambda: estep(state, last_imp))
+    n_ops = sum(ops.values())
+    _json({"phase": "ensemble_step_device_ops", "members": ENS_B, "device_ops": n_ops,
+           "by_name": ops})
+    if n_ops != ENS_STEP_DEVICE_OPS:
+        raise AssertionError(f"one batched step made {n_ops} device operations, "
+                             f"not {ENS_STEP_DEVICE_OPS}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        estep(state, last_imp)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+    # -- a cpu-variant ensemble: H1-H4 with the plain splat_cpu and strip ---------
+    ccfg = FluidConfig.cpu_reference(nx=ENS_N, ny=ENS_N, backend="cuda")
+    cimp = batched_impulse(orbit_impulse(ENS_CPU_STEPS, ccfg.dt, center=(c, c), radius=64,
+                                         omega=3.0), ENS_CPU_B,
+                           jitter_pos=jitter[:ENS_CPU_B])
+    reset_counts()
+    cstate = make_ensemble_run(ccfg)(batched_state(ccfg, ENS_CPU_B), cimp)
+    torch.cuda.synchronize()
+    claunch = read_counts()
+    if any(claunch[k] == 0 for k in batched_keys) or any(claunch[k] for k in single_keys):
+        raise AssertionError(f"cpu-variant ensemble launches {claunch}")
+    cimp1 = step_of(cimp, ENS_CPU_STEPS - 1)
+    got = make_batched_step(ccfg)(cstate, cimp1)
+    exp = make_batched_step(ccfg, backend.batched_namespace())(cstate, cimp1)
+    cerr = {}
+    for name in STATE_FIELDS:
+        cerr[name] = _max_err(getattr(got, name), getattr(exp, name))[1]
+        if not cerr[name] <= STEP_RTOL:
+            raise AssertionError(f"cpu-variant ensemble step vs plain: {name} rel err {cerr[name]}")
+    _json({"phase": "ensemble_cpu_variant", "members": ENS_CPU_B, "grid": f"{ENS_N}x{ENS_N}",
+           "steps": ENS_CPU_STEPS, "launches": {k: claunch[k] for k in batched_keys},
+           "step_vs_plain_max_rel_err": cerr, "tol": STEP_RTOL})
+    del cstate, got, exp
+
+    def timing():
+        """Member-steps/s of the batched sweep against the same members run
+        one after another as single-member steps, and the batched rows of
+        the kernels line (device ms beside the bound)."""
+        steps = 50
+        short = Impulse(*(f[:, :steps] for f in bimp))
+        start = batched_state(cfg, ENS_B)
+        batched_ms = statistics.median(cuda_times_ms(lambda: sweep(visc, start, short),
+                                                     iters=3))
+        sims = [Simulation(dataclasses.replace(cfg, velocity_diffusion=float(k))) for k in visc]
+        inits = [s.init() for s in sims]
+
+        def one_by_one():
+            for i, s in enumerate(sims):
+                s.run(inits[i], Impulse(*(f[i] for f in short)))
+
+        serial_ms = statistics.median(cuda_times_ms(one_by_one, iters=2))
+        # where a batched step's device time goes, and the host's enqueue
+        trace = _device_trace(lambda: estep(state, last_imp), calls=5)
+        by_op = {}
+        for name, us in trace:
+            by_op[name.split("(")[0]] = by_op.get(name.split("(")[0], 0.0) + us / 5e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            estep(state, last_imp)
+        enqueue_ms = (time.perf_counter() - t0) / 5 * 1e3
+        torch.cuda.synchronize()
+        member_steps = ENS_B * steps
+        _json({"metric": "ensemble_member_steps_per_sec", "members": ENS_B,
+               "grid": f"{ENS_N}x{ENS_N}", "steps": steps,
+               "batched": member_steps / (batched_ms / 1e3),
+               "one_member_at_a_time": member_steps / (serial_ms / 1e3),
+               "batched_ms_per_step": batched_ms / steps,
+               "one_member_at_a_time_ms_per_step": serial_ms / steps,
+               "device_busy_ms_per_step": sum(by_op.values()), "device_ms_by_op": by_op,
+               "host_enqueue_ms_per_step": enqueue_ms, "smi": smi})
+
+        # the batched kernels at the sweep's shapes, on its driven state
+        u, v, dye = state.u, state.v, state.dye
+        b = ENS_B
+        dts = np.full(b, dt, np.float32)
+        coeffs = np.full((b, 5), 0.8, np.float32)
+        coeffs[:, :2] = visc[:, None]
+        _, _, amps, last = member_scalars(b, ENS_N, ENS_N)
+        prm = member_params.upload(np.concatenate([
+            member_params.advect_cols(dts, rate),
+            member_params.diffuse_cols(dts, coeffs, amps, last)], axis=1), dev)
+        adv_p, dif_p = prm[:, :2], prm[:, 2:]
+        u2, v2 = advect_cuda.advect_velocity_batched(u, v, dts, rate, params=adv_p)
+        all5 = torch.cat([torch.stack([u, v], dim=1), dye], dim=1).contiguous()
+        cases = {
+            "H1 batched": (
+                lambda: (advect_cuda.advect_velocity_batched(u, v, dts, rate, return_stats=True,
+                                                             params=adv_p),
+                         advect_cuda.advect_dye_batched(dye, u2, v2, dts, rate, params=adv_p)),
+                lambda: (ref.advect_velocity_batched(u, v, dts, rate, return_stats=True),
+                         ref.advect_dye_batched(dye, u2, v2, dts, rate))),
+            "H2 batched": (
+                lambda: jacobi_cuda.vorticity_confinement_batched(u, v, dts, 50.0, "gpu",
+                                                                  params=adv_p),
+                lambda: ref.vorticity_confinement_gpu_batched(u, v, dts, 50.0)),
+            "H3 batched": (
+                lambda: jacobi_cuda.diffuse_multi_splat_batched(all5, dts, coeffs, 20, amps,
+                                                                last, radius, params=dif_p),
+                lambda: ref.diffuse_multi_splat_batched(all5, dts, coeffs, 20, amps, last,
+                                                        radius)),
+            "H4 batched": (
+                lambda: jacobi_cuda.pressure_project_batched(u, v, 40, True, return_stats=True),
+                lambda: ref.pressure_project_batched(u, v, 40, True, return_stats=True)),
+        }
+        cells = b * ENS_N * ENS_N
+        io = {"H1 batched": ([u, v, dye, u2, v2, adv_p], cells * 72),
+              "H2 batched": ([u, v, adv_p], cells * 25),
+              "H3 batched": ([all5, dif_p], 5 * cells * (6 * 20 + 10)),
+              "H4 batched": ([u, v], cells * (4 + 5 * 40 + 8))}
+        rows = []
+        for k, (kern_fn, plain_fn) in cases.items():
+            calls = _device_kernels(kern_fn)
+            if sum(calls.values()) != ENS_CALL_LAUNCHES[k]:
+                raise AssertionError(f"{k}: {calls} device launches in one call at "
+                                     f"{b}x{ENS_N}x{ENS_N}, not {ENS_CALL_LAUNCHES[k]}")
+            inputs, n_ops = io[k]
+            nbytes = _nbytes(inputs) + _nbytes(kern_fn())
+            bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * n_ops / F32_OPS_PER_S
+            # plain, kernel, kernel, plain; the plain loop over 64 members is slow
+            p1 = cuda_times_ms(plain_fn, iters=2, warmup=1)
+            k1 = cuda_times_ms(kern_fn, iters=5, warmup=1)
+            k2 = cuda_times_ms(kern_fn, iters=5, warmup=0)
+            p2 = cuda_times_ms(plain_fn, iters=2, warmup=0)
+            _, src, replaces = kernels[k]
+            rows.append({
+                "name": f"{k} {src[:-3]}", "route": "cuda",
+                "source": f"cudafluidsimulation_tpu_torch/csrc/{src}",
+                "replaces": f"cudafluidsimulation_tpu/ops/{replaces}",
+                "launches": launches[k], "path": "ensemble sweep",
+                "members": b, "grid": f"{ENS_N}x{ENS_N}",
+                "max_abs_err": worst[k],
+                **({"max_abs_err_without_splat": worst["H3 sweeps batched"]}
+                   if k == "H3 batched" else {}),
+                "launches_per_call": sum(calls.values()),
+                "ms": statistics.median(k1 + k2), "device_ms": _device_ms(kern_fn),
+                "plain_ms": statistics.median(p1 + p2),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes, "operations": n_ops,
+                # no single PyTorch call computes a batched kernel's function either
+                "library_ms": None,
+            })
+        return rows
+
+    return timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -334,6 +752,10 @@ def main() -> int:
     # name: (launch counter, source, the TPU kernel it replaces)
     kernels = {
         "H1": (advect_cuda.KERNEL, "advect.cu", "advect_pallas.py:413"),
+        "H1 batched": (advect_cuda.BATCHED, "advect.cu", "advect_pallas.py:413"),
+        "H2 batched": (jacobi_cuda.VORTICITY_BATCHED, "vorticity.cu", f"{jp}:1411"),
+        "H3 batched": (jacobi_cuda.DIFFUSE_BATCHED, "diffuse.cu", f"{jp}:492"),
+        "H4 batched": (jacobi_cuda.PRESSURE_BATCHED, "pressure.cu", f"{jp}:1120"),
         "H2": (jacobi_cuda.VORTICITY, "vorticity.cu", f"{jp}:1411"),
         "H3": (jacobi_cuda.DIFFUSE, "diffuse.cu", f"{jp}:492"),
         "H4": (jacobi_cuda.PRESSURE, "pressure.cu", f"{jp}:1120"),
@@ -850,7 +1272,10 @@ def main() -> int:
            "quiet_u_max": kquiet.u.abs().max().item()})
     del fast_next, parity_next, adv
 
-    # -- 8. timing -------------------------------------------------------------
+    # -- 8. ensembles: H1-H4 over B members a launch ---------------------------
+    ens = ensemble_phase(smi[0], gen, worst, reset_counts, read_counts, kernels)
+
+    # -- 9. timing -------------------------------------------------------------
     def rates(what, sim_, ref_sim_):
         driven_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), driven), iters=3))
         quiet_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), quiet), iters=3))
@@ -1051,6 +1476,8 @@ def main() -> int:
             # 40 clamped sweeps, clamped bilinear gathers, the fused ends)
             "library_ms": None,
         })
+    rows += ens()
+    _json({"phase": "profiler_sessions", **TRACES})
     print(smi[0], flush=True)
     _json({"kernels": rows})
     _json({"ok": True, "device": {"platform": "gpu",

@@ -11,6 +11,12 @@ from cudafluidsimulation_tpu_torch.config import FluidConfig, PALETTE
 from cudafluidsimulation_tpu_torch.state import FluidState, init_state
 from cudafluidsimulation_tpu_torch.models.pipelines import make_step
 from cudafluidsimulation_tpu_torch.models.simulation import Simulation, run_scan
+from cudafluidsimulation_tpu_torch.models.ensemble import (
+    batched_impulse,
+    batched_state,
+    make_diffusion_sweep_run,
+    make_ensemble_run,
+)
 from cudafluidsimulation_tpu_torch.utils.impulse import (
     Impulse,
     no_impulse,
@@ -27,6 +33,10 @@ __all__ = [
     "make_step",
     "Simulation",
     "run_scan",
+    "batched_state",
+    "batched_impulse",
+    "make_ensemble_run",
+    "make_diffusion_sweep_run",
     "Impulse",
     "no_impulse",
     "constant_impulse",

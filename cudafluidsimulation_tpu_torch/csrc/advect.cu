@@ -25,6 +25,13 @@
 // Bound by bytes: u, v and C field planes in, C planes out; the taps sit
 // near the cell and hit L1/L2.  The velocity mode also emits
 // [max|u'|, max|v'|] into stats[0..1] (zeroed here on the stream first).
+//
+// H1 also takes a batch of independent members (ensembles, the analog of
+// the JAX package's vmap): member b = blockIdx.z (and every gridDim.z
+// after it) reads its planes at b times each array's member stride, its dt
+// and decay from row b of a device array when one is given, and reduces
+// into stats[2b..2b+1].  A single call is the case B = 1 with the scalars
+// by value.
 #include <stdint.h>
 
 #include "fluid_common.cuh"
@@ -92,17 +99,53 @@ __device__ __forceinline__ void advect_cell(
   }
 }
 
-template <bool DYE>
+// Member strides (floats) of the field planes in and out and of u and v;
+// prm: row b holds member b's [dt, decay] (row stride prm_stride), or null
+// for the dt and decay given by value.
+struct Members {
+  int nb;
+  long long in, out, u, v;
+  const float* prm;
+  int prm_stride;
+};
+
+// BATCH false (a single call) compiles the member loop away: member 0 once,
+// the scalars by value.
+template <bool DYE, bool BATCH>
 __global__ void advect_kernel(Planes planes, int c, const float* __restrict__ u,
                               const float* __restrict__ v,
                               float* __restrict__ stats, int h, int w,
-                              float dt, float decay) {
+                              float dt, float decay, Members m) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  float mu = 0.f, mv = 0.f;
-  if (x < w && y < h)
-    advect_cell<DYE>(planes, c, u, v, h, w, x, y, dt, decay, 0u, false, mu, mv);
-  if (!DYE && stats != nullptr) fluid_block_max2_atomic(mu, mv, stats);
+  const int nb = BATCH ? m.nb : 1;
+  // one member at a time
+#pragma unroll 1
+  for (int b = BATCH ? blockIdx.z : 0; b < nb; b += BATCH ? gridDim.z : 1) {
+    Planes p = planes;
+    if (BATCH) {
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        if (ch < c) {
+          p.in[ch] += b * m.in;
+          p.out[ch] += b * m.out;
+        }
+      }
+    }
+    float bdt = dt, bdecay = decay;
+    if (BATCH && m.prm != nullptr) {
+      bdt = m.prm[static_cast<size_t>(b) * m.prm_stride];
+      bdecay = m.prm[static_cast<size_t>(b) * m.prm_stride + 1];
+    }
+    float mu = 0.f, mv = 0.f;
+    if (x < w && y < h)
+      advect_cell<DYE>(p, c, u + b * m.u, v + b * m.v, h, w, x, y, bdt, bdecay, 0u,
+                       false, mu, mv);
+    if (!DYE && stats != nullptr) {
+      fluid_block_max2_atomic(mu, mv, stats + 2 * b);
+      if (BATCH) __syncthreads();  // the block max's slots, before the next member
+    }
+  }
 }
 
 // bound: the device-side [max|u|, max|v|] (null when fast_path is 0).
@@ -138,28 +181,39 @@ __global__ void vel_bound_kernel(const float* __restrict__ u,
   fluid_block_max2_atomic(a, b, out);
 }
 
-// fields: c <= 3 planes (f0..f2, outputs o0..o2).  dye != 0 selects the dye
-// fade; otherwise stats (may be null) receives [max|o0|, max|o1|].
+// fields: c <= 3 planes (f0..f2, outputs o0..o2) of member 0.  dye != 0
+// selects the dye fade; otherwise stats (may be null) receives
+// [max|o0|, max|o1|] of each member, 2 floats a member.  nb members; in_ms,
+// out_ms, u_ms, v_ms: member strides (floats) of f*, o*, u and v; prm: nb
+// rows of [dt, decay] in device memory, prm_stride floats apart, or null
+// for dt and decay (the only member when nb = 1).
 FLUID_API int fluid_advect(const float* f0, const float* f1, const float* f2,
                            float* o0, float* o1, float* o2, const float* u,
                            const float* v, float* stats, int c, int h, int w,
-                           int dye, float dt, float decay, void* stream) {
+                           int dye, float dt, float decay, int nb, long long in_ms,
+                           long long out_ms, long long u_ms, long long v_ms,
+                           const float* prm, int prm_stride, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c < 1 || c > 3 || h < 1 || w < 1) return cudaErrorInvalidValue;
+  if (c < 1 || c > 3 || h < 1 || w < 1 || nb < 1) return cudaErrorInvalidValue;
+  if (prm != nullptr && prm_stride < 2) return cudaErrorInvalidValue;
   Planes planes = {{f0, f1, f2}, {o0, o1, o2}};
+  const Members m = {nb, in_ms, out_ms, u_ms, v_ms, prm, prm_stride};
   const dim3 block(FLUID_BX, FLUID_BY);
-  const dim3 grid = fluid_grid2d(h, w);
-  if (dye) {
-    advect_kernel<true><<<grid, block, 0, s>>>(planes, c, u, v, nullptr, h, w,
-                                               dt, decay);
-  } else {
-    if (stats != nullptr) {
-      cudaError_t e = cudaMemsetAsync(stats, 0, 2 * sizeof(float), s);
-      if (e != cudaSuccess) return e;
-    }
-    advect_kernel<false><<<grid, block, 0, s>>>(planes, c, u, v, stats, h, w,
-                                                dt, decay);
+  const dim3 grid = fluid_grid2d(h, w, fluid_grid_z(nb));
+  const bool batch = nb > 1 || prm != nullptr;
+  if (!dye && stats != nullptr) {
+    cudaError_t e = cudaMemsetAsync(stats, 0, 2 * sizeof(float) * nb, s);
+    if (e != cudaSuccess) return e;
   }
+  float* st = dye ? nullptr : stats;
+  if (dye && batch)
+    advect_kernel<true, true><<<grid, block, 0, s>>>(planes, c, u, v, st, h, w, dt, decay, m);
+  else if (dye)
+    advect_kernel<true, false><<<grid, block, 0, s>>>(planes, c, u, v, st, h, w, dt, decay, m);
+  else if (batch)
+    advect_kernel<false, true><<<grid, block, 0, s>>>(planes, c, u, v, st, h, w, dt, decay, m);
+  else
+    advect_kernel<false, false><<<grid, block, 0, s>>>(planes, c, u, v, st, h, w, dt, decay, m);
   return cudaGetLastError();
 }
 

@@ -61,3 +61,28 @@ __device__ __forceinline__ void fluid_block_max2_atomic(float a, float b,
 static inline dim3 fluid_grid2d(int h, int w, int z = 1) {
   return dim3((w + FLUID_BX - 1) / FLUID_BX, (h + FLUID_BY - 1) / FLUID_BY, z);
 }
+
+// Batched kernels take their member (or plane) index from blockIdx.z.  The
+// grid's z extent stops at 65535, so a block walks z, z + gridDim.z, ...:
+// any count of members runs in one launch.
+#define FLUID_MAX_GRID_Z 65535
+
+static inline int fluid_grid_z(int n) {
+  return n < FLUID_MAX_GRID_Z ? n : FLUID_MAX_GRID_Z;
+}
+
+// Hide v's value from the compiler for one loop iteration.  A kernel that
+// walks members keeps its per-member body's register count only when the
+// compiler cannot hoist the body's index arithmetic (loop-invariant, all of
+// it derived from the shape and the thread index) out of the member loop
+// and hold it live across every member.
+__device__ __forceinline__ int fluid_opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+// p moved by off floats, null staying null.
+template <class T>
+__device__ __forceinline__ T* fluid_shift(T* p, size_t off) {
+  return p != nullptr ? p + off : p;
+}

@@ -29,6 +29,11 @@
 // Arithmetic order is the plain version's, without FMA contraction:
 // bit-identical.
 //
+// H4 also takes a batch of independent members (ensembles) in the same
+// launches: member b = blockIdx.z (and every gridDim.z after it) reads u and
+// v at b times their member strides and every other plane, and its 2-float
+// stats slot, at b times its own size.  A single call is the case B = 1.
+//
 // H5 replaces jacobi_pallas.py divergence -> _divergence_kernel and
 // project -> _project_kernel: one launch each (fluid_divergence,
 // fluid_project), bound by bytes.
@@ -46,13 +51,13 @@ struct PressureBurst {
   float* v2;
   float* stats;         // [max|u'|, max|v'|] when project
   int h, w, tile_h, tile_w, depth, half, from_uv, from_zero, project;
+  int nb;               // members; u and v member b at b * u_ms, b * v_ms,
+  long long u_ms, v_ms;  // the rest at b * h * w (stats at 2b)
 };
 
-// One burst: depth sweeps with halo depth (+1 when project).  Shared
-// memory: two iterates a, b and the divergence, each tile +- halo.
-__global__ void __launch_bounds__(BURST_THREADS, 2)
-pressure_burst_kernel(PressureBurst k) {
-  extern __shared__ float4 smem4[];
+// One member's burst: depth sweeps with halo depth (+1 when project).
+// Shared memory: two iterates a, b and the divergence, each tile +- halo.
+__device__ __forceinline__ void pressure_burst_member(const PressureBurst& k, float4* smem4) {
   const int h = k.h, w = k.w;
   const int halo = k.depth + (k.project ? 1 : 0);
   const BurstTile t = burst_tile(h, w, k.tile_h, k.tile_w, halo);
@@ -161,13 +166,40 @@ pressure_burst_kernel(PressureBurst k) {
   fluid_block_max2_atomic(mu, mv, k.stats);
 }
 
+__global__ void __launch_bounds__(BURST_THREADS, 2)
+pressure_burst_kernel(PressureBurst k) {
+  extern __shared__ float4 smem4[];
+  const size_t hw = static_cast<size_t>(k.h) * k.w;
+  // one member at a time, the body's shape opaque (fluid_opaque)
+#pragma unroll 1
+  for (int b = blockIdx.z; b < k.nb; b += gridDim.z) {
+    PressureBurst m = k;
+    m.u = fluid_shift(k.u, b * k.u_ms);
+    m.v = fluid_shift(k.v, b * k.v_ms);
+    m.div_in = fluid_shift(k.div_in, b * hw);
+    m.p_in = fluid_shift(k.p_in, b * hw);
+    m.div_out = fluid_shift(k.div_out, b * hw);
+    m.p_out = fluid_shift(k.p_out, b * hw);
+    m.u2 = fluid_shift(k.u2, b * hw);
+    m.v2 = fluid_shift(k.v2, b * hw);
+    m.stats = fluid_shift(k.stats, 2 * static_cast<size_t>(b));
+    m.h = fluid_opaque(k.h);
+    m.w = fluid_opaque(k.w);
+    m.tile_h = fluid_opaque(k.tile_h);
+    m.tile_w = fluid_opaque(k.tile_w);
+    m.depth = fluid_opaque(k.depth);
+    pressure_burst_member(m, smem4);
+    __syncthreads();  // shared memory, before the next member's fill
+  }
+}
+
 // Launch the bursts: depths[j] sweeps each (sum = iters); burst j writes p
 // when (nbursts-1-j) is even, else scratch, so the last lands in p.
 static cudaError_t pressure_bursts(PressureBurst k, const int* depths,
                                    int nbursts, float* p, float* scratch,
                                    float* div, cudaStream_t s) {
   if (k.h < 1 || k.w < 1 || k.tile_h < 1 || k.tile_w < 1 || nbursts < 1 ||
-      depths == nullptr)
+      k.nb < 1 || depths == nullptr)
     return cudaErrorInvalidValue;
   if (nbursts >= 2 && (scratch == nullptr || (k.from_uv && div == nullptr)))
     return cudaErrorInvalidValue;
@@ -183,7 +215,7 @@ static cudaError_t pressure_bursts(PressureBurst k, const int* depths,
   cudaError_t e = burst_allow_smem(pressure_burst_kernel, smem);
   if (e != cudaSuccess) return e;
   if (project) {
-    e = cudaMemsetAsync(k.stats, 0, 2 * sizeof(float), s);
+    e = cudaMemsetAsync(k.stats, 0, 2 * sizeof(float) * k.nb, s);
     if (e != cudaSuccess) return e;
   }
   const int from_uv = k.from_uv;
@@ -198,7 +230,7 @@ static cudaError_t pressure_bursts(PressureBurst k, const int* depths,
     if (j > 0) b.div_in = from_uv ? div : k.div_in;
     b.p_out = ((nbursts - 1 - j) % 2 == 0) ? p : scratch;
     const int halo = b.depth + (b.project ? 1 : 0);
-    pressure_burst_kernel<<<burst_grid(k.h, k.w, k.tile_h, k.tile_w),
+    pressure_burst_kernel<<<burst_grid(k.h, k.w, k.tile_h, k.tile_w, fluid_grid_z(k.nb)),
                             dim3(32, BURST_NY),
                             burst_smem_bytes(3, k.h, k.w, k.tile_h, k.tile_w, halo),
                             s>>>(b);
@@ -212,14 +244,20 @@ static cudaError_t pressure_bursts(PressureBurst k, const int* depths,
 // u, v in; u2, v2, p out; div, scratch: (h, w) work planes (used when
 // nbursts >= 2); stats: 2 floats.  tile_h x tile_w: a block's output tile;
 // depths: nbursts host ints (ops/jacobi_cuda.py plan_bursts), one burst
-// of depth 0 for iters = 0.
+// of depth 0 for iters = 0.  nb members: member b's u and v at b * u_ms and
+// b * v_ms floats, its u2, v2, p, div and scratch at b * h * w, its stats
+// at 2b.
 FLUID_API int fluid_pressure_project(const float* u, const float* v,
                                      float* u2, float* v2, float* p,
                                      float* div, float* scratch,
                                      float* stats, int h, int w, int tile_h,
                                      int tile_w, const int* depths,
-                                     int nbursts, int half, void* stream) {
+                                     int nbursts, int half, int nb,
+                                     long long u_ms, long long v_ms, void* stream) {
   PressureBurst k = {};
+  k.nb = nb;
+  k.u_ms = u_ms;
+  k.v_ms = v_ms;
   k.u = u;
   k.v = v;
   k.u2 = u2;
@@ -246,6 +284,7 @@ FLUID_API int fluid_pressure_solve(const float* div, float* p, float* scratch,
   if (h < 1 || w < 1 || nbursts < 0) return cudaErrorInvalidValue;
   if (nbursts == 0) return cudaMemsetAsync(p, 0, sizeof(float) * h * w, s);
   PressureBurst k = {};
+  k.nb = 1;
   k.div_in = div;
   k.h = h;
   k.w = w;

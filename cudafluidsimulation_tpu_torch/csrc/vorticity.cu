@@ -31,6 +31,11 @@
 // outside the grid hold values computed from clamped loads and are never
 // read: the force's taps clamp against the grid first.  The outputs are two
 // pointers, so the caller may hand it channels 0 and 1 of a larger pack.
+//
+// A batch of independent members (ensembles) runs in the same launch:
+// member b = blockIdx.z (and every gridDim.z after it) takes its planes at
+// b times each array's member stride and its dt from row b of a device
+// array when one is given.  A single call is the case B = 1, dt by value.
 #include <stdint.h>
 
 #include "fluid_common.cuh"
@@ -55,15 +60,16 @@ __device__ __forceinline__ float at(const float4& a, int j) {
   return j == 0 ? a.x : j == 1 ? a.y : j == 2 ? a.z : a.w;
 }
 
+// One member's tile: the three phases below.
 template <bool CPU>
-__global__ void __launch_bounds__(VORT_THREADS)
-    vorticity_kernel(const float* __restrict__ u, const float* __restrict__ v,
-                     float* __restrict__ u2, float* __restrict__ v2, int h, int w,
-                     int vec, float dt, float vorticity) {
-  __shared__ __align__(16) VortTile t;
+__device__ __forceinline__ void vorticity_tile(VortTile& t, const float* __restrict__ u,
+                                               const float* __restrict__ v,
+                                               float* __restrict__ u2,
+                                               float* __restrict__ v2, int h, int w,
+                                               int vec, float dt, float vorticity,
+                                               int tid) {
   const int x0 = blockIdx.x * VORT_TW;
   const int y0 = blockIdx.y * VORT_TH;
-  const int tid = threadIdx.x;
 
   // -- 1. fill: 32 four-column groups a row, u's rows first, then v's
   constexpr int UG = (VORT_TH + 4) * 32;
@@ -187,21 +193,70 @@ __global__ void __launch_bounds__(VORT_THREADS)
   }
 }
 
+// Member strides (floats) of u, v, u2, v2; prm: row b holds member b's dt
+// (row stride prm_stride), or null for the dt given by value.
+struct VortMembers {
+  int nb;
+  long long u, v, u2, v2;
+  const float* prm;
+  int prm_stride;
+};
+
+// BATCH false (a single call) is member 0's tile alone, dt by value.
+template <bool CPU, bool BATCH>
+__global__ void __launch_bounds__(VORT_THREADS)
+    vorticity_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                     float* __restrict__ u2, float* __restrict__ v2, int h, int w,
+                     int vec, float dt, float vorticity, VortMembers m) {
+  __shared__ __align__(16) VortTile t;
+  if (!BATCH) {
+    vorticity_tile<CPU>(t, u, v, u2, v2, h, w, vec, dt, vorticity, threadIdx.x);
+    return;
+  }
+  // one member at a time, the body's shape opaque (fluid_opaque)
+#pragma unroll 1
+  for (int b = blockIdx.z; b < m.nb; b += gridDim.z) {
+    const float bdt = m.prm != nullptr ? m.prm[static_cast<size_t>(b) * m.prm_stride] : dt;
+    vorticity_tile<CPU>(t, u + b * m.u, v + b * m.v, u2 + b * m.u2, v2 + b * m.v2,
+                        fluid_opaque(h), fluid_opaque(w), vec, bdt, vorticity,
+                        fluid_opaque(threadIdx.x));
+    __syncthreads();  // the tile's shared memory, before the next member's fill
+  }
+}
+
 static bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
+// u, v in, u2, v2 out: member 0's planes; nb members, each array's member
+// stride (floats) u_ms, v_ms, u2_ms, v2_ms; prm: nb rows of [dt, ...] in
+// device memory, prm_stride floats apart, or null for dt.  The 16-byte path
+// needs W % 4 == 0, every plane of every member 16-byte aligned.
 FLUID_API int fluid_vorticity(const float* u, const float* v, float* u2,
                               float* v2, int h, int w, int cpu_variant,
-                              float dt, float vorticity, void* stream) {
+                              float dt, float vorticity, int nb, long long u_ms,
+                              long long v_ms, long long u2_ms, long long v2_ms,
+                              const float* prm, int prm_stride, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (h < 1 || w < 1) return cudaErrorInvalidValue;
-  const int vec = w % 4 == 0 && aligned16(u) && aligned16(v) && aligned16(u2) && aligned16(v2);
-  const dim3 grid((w + VORT_TW - 1) / VORT_TW, (h + VORT_TH - 1) / VORT_TH);
-  if (cpu_variant) {
-    vorticity_kernel<true><<<grid, VORT_THREADS, 0, s>>>(u, v, u2, v2, h, w, vec, dt,
-                                                         vorticity);
-  } else {
-    vorticity_kernel<false><<<grid, VORT_THREADS, 0, s>>>(u, v, u2, v2, h, w, vec, dt,
-                                                          vorticity);
-  }
+  if (h < 1 || w < 1 || nb < 1) return cudaErrorInvalidValue;
+  if (prm != nullptr && prm_stride < 1) return cudaErrorInvalidValue;
+  const bool strides4 = nb == 1 || (u_ms % 4 == 0 && v_ms % 4 == 0 && u2_ms % 4 == 0 &&
+                                    v2_ms % 4 == 0);
+  const int vec = w % 4 == 0 && strides4 && aligned16(u) && aligned16(v) && aligned16(u2) &&
+                  aligned16(v2);
+  const VortMembers m = {nb, u_ms, v_ms, u2_ms, v2_ms, prm, prm_stride};
+  const dim3 grid((w + VORT_TW - 1) / VORT_TW, (h + VORT_TH - 1) / VORT_TH,
+                  fluid_grid_z(nb));
+  const bool batch = nb > 1 || prm != nullptr;
+  if (cpu_variant && batch)
+    vorticity_kernel<true, true><<<grid, VORT_THREADS, 0, s>>>(u, v, u2, v2, h, w, vec, dt,
+                                                               vorticity, m);
+  else if (cpu_variant)
+    vorticity_kernel<true, false><<<grid, VORT_THREADS, 0, s>>>(u, v, u2, v2, h, w, vec, dt,
+                                                                vorticity, m);
+  else if (batch)
+    vorticity_kernel<false, true><<<grid, VORT_THREADS, 0, s>>>(u, v, u2, v2, h, w, vec, dt,
+                                                                vorticity, m);
+  else
+    vorticity_kernel<false, false><<<grid, VORT_THREADS, 0, s>>>(u, v, u2, v2, h, w, vec,
+                                                                 dt, vorticity, m);
   return cudaGetLastError();
 }

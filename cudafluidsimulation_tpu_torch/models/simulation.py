@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from cudafluidsimulation_tpu_torch.config import FluidConfig
+from cudafluidsimulation_tpu_torch.models.ensemble import make_ensemble_run
 from cudafluidsimulation_tpu_torch.models.pipelines import make_render, make_step
 from cudafluidsimulation_tpu_torch.ops.backend import get_ops
 from cudafluidsimulation_tpu_torch.state import FluidState, default_device, init_state
@@ -27,6 +28,17 @@ def run_scan(step_fn, state: FluidState, impulses: Impulse) -> FluidState:
     for i in range(num_steps(impulses)):
         state = step_fn(state, slice_step(impulses, i))
     return state
+
+
+def run_scan_render(step_fn, render_fn, state: FluidState, impulses: Impulse):
+    """Rollout that renders an RGBA frame after every step: (final state,
+    (T, 4, H, W) uint8 frames on the state's device).  The frames take
+    T*H*W*4 bytes; ``Simulation.collect_frames`` keeps one at a time."""
+    frames = []
+    for i in range(num_steps(impulses)):
+        state = step_fn(state, slice_step(impulses, i))
+        frames.append(render_fn(state))
+    return state, torch.stack(frames)
 
 
 class Simulation:
@@ -60,6 +72,10 @@ class Simulation:
     def run(self, state: FluidState, impulses: Impulse) -> FluidState:
         return run_scan(self.step_fn, state, impulses)
 
+    def run_steps(self, state: FluidState, steps: int) -> FluidState:
+        """``steps`` steps of free evolution."""
+        return self.run(state, no_impulse(steps, self.config.dt))
+
     def run_displacement(self, state: FluidState, impulses: Impulse):
         """Rollout + realized advection displacement: returns
         ``(final_state, (max|u|*dt, max|v|*dt))`` with the maxima over every
@@ -86,6 +102,26 @@ class Simulation:
     def render(self, state: FluidState, flip: bool = True) -> np.ndarray:
         """uint8 (H, W, 4) frame; ``flip`` puts y-up at the image top."""
         return self.frame_image(self.render_fn(state), flip)
+
+    def collect_frames(self, state: FluidState, impulses: Impulse, every: int = 1):
+        """Roll out and return (final state, (N, H, W, 4) uint8 frames,
+        y-up): one frame after each ``every`` steps and after the last, so
+        device memory holds one frame at a time."""
+        n = num_steps(impulses)
+        frames = []
+        for start in range(0, n, every):
+            part = Impulse(*(f[start:min(start + every, n)] for f in impulses))
+            state = self.run(state, part)
+            frames.append(self.render(state))
+        return state, np.stack(frames)
+
+    # -- ensembles ----------------------------------------------------------
+
+    def vmapped_run(self):
+        """The rollout over a leading member axis of (state, impulses):
+        independent simulations batched on one device
+        (``models.ensemble.make_ensemble_run``)."""
+        return make_ensemble_run(self.config)
 
     # -- timing -------------------------------------------------------------
 

@@ -177,3 +177,15 @@ def check_f32(name: str, t: torch.Tensor, shape) -> None:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_planes(name: str, t: torch.Tensor, shape) -> None:
+    """Raise unless ``t`` is a float32 tensor of ``shape`` whose trailing
+    (H, W) planes are each contiguous, at any stride of the leading axes
+    (a channel slice of a batched pack)."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.stride(-1) != 1 or t.stride(-2) != t.shape[-1]:
+        raise ValueError(f"{name}: expected contiguous (H, W) planes")

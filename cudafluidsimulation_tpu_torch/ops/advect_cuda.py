@@ -26,6 +26,13 @@ and L2.  The velocity pass also emits [max|u'|, max|v'|] (a block
 reduction and one atomic per block), so no later pass re-reads the
 velocity to bound it.
 
+**H1 batched** (``advect_velocity_batched``, ``advect_dye_batched``): B
+independent members (ensembles, the analog of vmap over the JAX step) in
+one launch of the same kernel, member b on grid z; each member's dt and
+decay come from its row of the step's device parameters
+(``ops/member_params.py``) and its bound goes to row b of ``stats``
+(B, 2).  The single entries are the case B = 1, with dt and decay by value.
+
 The wrappers take the plain versions (``ops.ref``, ``ops.advect_packed``)
 for CPU tensors and launch the kernel or raise for CUDA tensors.
 """
@@ -36,16 +43,18 @@ import ctypes
 
 import torch
 
-from cudafluidsimulation_tpu_torch.ops import advect_packed, ref
+from cudafluidsimulation_tpu_torch.ops import advect_packed, member_params, ref
 from cudafluidsimulation_tpu_torch.ops._build import (
-    Kernel, check_f32, on_card, stream_of)
+    Kernel, check_f32, check_planes, on_card, stream_of)
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
-# fluid_advect(f0, f1, f2, o0, o1, o2, u, v, stats, c, h, w, dye, dt, decay, stream)
-KERNEL = Kernel("advect", {
-    "fluid_advect": [_P] * 9 + [_I] * 4 + [_F, _F, _P],
-})
+# fluid_advect(f0, f1, f2, o0, o1, o2, u, v, stats, c, h, w, dye, dt, decay,
+#              nb, in_ms, out_ms, u_ms, v_ms, prm, prm_stride, stream)
+_ADVECT = {"fluid_advect": [_P] * 9 + [_I] * 4 + [_F, _F, _I] + [_L] * 4 + [_P, _I, _P]}
+KERNEL = Kernel("advect", _ADVECT)
+# the same entry, B members a launch (its own launch count)
+BATCHED = Kernel("advect", _ADVECT)
 # fluid_advect_packed(f0, f1, f2, o0, o1, o2, u, v, bound, scratch, stats,
 #                     c, h, w, dye, fast_path, dt, decay, stream)
 PACKED = Kernel("advect", {
@@ -64,7 +73,20 @@ def _launch(planes, outs, u, v, stats, dt, decay_rate, dye: bool):
             "fluid_advect", *_ptrs(planes), *_ptrs(outs), u.data_ptr(),
             v.data_ptr(), stats.data_ptr() if stats is not None else None,
             len(planes), h, w, int(dye), float(ref.f32(dt)),
-            ref.decay_factor(dt, decay_rate), stream_of(u))
+            ref.decay_factor(dt, decay_rate), 1, 0, 0, 0, 0, None, 0, stream_of(u))
+
+
+def _launch_batched(planes, outs, in_ms, out_ms, u, v, stats, params, dye: bool):
+    """One launch over the B members: ``planes``/``outs`` member 0's
+    planes, each array ``*_ms`` floats from one member to the next."""
+    n, h, w = u.shape
+    member_params.check(params, n, member_params.ADVECT_COLS, u.device)
+    with torch.cuda.device(u.device):
+        BATCHED.launch(
+            "fluid_advect", *_ptrs(planes), *_ptrs(outs), u.data_ptr(), v.data_ptr(),
+            stats.data_ptr() if stats is not None else None, len(planes), h, w,
+            int(dye), 0.0, 0.0, n, in_ms, out_ms, u.stride(0), v.stride(0),
+            params.data_ptr(), params.stride(0), stream_of(u))
 
 
 def _launch_packed(planes, outs, u, v, vel_stats, stats, dt, decay_rate,
@@ -146,4 +168,54 @@ def advect_dye(dye, u, v, dt, decay_rate, *, vel_stats=None,
                        decay_rate, dye=True, fast_path=fast_path)
     else:
         _launch(list(dye), list(out), u, v, None, dt, decay_rate, dye=True)
+    return out
+
+
+def _params(params, dt, decay_rate, device):
+    return (member_params.upload(member_params.advect_cols(dt, decay_rate), device)
+            if params is None else params)
+
+
+def advect_velocity_batched(u, v, dt, decay_rate, *, return_stats: bool = False,
+                            params=None):
+    """H1 over B members: u, v (B, H, W) (each plane contiguous), dt (B,);
+    ``ops.ref.advect_velocity_batched`` semantics.  ``params``: the step's
+    (B, >= 2) device rows [dt, decay] (``ops/member_params.py``), uploaded
+    here when None.  Returns u', v' (B, H, W) [and stats (B, 2)]."""
+    if not on_card(u, v):
+        return ref.advect_velocity_batched(u, v, dt, decay_rate,
+                                           return_stats=return_stats)
+    n, h, w = u.shape
+    check_planes("u", u, (n, h, w))
+    check_planes("v", v, (n, h, w))
+    params = _params(params, ref.member_vec(dt, n), decay_rate, u.device)
+    out = torch.empty((2, n, h, w), dtype=torch.float32, device=u.device)
+    stats = torch.empty((n, 2), dtype=torch.float32, device=u.device)
+    if u.stride(0) != v.stride(0):
+        raise ValueError(f"u, v: member strides differ ({u.stride(0)}, {v.stride(0)})")
+    _launch_batched([u[0], v[0]], [out[0, 0], out[1, 0]], u.stride(0), h * w, u, v, stats,
+                    params, dye=False)
+    return (out[0], out[1], stats) if return_stats else (out[0], out[1])
+
+
+def advect_dye_batched(dye, u, v, dt, decay_rate, *, params=None, out=None):
+    """H1's dye fade over B members: dye (B, C, H, W) and u, v (B, H, W),
+    each plane contiguous (the dye of a step is channels 2-4 of the last
+    one's pack); ``ops.ref.advect_dye_batched`` semantics.  ``out``
+    (B, C, H, W) with contiguous planes (``ref.check_out_planes``), for
+    example channels 2-4 of the step's (B, 5, H, W) pack."""
+    if out is not None:
+        ref.check_out_planes(out, dye.shape, dye, u, v)
+    if not on_card(*_given(dye, u, v, out)):
+        return ref.advect_dye_batched(dye, u, v, dt, decay_rate, out=out)
+    n, h, w = u.shape
+    check_planes("u", u, (n, h, w))
+    check_planes("v", v, (n, h, w))
+    if dye.dim() != 4 or dye.shape[0] != n or not 1 <= dye.shape[1] <= 3:
+        raise ValueError(f"dye: expected ({n}, C<=3, H, W), got {tuple(dye.shape)}")
+    check_planes("dye", dye, (n, dye.shape[1], h, w))
+    params = _params(params, ref.member_vec(dt, n), decay_rate, u.device)
+    out = torch.empty_like(dye) if out is None else out
+    _launch_batched(list(dye[0]), list(out[0]), dye.stride(0), out.stride(0), u, v,
+                    None, params, dye=True)
     return out

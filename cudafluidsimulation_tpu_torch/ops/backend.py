@@ -1,5 +1,9 @@
 """Backend resolution: one op API, two implementations.
 
+``get_batched_ops(config)`` is the same for ensembles: ops over B
+independent members (``ops/ref.py``'s ``*_batched`` plain versions, and on
+``cuda`` the batched entries of H1–H4).
+
 ``get_ops(config)`` returns a namespace with every op of the JAX package's
 ``ops/backend.py``, multigrid's ``pressure_solve_mg`` included.  ``ref`` is
 the plain PyTorch oracle; ``cuda`` replaces the ops that the JAX package
@@ -59,3 +63,43 @@ def get_ops(config: FluidConfig) -> types.SimpleNamespace:
     from cudafluidsimulation_tpu_torch.ops import cuda_kernels
 
     return _namespace(cuda_kernels.overrides(config))
+
+
+BATCHED_OP_NAMES = [
+    "advect_velocity",
+    "advect_dye",
+    "vorticity_confinement_cpu",
+    "vorticity_confinement_gpu",
+    "diffuse",
+    "diffuse_multi",
+    "diffuse_multi_splat",
+    "pressure_project",
+    "pressure_project_mg",
+    "splat_cpu",
+    "splat_gpu",
+]
+
+
+def batched_namespace(overrides=None) -> types.SimpleNamespace:
+    """The plain batched ops (``ref.<name>_batched``), ``boundary_strip``
+    (which broadcasts over members) and ``overrides``."""
+    ns = types.SimpleNamespace(boundary_strip=_ref.boundary_strip)
+    for name in BATCHED_OP_NAMES:
+        setattr(ns, name, getattr(_ref, f"{name}_batched"))
+    for name, fn in (overrides or {}).items():
+        setattr(ns, name, fn)
+    return ns
+
+
+def get_batched_ops(config: FluidConfig) -> types.SimpleNamespace:
+    """The batched op namespace for ``config``.  A configuration that would
+    run the kernels raises ``NotImplementedError`` where its step needs a
+    kernel without a batch dimension (``cuda_kernels.check_batched``), and
+    ``RuntimeError`` without a CUDA device, as :func:`get_ops`."""
+    from cudafluidsimulation_tpu_torch.ops import cuda_kernels
+
+    if config.backend != "ref":
+        cuda_kernels.check_batched(config)
+    if config.resolve_backend() == "ref":
+        return batched_namespace()
+    return batched_namespace(cuda_kernels.batched_overrides())

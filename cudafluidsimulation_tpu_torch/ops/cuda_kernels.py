@@ -24,6 +24,11 @@ Pallas kernels.
   ``pressure_solver="multigrid"``; on that hook the restriction and the
   prolongation ride the ends' launches (``ops/multigrid.py``).
 
+Ensembles (``models/ensemble.py``) run B members a launch on the batched
+entries of H1–H4 (``batched_overrides``); the other kernels have no batch
+dimension yet, so :func:`check_batched` refuses a configuration that needs
+them.
+
 The TPU kernels' planners (strip heights, bursts, column tiles, padding)
 have no counterpart: every kernel here takes any grid shape, so every
 multigrid level runs on the kernels, and fast diffusion has no shape gate.
@@ -67,3 +72,39 @@ def overrides(config: FluidConfig) -> dict:
         # {} where the taps would not undercut the exact sweeps
         out.update(fastdiffuse.make_ops(config))
     return out
+
+
+def check_batched(config: FluidConfig) -> None:
+    """Raise ``NotImplementedError`` for an ensemble whose step needs a
+    kernel without a batch dimension: the fast modes (H7, H8) and
+    multigrid pressure (H5, H6).  Nothing falls back to a loop or to the
+    CPU; ``backend="ref"`` runs every configuration on the plain ops."""
+    lacking = []
+    if config.fast_dye or config.fast_velocity or config.fast_diffuse:
+        lacking.append("the fast modes (H7 separable diffusion, H8 bf16-tap advection)")
+    if config.pressure_solver == "multigrid":
+        lacking.append("multigrid pressure (H5 divergence/projection, H6 smoother ends)")
+    if lacking:
+        raise NotImplementedError(
+            "ensembles on the CUDA kernels run H1-H4 only; " + " and ".join(lacking)
+            + " need kernels that have no batch dimension yet (H5-H8; ROADMAP queue 1, "
+            "item 10). "
+            "Use backend='ref' for the plain ops.")
+
+
+def batched_overrides() -> dict:
+    """Batched op name -> kernel wrapper (H1–H4 over B members)."""
+    from cudafluidsimulation_tpu_torch.ops import advect_cuda, jacobi_cuda
+
+    return {
+        "advect_velocity": advect_cuda.advect_velocity_batched,
+        "advect_dye": advect_cuda.advect_dye_batched,
+        "vorticity_confinement_gpu": functools.partial(
+            jacobi_cuda.vorticity_confinement_batched, variant="gpu"),
+        "vorticity_confinement_cpu": functools.partial(
+            jacobi_cuda.vorticity_confinement_batched, variant="cpu"),
+        "diffuse": jacobi_cuda.diffuse_batched,
+        "diffuse_multi": jacobi_cuda.diffuse_multi_batched,
+        "diffuse_multi_splat": jacobi_cuda.diffuse_multi_splat_batched,
+        "pressure_project": jacobi_cuda.pressure_project_batched,
+    }

@@ -67,27 +67,31 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from cudafluidsimulation_tpu_torch.ops import ref
+from cudafluidsimulation_tpu_torch.ops import member_params, ref
 from cudafluidsimulation_tpu_torch.ops._build import (
-    Kernel, check_f32, on_card, stream_of)
+    Kernel, check_f32, check_planes, on_card, stream_of)
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
-# fluid_vorticity(u, v, u2, v2, h, w, cpu_variant, dt, vorticity, stream)
-VORTICITY = Kernel("vorticity", {
-    "fluid_vorticity": [_P] * 4 + [_I] * 3 + [_F, _F, _P],
-})
-# fluid_diffuse(in, out, scratch, c, h, w, tile_h, tile_w, depths*, nbursts,
-#               alpha*, inv_beta*, amp*, lx, ly, radius, stream); depths,
-#               alpha, inv_beta and amp are host pointers
-DIFFUSE = Kernel("diffuse", {
-    "fluid_diffuse": [_P] * 3 + [_I] * 5 + [_P, _I] + [_P] * 3 + [_F] * 3 + [_P],
-})
+# fluid_vorticity(u, v, u2, v2, h, w, cpu_variant, dt, vorticity, nb, u_ms,
+#                 v_ms, u2_ms, v2_ms, prm, prm_stride, stream)
+_VORTICITY = {"fluid_vorticity": [_P] * 4 + [_I] * 3 + [_F, _F, _I] + [_L] * 4 + [_P, _I, _P]}
+VORTICITY = Kernel("vorticity", _VORTICITY)
+# fluid_diffuse(in, out, scratch, n, h, w, tile_h, tile_w, depths*, nbursts,
+#               alpha*, inv_beta*, amp*, lx, ly, radius, splat, prm,
+#               prm_stride, chans, stream); depths, alpha, inv_beta and amp
+#               are host pointers, prm a device pointer
+_DIFFUSE = {"fluid_diffuse": [_P] * 3 + [_I] * 5 + [_P, _I] + [_P] * 3 + [_F] * 3
+            + [_I, _P, _I, _I, _P]}
+DIFFUSE = Kernel("diffuse", _DIFFUSE)
 # fluid_pressure_project(u, v, u2, v2, p, div, scratch, stats, h, w, tile_h,
-#                        tile_w, depths*, nbursts, half, stream)
-PRESSURE = Kernel("pressure", {
-    "fluid_pressure_project": [_P] * 8 + [_I] * 4 + [_P] + [_I] * 2 + [_P],
-})
+#                        tile_w, depths*, nbursts, half, nb, u_ms, v_ms, stream)
+_PRESSURE = {"fluid_pressure_project": [_P] * 8 + [_I] * 4 + [_P] + [_I] * 3 + [_L] * 2 + [_P]}
+PRESSURE = Kernel("pressure", _PRESSURE)
+# the same entries, B members a launch (their own launch counts)
+VORTICITY_BATCHED = Kernel("vorticity", _VORTICITY)
+DIFFUSE_BATCHED = Kernel("diffuse", _DIFFUSE)
+PRESSURE_BATCHED = Kernel("pressure", _PRESSURE)
 # fluid_pressure_solve(div, p, scratch, h, w, tile_h, tile_w, depths*,
 #                      nbursts, stream)
 PRESSURE_SOLVE = Kernel("pressure", {
@@ -100,7 +104,8 @@ STENCIL = Kernel("pressure", {
     "fluid_project": [_P] * 6 + [_I] * 2 + [_P],
 })
 
-MAX_CHANNELS = 8  # csrc/diffuse.cu FLUID_MAX_CHANNELS
+MAX_CHANNELS = 8  # csrc/diffuse.cu FLUID_MAX_CHANNELS: by-value parameters
+MAX_GRID_Z = 65535  # csrc/fluid_common.cuh: a block walks z beyond it
 
 # -- the burst planner ---------------------------------------------------------
 
@@ -217,7 +222,8 @@ def vorticity_confinement(u, v, dt, vorticity, variant: str = "gpu", *,
         VORTICITY.launch(
             "fluid_vorticity", u.data_ptr(), v.data_ptr(), out[0].data_ptr(),
             out[1].data_ptr(), h, w, int(variant == "cpu"),
-            float(ref.f32(dt)), float(ref.f32(vorticity)), stream_of(u))
+            float(ref.f32(dt)), float(ref.f32(vorticity)), 1, 0, 0, 0, 0, None, 0,
+            stream_of(u))
     return out[0], out[1]
 
 
@@ -225,24 +231,30 @@ def _diffuse(fields, dt, coeffs, iters: int, splat=None,
              plan: Optional[BurstPlan] = None):
     """Shared launcher: ``fields`` (C, H, W) on the card, ``coeffs`` one per
     channel, ``splat`` = (amps, last, radius) or None; ``plan`` defaults to
-    :func:`plan_bursts`'s."""
+    :func:`plan_bursts`'s.  Up to :data:`MAX_CHANNELS` planes take their
+    parameters by value; more go through device rows as a batch of one."""
     if fields.dim() != 3:
         raise ValueError(f"fields: expected (C, H, W), got {tuple(fields.shape)}")
     c, h, w = fields.shape
-    if not 1 <= c <= MAX_CHANNELS:
-        raise ValueError(f"fields: 1..{MAX_CHANNELS} channels, got {c}")
     check_f32("fields", fields, (c, h, w))
-    if iters < 0:
-        raise ValueError("iters must be >= 0")
     alpha, inv_beta = ref.diffusion_alphas(dt, coeffs)
     if alpha.shape[0] != c:
         raise ValueError(f"coeffs: expected {c} values, got {alpha.shape[0]}")
+    amps = None if splat is None else ref.f32_vec(splat[0])
+    if amps is not None and amps.shape[0] != c:
+        raise ValueError(f"amps: expected {c} values, got {amps.shape[0]}")
+    if c > MAX_CHANNELS:
+        last = None if splat is None else ref.f32_vec(splat[1])[None]
+        rows = member_params.diffuse_cols(ref.f32_vec(dt), ref.f32_vec(coeffs)[None],
+                                          None if amps is None else amps[None], last)
+        return _diffuse_rows(fields[None], iters, splat is not None,
+                             1.0 if splat is None else splat[2],
+                             member_params.upload(rows, fields.device), plan)[0]
+    if iters < 0:
+        raise ValueError("iters must be >= 0")
     if splat is None:
-        amps, lx, ly, radius = None, 0.0, 0.0, 1.0
+        lx, ly, radius = 0.0, 0.0, 1.0
     else:
-        amps = ref.f32_vec(splat[0])
-        if amps.shape[0] != c:
-            raise ValueError(f"amps: expected {c} values, got {amps.shape[0]}")
         last = ref.f32_vec(splat[1])
         lx, ly, radius = float(last[0]), float(last[1]), float(ref.f32(splat[2]))
     plan = plan or plan_bursts(h, w, iters, "diffuse")
@@ -259,7 +271,35 @@ def _diffuse(fields, dt, coeffs, iters: int, splat=None,
             scratch.data_ptr() if scratch is not None else None,
             c, h, w, *plan.tile, depths_ptr, nbursts,
             *[a.ctypes.data if a is not None else None for a in host],
-            lx, ly, radius, stream_of(fields))
+            lx, ly, radius, int(splat is not None), None, 0, c, stream_of(fields))
+    return out
+
+
+def _diffuse_rows(fields, iters: int, splat: bool, radius, params,
+                  plan: Optional[BurstPlan] = None, kern: Kernel = DIFFUSE):
+    """H3 over (B, C, H, W) ``fields``, B*C planes a launch a burst, each
+    plane's alpha, 1/beta and amp and its member's splat centre from the
+    device rows ``params`` (``member_params.diffuse_cols``'s layout)."""
+    if fields.dim() != 4:
+        raise ValueError(f"fields: expected (B, C, H, W), got {tuple(fields.shape)}")
+    n, c, h, w = fields.shape
+    check_f32("fields", fields, (n, c, h, w))
+    if iters < 0:
+        raise ValueError("iters must be >= 0")
+    member_params.check(params, n, 3 * c + 2, fields.device)
+    plan = plan or plan_bursts(h, w, iters, "diffuse")
+    if plan.iters != iters:
+        raise ValueError(f"plan runs {plan.iters} sweeps, not {iters}")
+    depths, depths_ptr, nbursts = _depths(plan)
+    out = torch.empty_like(fields)
+    scratch = torch.empty_like(fields) if nbursts >= 2 else None
+    with torch.cuda.device(fields.device):
+        kern.launch(
+            "fluid_diffuse", fields.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            n * c, h, w, *plan.tile, depths_ptr, nbursts, None, None, None,
+            0.0, 0.0, float(ref.f32(radius)), int(splat), params.data_ptr(),
+            params.stride(0), c, stream_of(fields))
     return out
 
 
@@ -314,7 +354,7 @@ def _pressure_project(u, v, iters: int, half: bool,
             div.data_ptr() if div is not None else None,
             scratch.data_ptr() if scratch is not None else None,
             stats.data_ptr(), h, w, *plan.tile, depths_ptr, nbursts,
-            int(bool(half)), stream_of(u))
+            int(bool(half)), 1, 0, 0, stream_of(u))
     return uv2[0], uv2[1], p, stats
 
 
@@ -381,3 +421,119 @@ def project(u, v, p, *, return_stats: bool = False):
     if return_stats:
         return uv2[0], uv2[1], stats
     return uv2[0], uv2[1]
+
+
+# -- B members a launch (ensembles) --------------------------------------------
+
+
+def vorticity_confinement_batched(u, v, dt, vorticity, variant: str = "gpu", *,
+                                  params=None, out=None):
+    """H2 over B members: u, v (B, H, W) (each plane contiguous), dt (B,);
+    ``ops.ref.vorticity_confinement_{gpu,cpu}_batched`` semantics.
+    ``params``: device rows whose column 0 is dt (``ops/member_params.py``;
+    uploaded here when None).  ``out`` (B, 2, H, W) with contiguous planes
+    receives u' and v' (the step's ``pack[:, 0:2]``); returns ``out[:, 0]``,
+    ``out[:, 1]``."""
+    if variant not in ("gpu", "cpu"):
+        raise ValueError(f"variant must be 'gpu' or 'cpu', got {variant!r}")
+    n = u.shape[0]
+    if out is not None:
+        ref.check_out_planes(out, (n, 2) + tuple(u.shape[1:]), u, v)
+    if not on_card(*[t for t in (u, v, out) if t is not None]):
+        fn = (ref.vorticity_confinement_gpu_batched if variant == "gpu"
+              else ref.vorticity_confinement_cpu_batched)
+        return fn(u, v, dt, vorticity, out=out)
+    _, h, w = u.shape
+    check_planes("u", u, (n, h, w))
+    check_planes("v", v, (n, h, w))
+    if params is None:
+        params = member_params.upload(ref.member_vec(dt, n)[:, None], u.device)
+    member_params.check(params, n, 1, u.device)
+    if out is None:
+        out = torch.empty((n, 2, h, w), dtype=torch.float32, device=u.device)
+    u2, v2 = out[:, 0], out[:, 1]
+    with torch.cuda.device(u.device):
+        VORTICITY_BATCHED.launch(
+            "fluid_vorticity", u.data_ptr(), v.data_ptr(), u2.data_ptr(), v2.data_ptr(),
+            h, w, int(variant == "cpu"), 0.0, float(ref.f32(vorticity)), n,
+            u.stride(0), v.stride(0), u2.stride(0), v2.stride(0),
+            params.data_ptr(), params.stride(0), stream_of(u))
+    return u2, v2
+
+
+def _diffuse_batched(fields, dt, coeffs, iters: int, splat, params):
+    n, c = fields.shape[:2]
+    if params is None:
+        amps, last = (None, None) if splat is None else splat[:2]
+        params = member_params.upload(member_params.diffuse_cols(
+            ref.member_vec(dt, n), ref.member_rows(coeffs, n, c),
+            None if amps is None else ref.member_rows(amps, n, c),
+            None if last is None else ref.member_rows(last, n, 2)), fields.device)
+    return _diffuse_rows(fields, iters, splat is not None,
+                         1.0 if splat is None else splat[2], params,
+                         kern=DIFFUSE_BATCHED)
+
+
+def diffuse_batched(fields, dt, diffusion, iters: int, *, params=None):
+    """H3 over B members' (C, H, W) fields, one coefficient a member
+    (``diffusion`` (B,)); ``ops.ref.diffuse_batched`` semantics.
+    ``params``: the step's device rows (``member_params.diffuse_cols``'s
+    layout), built and uploaded here when None."""
+    if not on_card(fields):
+        return ref.diffuse_batched(fields, dt, diffusion, iters)
+    if iters == 0:
+        return fields
+    n, c = fields.shape[:2]
+    k = ref.member_vec(diffusion, n)
+    return _diffuse_batched(fields, dt, np.repeat(k[:, None], c, axis=1), iters, None,
+                            params)
+
+
+def diffuse_multi_batched(fields, dt, coeffs, iters: int, *, params=None):
+    """H3 over B members, a coefficient per plane (``coeffs`` (B, C));
+    ``ops.ref.diffuse_multi_batched``."""
+    if not on_card(fields):
+        return ref.diffuse_multi_batched(fields, dt, coeffs, iters)
+    if iters == 0:
+        return fields
+    return _diffuse_batched(fields, dt, coeffs, iters, None, params)
+
+
+def diffuse_multi_splat_batched(fields, dt, coeffs, iters: int, amps, last, radius, *,
+                                params=None):
+    """H3 over B members with each member's gpu-variant splat (``amps``
+    (B, C), ``last`` (B, 2)) on the last sweep;
+    ``ops.ref.diffuse_multi_splat_batched``."""
+    if not on_card(fields):
+        return ref.diffuse_multi_splat_batched(fields, dt, coeffs, iters, amps, last,
+                                               radius)
+    return _diffuse_batched(fields, dt, coeffs, iters, (amps, last, radius), params)
+
+
+def pressure_project_batched(u, v, iters: int, half: bool, *, return_stats: bool = False):
+    """H4 over B members: u, v (B, H, W), each plane contiguous at any
+    member stride (``pack[:, 0]``); ``ops.ref.pressure_project_batched``
+    semantics, returning (u', v', p[, vel_stats (B, 2)])."""
+    if not on_card(u, v):
+        return ref.pressure_project_batched(u, v, iters, half, return_stats=return_stats)
+    n, h, w = u.shape
+    check_planes("u", u, (n, h, w))
+    check_planes("v", v, (n, h, w))
+    plan = plan_bursts(h, w, iters, "project")
+    depths, depths_ptr, nbursts = _depths(plan)
+    dev = u.device
+    uv2 = torch.empty((2, n, h, w), dtype=torch.float32, device=dev)
+    p = torch.empty((n, h, w), dtype=torch.float32, device=dev)
+    div, scratch = (torch.empty((2, n, h, w), dtype=torch.float32, device=dev)
+                    if nbursts >= 2 else (None, None))
+    stats = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        PRESSURE_BATCHED.launch(
+            "fluid_pressure_project", u.data_ptr(), v.data_ptr(),
+            uv2[0].data_ptr(), uv2[1].data_ptr(), p.data_ptr(),
+            div.data_ptr() if div is not None else None,
+            scratch.data_ptr() if scratch is not None else None,
+            stats.data_ptr(), h, w, *plan.tile, depths_ptr, nbursts,
+            int(bool(half)), n, u.stride(0), v.stride(0), stream_of(u))
+    out = (uv2[0], uv2[1], p, stats)
+    return out if return_stats else out[:3]

@@ -67,6 +67,25 @@ def check_out(out: Tensor, shape, *inputs) -> None:
                 raise ValueError("out: shares memory with an input")
 
 
+def check_out_planes(out: Tensor, shape, *inputs) -> None:
+    """The contract of a batched op's ``out=``: a float32 tensor of
+    ``shape`` (B, C, H, W) whose (H, W) planes are each contiguous — a
+    channel slice of a larger pack, such as ``pack[:, 2:5]`` — sharing no
+    memory with ``inputs`` (:func:`check_out`'s address test)."""
+    if out.dtype != torch.float32:
+        raise TypeError(f"out: expected float32, got {out.dtype}")
+    if out.shape != tuple(shape):
+        raise ValueError(f"out: expected shape {tuple(shape)}, got {tuple(out.shape)}")
+    if out.stride(-1) != 1 or out.stride(-2) != out.shape[-1]:
+        raise ValueError("out: expected contiguous (H, W) planes")
+    lo, hi = _extent(out)
+    for t in inputs:
+        if t is not None and t.numel():
+            a, b = _extent(t)
+            if a < hi and lo < b:
+                raise ValueError("out: shares memory with an input")
+
+
 def _into(out, *results):
     """``results`` (one tensor or a tuple), or with ``out`` the same values
     copied into ``out`` (one result) or its leading slices (several)."""
@@ -392,10 +411,11 @@ def cycle_color(palette, press_time) -> Tensor:
 
 def boundary_strip(u, v, dye, rows: int):
     """Zero the bottom ``rows`` rows of velocity and dye — the CPU path's
-    y = 0..10 strip (cpuFluidSim.cpp:387-394)."""
+    y = 0..10 strip (cpuFluidSim.cpp:387-394).  Leading (member) axes
+    broadcast."""
     if rows <= 0:
         return u, v, dye
-    h = u.shape[0]
+    h = u.shape[-2]
     ys = torch.arange(h, device=u.device)[:, None]
     mask = (ys >= rows).to(u.dtype)
     return u * mask, v * mask, dye * mask[None]
@@ -442,3 +462,173 @@ def render_frame(dye: Tensor, pos, intense, radius, active) -> Tensor:
     h, w = dye.shape[-2], dye.shape[-1]
     alpha = torch.full((1, h, w), 255, dtype=torch.uint8, device=dye.device)
     return torch.cat([rgb, alpha], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Batched ops: B independent members (models/ensemble.py)
+# ---------------------------------------------------------------------------
+#
+# Fields carry a leading member axis: u, v (B, H, W), dye and packs
+# (B, C, H, W).  The scalars that differ per member are host arrays with a
+# leading B (dt (B,), coefficients (B, C) or (B,), positions (B, 2)).  Each
+# op runs the single op above on each member: these are the plain versions
+# of the batched kernels, and member i equals the single op on member i
+# bit for bit.  ``params`` (the kernels' device copy of the scalars,
+# ``ops/member_params.py``) is accepted and unused.
+
+
+def member_vec(x, n: int) -> np.ndarray:
+    """(n,) float32 from a host scalar or a length-n host vector."""
+    v = f32_vec(x)
+    if v.shape[0] == 1:
+        return np.repeat(v, n)
+    if v.shape[0] != n:
+        raise ValueError(f"expected {n} per-member values, got {v.shape[0]}")
+    return v
+
+
+def member_rows(x, n: int, k: int) -> np.ndarray:
+    """(n, k) float32 from a (k,) row shared by every member or (n, k)."""
+    a = np.asarray(x, np.float32)
+    if a.ndim == 1:
+        a = np.broadcast_to(a, (n, a.shape[0]))
+    if a.shape != (n, k):
+        raise ValueError(f"expected ({n}, {k}) per-member values, got {a.shape}")
+    return a
+
+
+def _stacked(results):
+    """[per-member result tuples] -> tuple of stacked tensors."""
+    return tuple(torch.stack(list(parts)) for parts in zip(*results))
+
+
+def advect_velocity_batched(u, v, dt, decay_rate, *, return_stats: bool = False,
+                            params=None):
+    """:func:`advect_velocity` of each member; dt (B,); stats (B, 2)."""
+    del params
+    dt = member_vec(dt, u.shape[0])
+    out = _stacked(advect_velocity(u[i], v[i], dt[i], decay_rate, return_stats=True)
+                   for i in range(u.shape[0]))
+    return out if return_stats else out[:2]
+
+
+def advect_dye_batched(dye, u, v, dt, decay_rate, *, params=None, out=None):
+    """:func:`advect_dye` of each member; ``out`` (B, C, H, W)
+    (:func:`check_out_planes`), for example ``pack[:, 2:5]``."""
+    del params
+    if out is not None:
+        check_out_planes(out, dye.shape, dye, u, v)
+    dt = member_vec(dt, u.shape[0])
+    res = torch.stack([advect_dye(dye[i], u[i], v[i], dt[i], decay_rate)
+                       for i in range(u.shape[0])])
+    return res if out is None else out.copy_(res)
+
+
+def _confinement_batched(fn, u, v, dt, vorticity, out):
+    if out is not None:
+        check_out_planes(out, (u.shape[0], 2) + tuple(u.shape[1:]), u, v)
+    dt = member_vec(dt, u.shape[0])
+    res = torch.stack([torch.stack(fn(u[i], v[i], dt[i], vorticity))
+                       for i in range(u.shape[0])])
+    out = res if out is None else out.copy_(res)
+    return out[:, 0], out[:, 1]
+
+
+def vorticity_confinement_gpu_batched(u, v, dt, vorticity, *, params=None, out=None):
+    """:func:`vorticity_confinement_gpu` of each member; ``out``
+    (B, 2, H, W) receives u' and v' (the step's ``pack[:, 0:2]``)."""
+    del params
+    return _confinement_batched(vorticity_confinement_gpu, u, v, dt, vorticity, out)
+
+
+def vorticity_confinement_cpu_batched(u, v, dt, vorticity, *, params=None, out=None):
+    """:func:`vorticity_confinement_cpu` of each member (``out`` as the gpu
+    variant's)."""
+    del params
+    return _confinement_batched(vorticity_confinement_cpu, u, v, dt, vorticity, out)
+
+
+def diffuse_batched(fields, dt, diffusion, iters: int, *, params=None):
+    """:func:`diffuse` of each member's (C, H, W) fields with its own
+    coefficient, ``diffusion`` (B,)."""
+    del params
+    n = fields.shape[0]
+    dt, k = member_vec(dt, n), member_vec(diffusion, n)
+    return torch.stack([diffuse(fields[i], dt[i], k[i], iters) for i in range(n)])
+
+
+def diffuse_multi_batched(fields, dt, coeffs, iters: int, *, params=None):
+    """:func:`diffuse_multi` of each member; ``coeffs`` (B, C)."""
+    del params
+    n, c = fields.shape[:2]
+    dt, coeffs = member_vec(dt, n), member_rows(coeffs, n, c)
+    return torch.stack([diffuse_multi(fields[i], dt[i], coeffs[i], iters)
+                        for i in range(n)])
+
+
+def diffuse_multi_splat_batched(fields, dt, coeffs, iters: int, amps, last, radius,
+                                *, params=None):
+    """:func:`diffuse_multi_splat` of each member; ``coeffs`` and ``amps``
+    (B, C), ``last`` (B, 2)."""
+    del params
+    n, c = fields.shape[:2]
+    dt, coeffs = member_vec(dt, n), member_rows(coeffs, n, c)
+    amps, last = member_rows(amps, n, c), member_rows(last, n, 2)
+    return torch.stack([diffuse_multi_splat(fields[i], dt[i], coeffs[i], iters, amps[i],
+                                            last[i], radius) for i in range(n)])
+
+
+def _splat_batched(fn, u, v, dye, cur, last, dt, force_scale, radius, color):
+    n = u.shape[0]
+    cur, last, color = member_rows(cur, n, 2), member_rows(last, n, 2), member_rows(color, n, 3)
+    dt, fs = member_vec(dt, n), member_vec(force_scale, n)
+    return _stacked(fn(u[i], v[i], dye[i], cur[i], last[i], dt[i], fs[i], radius, color[i])
+                    for i in range(n))
+
+
+def splat_cpu_batched(u, v, dye, cur, last, dt, force_scale, radius, color):
+    """:func:`splat_cpu` of each member; cur, last (B, 2), dt and
+    force_scale (B,), color (B, 3)."""
+    return _splat_batched(splat_cpu, u, v, dye, cur, last, dt, force_scale, radius, color)
+
+
+def splat_gpu_batched(u, v, dye, cur, last, dt, force_scale, radius, color):
+    """:func:`splat_gpu` of each member (arguments as :func:`splat_cpu_batched`)."""
+    return _splat_batched(splat_gpu, u, v, dye, cur, last, dt, force_scale, radius, color)
+
+
+def pressure_project_batched(u, v, iters: int, half: bool, *, return_stats: bool = False):
+    """:func:`pressure_project` of each member; stats (B, 2)."""
+    out = _stacked(pressure_project(u[i], v[i], iters, half, return_stats=True)
+                   for i in range(u.shape[0]))
+    return out if return_stats else out[:3]
+
+
+def pressure_project_mg_batched(u, v, cycles: int, *, tol: float = 0.0,
+                                max_cycles: int = 8, half: bool = True,
+                                return_stats: bool = False):
+    """Multigrid projection of each member, as the single step composes it
+    on the plain ops: :func:`divergence`, :func:`pressure_solve_mg`,
+    :func:`project`.  With ``tol`` each member runs its own V-cycles, as a
+    vmapped while-loop leaves a converged member as it is."""
+    def one(i):
+        p = pressure_solve_mg(divergence(u[i], v[i], half), cycles, tol=tol,
+                              max_cycles=max_cycles)
+        u2, v2, st = project(u[i], v[i], p, return_stats=True)
+        return u2, v2, p, st
+
+    out = _stacked(one(i) for i in range(u.shape[0]))
+    return out if return_stats else out[:3]
+
+
+def cycle_color_batched(palette, press_time) -> np.ndarray:
+    """(B, 3) float32 :func:`cycle_color` of each member's press time, with
+    its float32 operations on (B,) arrays."""
+    pal = np.asarray(palette, np.float32)
+    n = pal.shape[0]
+    pt = f32_vec(press_time)
+    it = np.floor(pt)
+    frac = (pt - it).astype(np.float32)
+    i0 = it.astype(np.int64) % n
+    i1 = (it.astype(np.int64) + 1) % n
+    return pal[i0] * (F(1) - frac)[:, None] + pal[i1] * frac[:, None]
