@@ -26,12 +26,15 @@
 // near the cell and hit L1/L2.  The velocity mode also emits
 // [max|u'|, max|v'|] into stats[0..1] (zeroed here on the stream first).
 //
-// H1 also takes a batch of independent members (ensembles, the analog of
-// the JAX package's vmap): member b = blockIdx.z (and every gridDim.z
-// after it) reads its planes at b times each array's member stride, its dt
-// and decay from row b of a device array when one is given, and reduces
-// into stats[2b..2b+1].  A single call is the case B = 1 with the scalars
-// by value.
+// H1 and H8 also take a batch of independent members (ensembles, the
+// analog of the JAX package's vmap): member b = blockIdx.z (and every
+// gridDim.z after it) reads its planes at b times each array's member
+// stride, its dt and decay from row b of a device array when one is given,
+// and reduces into stats[2b..2b+1].  H8 decides each member's quiet branch
+// from that member's own bound bound[2b..2b+1] and dt, as the vmapped
+// lax.cond of the JAX package becomes a per-member select.  A single call
+// is the case B = 1 with the scalars by value; it compiles without the
+// member loop (the BATCH template flag).
 #include <stdint.h>
 
 #include "fluid_common.cuh"
@@ -148,37 +151,69 @@ __global__ void advect_kernel(Planes planes, int c, const float* __restrict__ u,
   }
 }
 
-// bound: the device-side [max|u|, max|v|] (null when fast_path is 0).
-template <bool DYE>
+// bound: the device-side [max|u|, max|v|] of each member, 2 floats a member
+// (null when fast_path is 0).
+template <bool DYE, bool BATCH>
 __global__ void advect_packed_kernel(Planes planes, int c,
                                      const float* __restrict__ u,
                                      const float* __restrict__ v,
                                      const float* __restrict__ bound,
                                      float* __restrict__ stats, int h, int w,
-                                     float dt, float decay, int fast_path) {
-  // uniform across the grid: realized displacement under one cell
-  const bool quiet =
-      fast_path && bound[0] * dt < 1.f && bound[1] * dt < 1.f;
+                                     float dt, float decay, int fast_path,
+                                     Members m) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  float mu = 0.f, mv = 0.f;
-  if (x < w && y < h)
-    advect_cell<DYE>(planes, c, u, v, h, w, x, y, dt, decay,
-                     quiet ? 0u : 3u, DYE && !quiet, mu, mv);
-  if (!DYE && stats != nullptr) fluid_block_max2_atomic(mu, mv, stats);
+  const int nb = BATCH ? m.nb : 1;
+  // one member at a time
+#pragma unroll 1
+  for (int b = BATCH ? blockIdx.z : 0; b < nb; b += BATCH ? gridDim.z : 1) {
+    Planes p = planes;
+    if (BATCH) {
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        if (ch < c) {
+          p.in[ch] += b * m.in;
+          p.out[ch] += b * m.out;
+        }
+      }
+    }
+    float bdt = dt, bdecay = decay;
+    if (BATCH && m.prm != nullptr) {
+      bdt = m.prm[static_cast<size_t>(b) * m.prm_stride];
+      bdecay = m.prm[static_cast<size_t>(b) * m.prm_stride + 1];
+    }
+    // uniform across the member's blocks: realized displacement under one cell
+    const bool quiet =
+        fast_path && bound[2 * b] * bdt < 1.f && bound[2 * b + 1] * bdt < 1.f;
+    float mu = 0.f, mv = 0.f;
+    if (x < w && y < h)
+      advect_cell<DYE>(p, c, u + b * m.u, v + b * m.v, h, w, x, y, bdt, bdecay,
+                       quiet ? 0u : 3u, DYE && !quiet, mu, mv);
+    if (!DYE && stats != nullptr) {
+      fluid_block_max2_atomic(mu, mv, stats + 2 * b);
+      if (BATCH) __syncthreads();  // the block max's slots, before the next member
+    }
+  }
 }
 
+// [max|u|, max|v|] of each member into out[2b..2b+1] (zeroed first)
+template <bool BATCH>
 __global__ void vel_bound_kernel(const float* __restrict__ u,
                                  const float* __restrict__ v,
-                                 float* __restrict__ out, int h, int w) {
+                                 float* __restrict__ out, int h, int w, Members m) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  float a = 0.f, b = 0.f;
-  if (x < w && y < h) {
-    a = fabsf(u[y * w + x]);
-    b = fabsf(v[y * w + x]);
+  const int nb = BATCH ? m.nb : 1;
+#pragma unroll 1
+  for (int b = BATCH ? blockIdx.z : 0; b < nb; b += BATCH ? gridDim.z : 1) {
+    float a = 0.f, c = 0.f;
+    if (x < w && y < h) {
+      a = fabsf(u[b * m.u + y * w + x]);
+      c = fabsf(v[b * m.v + y * w + x]);
+    }
+    fluid_block_max2_atomic(a, c, out + 2 * b);
+    if (BATCH) __syncthreads();
   }
-  fluid_block_max2_atomic(a, b, out);
 }
 
 // fields: c <= 3 planes (f0..f2, outputs o0..o2) of member 0.  dye != 0
@@ -218,42 +253,59 @@ FLUID_API int fluid_advect(const float* f0, const float* f1, const float* f2,
 }
 
 // As fluid_advect, over bf16-rounded taps (channels 0 and 1) unless the
-// step is quiet.  fast_path != 0 enables the quiet branch, decided from
-// bound (a device [max|u|, max|v|]) or, when bound is null, from the
-// maxima of u and v, reduced into scratch (2 floats) first.
+// member's step is quiet.  fast_path != 0 enables the quiet branch, decided
+// from bound (device [max|u|, max|v|], 2 floats a member) or, when bound is
+// null, from the maxima of each member's u and v, reduced into scratch (2
+// floats a member) first.  nb, in_ms, out_ms, u_ms, v_ms, prm, prm_stride:
+// the members, as fluid_advect's.
 FLUID_API int fluid_advect_packed(const float* f0, const float* f1,
                                   const float* f2, float* o0, float* o1,
                                   float* o2, const float* u, const float* v,
                                   const float* bound, float* scratch,
                                   float* stats, int c, int h, int w, int dye,
-                                  int fast_path, float dt, float decay,
+                                  int fast_path, float dt, float decay, int nb,
+                                  long long in_ms, long long out_ms, long long u_ms,
+                                  long long v_ms, const float* prm, int prm_stride,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c < 1 || c > 3 || h < 1 || w < 1) return cudaErrorInvalidValue;
+  if (c < 1 || c > 3 || h < 1 || w < 1 || nb < 1) return cudaErrorInvalidValue;
+  if (prm != nullptr && prm_stride < 2) return cudaErrorInvalidValue;
   Planes planes = {{f0, f1, f2}, {o0, o1, o2}};
+  const Members m = {nb, in_ms, out_ms, u_ms, v_ms, prm, prm_stride};
   const dim3 block(FLUID_BX, FLUID_BY);
-  const dim3 grid = fluid_grid2d(h, w);
+  const dim3 grid = fluid_grid2d(h, w, fluid_grid_z(nb));
+  const bool batch = nb > 1 || prm != nullptr;
+  cudaError_t e;
   if (!fast_path) {
     bound = nullptr;
   } else if (bound == nullptr) {
     if (scratch == nullptr) return cudaErrorInvalidValue;
-    cudaError_t e = cudaMemsetAsync(scratch, 0, 2 * sizeof(float), s);
+    e = cudaMemsetAsync(scratch, 0, 2 * sizeof(float) * nb, s);
     if (e != cudaSuccess) return e;
-    vel_bound_kernel<<<grid, block, 0, s>>>(u, v, scratch, h, w);
+    if (batch)
+      vel_bound_kernel<true><<<grid, block, 0, s>>>(u, v, scratch, h, w, m);
+    else
+      vel_bound_kernel<false><<<grid, block, 0, s>>>(u, v, scratch, h, w, m);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     bound = scratch;
   }
-  if (dye) {
-    advect_packed_kernel<true><<<grid, block, 0, s>>>(
-        planes, c, u, v, bound, nullptr, h, w, dt, decay, fast_path);
-  } else {
-    if (stats != nullptr) {
-      cudaError_t e = cudaMemsetAsync(stats, 0, 2 * sizeof(float), s);
-      if (e != cudaSuccess) return e;
-    }
-    advect_packed_kernel<false><<<grid, block, 0, s>>>(
-        planes, c, u, v, bound, stats, h, w, dt, decay, fast_path);
+  float* st = dye ? nullptr : stats;
+  if (st != nullptr) {
+    e = cudaMemsetAsync(st, 0, 2 * sizeof(float) * nb, s);
+    if (e != cudaSuccess) return e;
   }
+  if (dye && batch)
+    advect_packed_kernel<true, true><<<grid, block, 0, s>>>(
+        planes, c, u, v, bound, st, h, w, dt, decay, fast_path, m);
+  else if (dye)
+    advect_packed_kernel<true, false><<<grid, block, 0, s>>>(
+        planes, c, u, v, bound, st, h, w, dt, decay, fast_path, m);
+  else if (batch)
+    advect_packed_kernel<false, true><<<grid, block, 0, s>>>(
+        planes, c, u, v, bound, st, h, w, dt, decay, fast_path, m);
+  else
+    advect_packed_kernel<false, false><<<grid, block, 0, s>>>(
+        planes, c, u, v, bound, st, h, w, dt, decay, fast_path, m);
   return cudaGetLastError();
 }

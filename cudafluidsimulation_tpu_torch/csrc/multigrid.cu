@@ -52,6 +52,14 @@
 // plane is a quarter of the fine one and each of its values serves up to 16
 // fine cells from L1.
 //
+// Batches (ensembles, the analog of the JAX package's vmap): a launch takes
+// nb members, member b = blockIdx.z (and every gridDim.z after it), u and v
+// at b times their own member strides (the planes of a (B, 5, H, W) pack),
+// every other fine plane at b * h * w, the coarse planes (rhs_c, e_c) at
+// b * (h / 2) * (w / 2) and stats at 2b.  Every member runs the same
+// sweeps, so no scalar differs between members.  A single call compiles
+// without the member loop (BATCH false).
+//
 // Restriction and prolongation need even extents, and tiles of even height
 // and width on an even origin (48 x 112), so each 2x2 block lies in one
 // tile, also in a clipped last tile; the wrapper checks the extents.
@@ -86,6 +94,8 @@ struct MgBurst {
   float* stats;         // MG_PROJECT: [max|u'|, max|v'|], or null
   int h, w, tile_h, tile_w, depth, halo, start, tail, half;
   float omega;
+  int nb;                // members
+  long long u_ms, v_ms;  // member strides (floats) of u and v
 };
 
 // The prolonged correction at fine cell (y, x) of a (2 hc, 2 wc) level.
@@ -145,9 +155,8 @@ __device__ __forceinline__ void mg_restrict_tile(float* __restrict__ rhs_c,
     }
 }
 
-__global__ void __launch_bounds__(BURST_THREADS, 2)
-mg_burst_kernel(MgBurst k) {
-  extern __shared__ float4 smem4[];
+// One member's burst.
+__device__ __forceinline__ void mg_burst_member(MgBurst k, float4* smem4) {
   const int h = k.h, w = k.w, halo = k.halo;
   const BurstTile t = burst_tile(h, w, k.tile_h, k.tile_w, halo);
   const int st = t.stride;
@@ -286,9 +295,48 @@ mg_burst_kernel(MgBurst k) {
   if (k.stats != nullptr) fluid_block_max2_atomic(mu, mv, k.stats);
 }
 
+template <bool BATCH>
+__global__ void __launch_bounds__(BURST_THREADS, 2)
+mg_burst_kernel(MgBurst k) {
+  extern __shared__ float4 smem4[];
+  if (!BATCH) {
+    mg_burst_member(k, smem4);
+    return;
+  }
+  const size_t hw = static_cast<size_t>(k.h) * k.w;
+  const size_t hwc = static_cast<size_t>(k.h >> 1) * (k.w >> 1);
+  // one member at a time, the body's shape opaque (fluid_opaque)
+#pragma unroll 1
+  for (int b = blockIdx.z; b < k.nb; b += gridDim.z) {
+    MgBurst m = k;
+    m.u = fluid_shift(k.u, b * k.u_ms);
+    m.v = fluid_shift(k.v, b * k.v_ms);
+    m.p_in = fluid_shift(k.p_in, b * hw);
+    m.e_c = fluid_shift(k.e_c, b * hwc);
+    m.rhs_in = fluid_shift(k.rhs_in, b * hw);
+    m.rhs_out = fluid_shift(k.rhs_out, b * hw);
+    m.p_out = fluid_shift(k.p_out, b * hw);
+    m.res_out = fluid_shift(k.res_out, b * hw);
+    m.rhs_c = fluid_shift(k.rhs_c, b * hwc);
+    m.u2 = fluid_shift(k.u2, b * hw);
+    m.v2 = fluid_shift(k.v2, b * hw);
+    m.stats = fluid_shift(k.stats, 2 * static_cast<size_t>(b));
+    m.h = fluid_opaque(k.h);
+    m.w = fluid_opaque(k.w);
+    m.tile_h = fluid_opaque(k.tile_h);
+    m.tile_w = fluid_opaque(k.tile_w);
+    m.depth = fluid_opaque(k.depth);
+    m.halo = fluid_opaque(k.halo);
+    mg_burst_member(m, smem4);
+    __syncthreads();  // shared memory, before the next member's fill
+  }
+}
+
 // (u, v, p_in, e_c, rhs_in) -> (rhs_out, p_out, res_out, rhs_c, u2, v2,
 // stats); null where the start or the tail does not use it.  scratch: an
-// (h, w) plane, used when nbursts >= 2.  tile_h x tile_w: a block's output
+// (h, w) plane a member, used when nbursts >= 2.  nb members, u and v at
+// b * u_ms and b * v_ms floats, the other planes at their own size times b
+// (mg_burst_kernel).  tile_h x tile_w: a block's output
 // tile; depths: nbursts host ints, each >= 1 (ops/jacobi_cuda.py
 // plan_bursts, kind "smooth" for the store tail, "smooth_res" for the
 // others).  The first burst takes the start; the later ones load the p
@@ -301,10 +349,10 @@ FLUID_API int fluid_mg_smooth(const float* u, const float* v, const float* p_in,
                               float* rhs_c, float* u2, float* v2, float* stats,
                               float* scratch, int h, int w, int tile_h,
                               int tile_w, const int* depths, int nbursts,
-                              int start, int tail, int half, float omega,
-                              void* stream) {
+                              int start, int tail, int half, float omega, int nb,
+                              long long u_ms, long long v_ms, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (h < 1 || w < 1 || tile_h < 1 || tile_w < 1 || nbursts < 1 ||
+  if (h < 1 || w < 1 || tile_h < 1 || tile_w < 1 || nbursts < 1 || nb < 1 ||
       depths == nullptr || p_out == nullptr || start < MG_LOAD ||
       start > MG_FROM_UV || tail < MG_STORE || tail > MG_PROJECT)
     return cudaErrorInvalidValue;
@@ -326,14 +374,17 @@ FLUID_API int fluid_mg_smooth(const float* u, const float* v, const float* p_in,
     const size_t bytes = burst_smem_bytes(3, h, w, tile_h, tile_w, halo);
     if (bytes > smem) smem = bytes;
   }
-  cudaError_t e = burst_allow_smem(mg_burst_kernel, smem);
+  const bool batch = nb > 1;
+  auto kernel = batch ? mg_burst_kernel<true> : mg_burst_kernel<false>;
+  cudaError_t e = burst_allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   if (tail == MG_PROJECT && stats != nullptr) {
-    e = cudaMemsetAsync(stats, 0, 2 * sizeof(float), s);
+    e = cudaMemsetAsync(stats, 0, 2 * sizeof(float) * nb, s);
     if (e != cudaSuccess) return e;
   }
   MgBurst k = {u, v, p_in, e_c, rhs_in, rhs_out, p_out, res_out, rhs_c, u2, v2,
-               stats, h, w, tile_h, tile_w, 0, 0, start, tail, half, omega};
+               stats, h, w, tile_h, tile_w, 0, 0, start, tail, half, omega,
+               nb, u_ms, v_ms};
   for (int j = 0; j < nbursts; ++j) {
     const int last = j == nbursts - 1;
     MgBurst b = k;
@@ -347,11 +398,98 @@ FLUID_API int fluid_mg_smooth(const float* u, const float* v, const float* p_in,
     if (!last) b.tail = MG_STORE;
     b.halo = b.depth + (b.tail != MG_STORE ? 1 : 0);
     b.p_out = ((nbursts - 1 - j) % 2 == 0) ? p_out : scratch;
-    mg_burst_kernel<<<burst_grid(h, w, tile_h, tile_w), dim3(32, BURST_NY),
-                      burst_smem_bytes(3, h, w, tile_h, tile_w, b.halo), s>>>(b);
+    kernel<<<burst_grid(h, w, tile_h, tile_w, fluid_grid_z(nb)), dim3(32, BURST_NY),
+             burst_smem_bytes(3, h, w, tile_h, tile_w, b.halo), s>>>(b);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     k.p_in = b.p_out;
   }
   return cudaSuccess;
 }
+
+// -- the stopping test's reduction ------------------------------------------------
+//
+// mean(res**2) of each of nb planes of n cells, in an order that depends on
+// neither nb nor the device: pass 1 gives each MS_CHUNK-cell chunk of a
+// plane a block, whose thread t adds the squares of cells t, t + MS_THREADS,
+// ... of the chunk in turn from 0, and whose threads' sums meet in a tree
+// (s[t] += s[t + off], off = MS_THREADS / 2, ..., 1); pass 2 adds a plane's
+// chunk sums the same way in one block and divides by n.  The plain version
+// (ops/multigrid.py mean_square) runs the same additions, so the two agree
+// bit for bit, and a member of a batch gets the value of its single plane.
+// (PyTorch's own reduction splits a plane across blocks by the shape of the
+// whole call, so a batched mean may round otherwise than a single one.)
+// Bound by bytes: n floats read once a plane.
+#define MS_THREADS 256
+#define MS_PER_THREAD 32
+#define MS_CHUNK (MS_THREADS * MS_PER_THREAD)
+
+// s[0..MS_THREADS) -> s[0], the tree of the plain version
+__device__ __forceinline__ float ms_tree(float* s, float v) {
+  const int t = threadIdx.x;
+  s[t] = v;
+  __syncthreads();
+#pragma unroll
+  for (int off = MS_THREADS / 2; off > 0; off >>= 1) {
+    if (t < off) s[t] = s[t] + s[t + off];
+    __syncthreads();
+  }
+  const float total = s[0];
+  __syncthreads();  // s, before the next member's sums
+  return total;
+}
+
+__global__ void __launch_bounds__(MS_THREADS)
+mean_square_chunks(const float* __restrict__ r, float* __restrict__ part, long long n,
+                   int nchunks, int nb, long long ms) {
+  __shared__ float s[MS_THREADS];
+  // members beyond the grid's y extent (65535): a block walks y
+  for (int b = blockIdx.y; b < nb; b += gridDim.y) {
+    const float* x = r + b * ms;
+    const long long base = static_cast<long long>(blockIdx.x) * MS_CHUNK + threadIdx.x;
+    float acc = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < MS_PER_THREAD; ++j) {
+      const long long i = base + static_cast<long long>(j) * MS_THREADS;
+      if (i < n) {
+        const float v = __ldg(x + i);
+        acc = acc + v * v;
+      }
+    }
+    const float total = ms_tree(s, acc);
+    if (threadIdx.x == 0) part[static_cast<size_t>(b) * nchunks + blockIdx.x] = total;
+  }
+}
+
+__global__ void __launch_bounds__(MS_THREADS)
+mean_square_planes(const float* __restrict__ part, float* __restrict__ out, long long n,
+                   int nchunks, int nb) {
+  __shared__ float s[MS_THREADS];
+  for (int b = blockIdx.y; b < nb; b += gridDim.y) {
+    const float* q = part + static_cast<size_t>(b) * nchunks;
+    float acc = 0.f;
+    for (int i = threadIdx.x; i < nchunks; i += MS_THREADS) acc = acc + q[i];
+    const float total = ms_tree(s, acc);
+    if (threadIdx.x == 0) out[b] = total / static_cast<float>(n);
+  }
+}
+
+// r: nb planes of n floats, member b at b * ms; part: nb * ceil(n / MS_CHUNK)
+// floats of scratch; out: nb floats, mean(r_b**2).
+FLUID_API int fluid_mean_square(const float* r, float* part, float* out, int nb, long long n,
+                                long long ms, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nb < 1 || n < 1 || r == nullptr || part == nullptr || out == nullptr)
+    return cudaErrorInvalidValue;
+  const long long chunks = (n + MS_CHUNK - 1) / MS_CHUNK;
+  if (chunks > 0x7fffffff) return cudaErrorInvalidValue;
+  const int nchunks = static_cast<int>(chunks);
+  mean_square_chunks<<<dim3(nchunks, fluid_grid_z(nb)), MS_THREADS, 0, s>>>(
+      r, part, n, nchunks, nb, ms);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  mean_square_planes<<<dim3(1, fluid_grid_z(nb)), MS_THREADS, 0, s>>>(part, out, n,
+                                                                       nchunks, nb);
+  return cudaGetLastError();
+}
+

@@ -36,7 +36,9 @@
 //
 // H5 replaces jacobi_pallas.py divergence -> _divergence_kernel and
 // project -> _project_kernel: one launch each (fluid_divergence,
-// fluid_project), bound by bytes.
+// fluid_project), bound by bytes; a batch of members in one launch, member
+// b on grid z with u and v at their own member strides (the planes of a
+// (B, 5, H, W) pack), compiled apart from the single call (BATCH).
 #include "burst.cuh"
 #include "projection.cuh"
 
@@ -293,30 +295,42 @@ FLUID_API int fluid_pressure_solve(const float* div, float* p, float* scratch,
   return pressure_bursts(k, depths, nbursts, p, scratch, nullptr, s);
 }
 
+template <bool BATCH>
 __global__ void divergence_kernel(const float* __restrict__ u,
                                   const float* __restrict__ v,
                                   float* __restrict__ div, int h, int w,
-                                  int half) {
+                                  int half, int nb, long long u_ms, long long v_ms) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= w || y >= h) return;
-  div[y * w + x] = fluid_divergence_at(u, v, x, y, h, w, half);
+  const int n = BATCH ? nb : 1;
+#pragma unroll 1
+  for (int b = BATCH ? blockIdx.z : 0; b < n; b += BATCH ? gridDim.z : 1)
+    div[static_cast<size_t>(b) * h * w + y * w + x] =
+        fluid_divergence_at(u + b * u_ms, v + b * v_ms, x, y, h, w, half);
 }
 
+// nb members: member b's u and v at b * u_ms and b * v_ms floats, its div
+// at b * h * w.
 FLUID_API int fluid_divergence(const float* u, const float* v, float* div,
-                               int h, int w, int half, void* stream) {
+                               int h, int w, int half, int nb, long long u_ms,
+                               long long v_ms, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (h < 1 || w < 1) return cudaErrorInvalidValue;
-  divergence_kernel<<<fluid_grid2d(h, w), dim3(FLUID_BX, FLUID_BY), 0, s>>>(
-      u, v, div, h, w, half);
+  if (h < 1 || w < 1 || nb < 1) return cudaErrorInvalidValue;
+  const dim3 grid = fluid_grid2d(h, w, fluid_grid_z(nb)), block(FLUID_BX, FLUID_BY);
+  if (nb > 1)
+    divergence_kernel<true><<<grid, block, 0, s>>>(u, v, div, h, w, half, nb, u_ms, v_ms);
+  else
+    divergence_kernel<false><<<grid, block, 0, s>>>(u, v, div, h, w, half, 1, 0, 0);
   return cudaGetLastError();
 }
 
-// stats may be null (no velocity bound)
+// stats may be null (no velocity bound); nb members: u and v at b * u_ms,
+// b * v_ms floats, p, u2 and v2 at b * h * w, stats at 2b.
 FLUID_API int fluid_project(const float* p, const float* u, const float* v,
                             float* u2, float* v2, float* stats, int h, int w,
-                            void* stream) {
-  if (h < 1 || w < 1) return cudaErrorInvalidValue;
-  return fluid_launch_project(p, u, v, u2, v2, stats, h, w,
+                            int nb, long long u_ms, long long v_ms, void* stream) {
+  if (h < 1 || w < 1 || nb < 1) return cudaErrorInvalidValue;
+  return fluid_launch_project(p, u, v, u2, v2, stats, h, w, nb, u_ms, v_ms,
                               static_cast<cudaStream_t>(stream));
 }

@@ -38,6 +38,15 @@
 // (74 x 128), 79 KB a block: 2 blocks an SM.  Other radii (design_taps can
 // give any, rank <= 3) run sep_kernel_generic, the first design: taps in
 // shared memory, one output a thread in the x pass.
+//
+// Batches (ensembles, the analog of the JAX package's vmap): a launch takes
+// n = B x C planes, plane z = blockIdx.z (and every gridDim.z after it),
+// member z / C and channel z % C.  The taps are the channel's, the same for
+// every member (designed at the nominal dt and coefficients), so they stay
+// by value; each member's splat amplitudes and centre come from its row of
+// a device array [amp[0..C), lx, ly] (ops/member_params.py diffuse_cols's
+// columns from 2C on).  A single call (one member, everything by value)
+// compiles without the plane loop (BATCH false).
 #include <stdint.h>
 
 #include "fluid_common.cuh"
@@ -60,6 +69,29 @@ __device__ __forceinline__ int hs_reflect(int i, int n) {
   int m = i % p;
   if (m < 0) m += p;
   return m < n ? m : p - 1 - m;
+}
+
+// One plane's splat: amplitude and centre.
+struct SepSplat {
+  float amp, lx, ly;
+};
+
+// The members' splat rows in device memory: row b (prm_stride floats apart)
+// holds [amp[0..chans), lx, ly].
+struct SepRows {
+  const float* prm;
+  int prm_stride, chans;
+};
+
+// Plane z's channel and splat: from its member's row when rows are given,
+// else from the launch parameters (no splat, or a single member's).
+__device__ __forceinline__ SepSplat sep_plane_splat(const SepParams& p, const SepRows& r,
+                                                    int z, int& ch) {
+  const int b = z / r.chans;
+  ch = z - b * r.chans;
+  if (r.prm == nullptr) return {p.amp[ch], p.lx, p.ly};
+  const float* row = r.prm + static_cast<size_t>(b) * r.prm_stride;
+  return {row[ch], row[r.chans], row[r.chans + 1]};
 }
 
 // val + amp * exp(-d2 / radius) at (ox, oy), as the plain splat tail
@@ -149,18 +181,15 @@ __device__ __forceinline__ void sep_rank_pass(const float* tile, float* xs,
   _Pragma("unroll") for (int i = 0; i < 2 * (2 * (R) + 1); ++i)      \
       t[i] = p.taps[ch][(OFF) + i];
 
+// One plane of the unrolled kernel: f, o the plane's input and output, ch
+// its channel (taps), sp its splat.
 template <int RANK, int R0, int R1, int R2>
-__global__ void __launch_bounds__(SEP_THREADS, 2)
-sep_kernel_unrolled(const float* __restrict__ in, float* __restrict__ out,
-                    int h, int w, const __grid_constant__ SepParams p) {
+__device__ __forceinline__ void sep_plane_unrolled(const float* __restrict__ f,
+                                                   float* __restrict__ o, int h, int w,
+                                                   int ch, SepSplat sp, const SepParams& p,
+                                                   float* tile, float* xs) {
   using D = SepDesign<RANK, R0, R1, R2>;
   constexpr int RM = D::rmax, EW = D::ew, EH = D::eh;
-  extern __shared__ float4 smem4[];
-  float* tile = reinterpret_cast<float*>(smem4);  // EH x EW, reflected
-  float* xs = tile + EH * EW;                     // EH x SEP_TW x sums
-  const int ch = blockIdx.z;
-  const size_t plane = static_cast<size_t>(ch) * h * w;
-  const float* f = in + plane;
   const int x0 = blockIdx.x * SEP_TW, y0 = blockIdx.y * SEP_TH;
   const int lane = threadIdx.x, warp = threadIdx.y;
   // the tile + ring: a warp takes every 8th row, a lane every 32nd column;
@@ -207,7 +236,7 @@ sep_kernel_unrolled(const float* __restrict__ in, float* __restrict__ out,
   }
 
   const int ox = x0 + 4 * lane;
-  const float amp = p.amp[ch], lx = p.lx, ly = p.ly, radius = p.radius;
+  const float radius = p.radius;
   const bool splat = p.splat;
 #pragma unroll
   for (int q = 0; q < SEP_Q; ++q) {
@@ -215,16 +244,43 @@ sep_kernel_unrolled(const float* __restrict__ in, float* __restrict__ out,
     if (oy >= h) break;
     float v[4];
 #pragma unroll
-    for (int o = 0; o < 4; ++o)
-      v[o] = splat ? sep_splat(acc[q][o], amp, lx, ly, radius, ox + o, oy) : acc[q][o];
-    float* dst = out + plane + static_cast<size_t>(oy) * w + ox;
+    for (int k = 0; k < 4; ++k)
+      v[k] = splat ? sep_splat(acc[q][k], sp.amp, sp.lx, sp.ly, radius, ox + k, oy) : acc[q][k];
+    float* dst = o + static_cast<size_t>(oy) * w + ox;
     if (ox + 3 < w && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
       *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
     } else {
 #pragma unroll
-      for (int o = 0; o < 4; ++o)
-        if (ox + o < w) dst[o] = v[o];
+      for (int k = 0; k < 4; ++k)
+        if (ox + k < w) dst[k] = v[k];
     }
+  }
+}
+
+// n planes (BATCH) or the C channels of one call, plane z at z * h * w.
+template <int RANK, int R0, int R1, int R2, bool BATCH>
+__global__ void __launch_bounds__(SEP_THREADS, 2)
+sep_kernel_unrolled(const float* __restrict__ in, float* __restrict__ out,
+                    int h, int w, const __grid_constant__ SepParams p, SepRows rows, int n) {
+  using D = SepDesign<RANK, R0, R1, R2>;
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);  // EH x EW, reflected
+  float* xs = tile + D::eh * D::ew;               // EH x SEP_TW x sums
+  const size_t hw = static_cast<size_t>(h) * w;
+  if (!BATCH) {
+    const int ch = blockIdx.z;
+    sep_plane_unrolled<RANK, R0, R1, R2>(in + ch * hw, out + ch * hw, h, w, ch,
+                                         {p.amp[ch], p.lx, p.ly}, p, tile, xs);
+    return;
+  }
+  // one plane at a time, the body's shape opaque (fluid_opaque)
+#pragma unroll 1
+  for (int z = blockIdx.z; z < n; z += gridDim.z) {
+    int ch;
+    const SepSplat sp = sep_plane_splat(p, rows, z, ch);
+    sep_plane_unrolled<RANK, R0, R1, R2>(in + z * hw, out + z * hw, fluid_opaque(h),
+                                         fluid_opaque(w), ch, sp, p, tile, xs);
+    __syncthreads();  // the tile, before the next plane's fill
   }
 }
 
@@ -234,19 +290,17 @@ sep_kernel_unrolled(const float* __restrict__ in, float* __restrict__ out,
 #define GEN_TH 32  // tile height: 4 rows for each of the FLUID_BY thread rows
 #define GEN_ROWS (GEN_TH / FLUID_BY)
 
-__global__ void __launch_bounds__(FLUID_BX * FLUID_BY)
-sep_kernel_generic(const float* __restrict__ in, float* __restrict__ out, int h,
-                   int w, SepParams p) {
-  extern __shared__ float smem[];
+// One plane of the generic kernel (f, o, ch, sp as sep_plane_unrolled's).
+__device__ __forceinline__ void sep_plane_generic(const float* __restrict__ f,
+                                                  float* __restrict__ o, int h, int w,
+                                                  int ch, SepSplat sp, const SepParams& p,
+                                                  float* smem) {
   const int R = p.rmax;
   const int ew = GEN_TW + 2 * R;
   const int eh = GEN_TH + 2 * R;
   float* tile = smem;                // eh x ew field at reflected coords
   float* xsum = tile + eh * ew;      // eh x GEN_TW x-pass sums
   float* stap = xsum + eh * GEN_TW;  // this channel's taps
-  const int ch = blockIdx.z;
-  const size_t plane = static_cast<size_t>(ch) * h * w;
-  const float* f = in + plane;
   const int x0 = blockIdx.x * GEN_TW;
   const int y0 = blockIdx.y * GEN_TH;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -297,8 +351,30 @@ sep_kernel_generic(const float* __restrict__ in, float* __restrict__ out, int h,
   for (int q = 0; q < GEN_ROWS; ++q) {
     const int oy = y0 + threadIdx.y + q * FLUID_BY;
     if (ox >= w || oy >= h) continue;
-    out[plane + static_cast<size_t>(oy) * w + ox] =
-        p.splat ? sep_splat(acc[q], p.amp[ch], p.lx, p.ly, p.radius, ox, oy) : acc[q];
+    o[static_cast<size_t>(oy) * w + ox] =
+        p.splat ? sep_splat(acc[q], sp.amp, sp.lx, sp.ly, p.radius, ox, oy) : acc[q];
+  }
+}
+
+template <bool BATCH>
+__global__ void __launch_bounds__(FLUID_BX * FLUID_BY)
+sep_kernel_generic(const float* __restrict__ in, float* __restrict__ out, int h,
+                   int w, const __grid_constant__ SepParams p, SepRows rows, int n) {
+  extern __shared__ float smem[];
+  const size_t hw = static_cast<size_t>(h) * w;
+  if (!BATCH) {
+    const int ch = blockIdx.z;
+    sep_plane_generic(in + ch * hw, out + ch * hw, h, w, ch, {p.amp[ch], p.lx, p.ly}, p,
+                      smem);
+    return;
+  }
+#pragma unroll 1
+  for (int z = blockIdx.z; z < n; z += gridDim.z) {
+    int ch;
+    const SepSplat sp = sep_plane_splat(p, rows, z, ch);
+    sep_plane_generic(in + z * hw, out + z * hw, fluid_opaque(h), fluid_opaque(w), ch, sp, p,
+                      smem);
+    __syncthreads();  // the tile and the taps, before the next plane's fill
   }
 }
 
@@ -311,19 +387,27 @@ static cudaError_t sep_allow_smem(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// in, out: (c, h, w) planes, c <= SEP_MAX_CHANNELS.  taps: c rows of
-// tap_len host floats, each row the ranks' x taps then y taps in rank
-// order; radii: rank host ints; amp: c host floats or null (no splat).
+// in, out: n (h, w) planes, plane z of member z / chans and channel
+// z % chans; chans <= SEP_MAX_CHANNELS.  taps: chans rows of tap_len host
+// floats, each row the ranks' x taps then y taps in rank order; radii: rank
+// host ints.  splat != 0 adds the splat tail: with prm null (then n ==
+// chans, one member) amp holds chans host floats and lx, ly the centre;
+// with prm, member b's [amp[0..chans), lx, ly] is row b of that device
+// array (prm_stride floats apart).  Without the splat, prm and amp may be
+// null at any n.  radius: the splat's, by value.
 // unrolled: 1 runs sep_kernel_unrolled, which needs rank 2 and radii (5, 4);
 // 0 runs sep_kernel_generic.
-FLUID_API int fluid_sep_diffuse(const float* in, float* out, int c, int h,
+FLUID_API int fluid_sep_diffuse(const float* in, float* out, int n, int chans, int h,
                                 int w, const float* taps, int tap_len,
                                 const int* radii, int rank, const float* amp,
-                                float lx, float ly, float radius, int unrolled,
+                                float lx, float ly, float radius, int splat,
+                                const float* prm, int prm_stride, int unrolled,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c < 1 || c > SEP_MAX_CHANNELS || h < 1 || w < 1 || rank < 1 ||
-      rank > SEP_MAX_RANK || tap_len > SEP_MAX_TAPS)
+  if (chans < 1 || chans > SEP_MAX_CHANNELS || n < chans || n % chans != 0 || h < 1 ||
+      w < 1 || rank < 1 || rank > SEP_MAX_RANK || tap_len > SEP_MAX_TAPS)
+    return cudaErrorInvalidValue;
+  if (splat && (prm == nullptr ? n != chans || amp == nullptr : prm_stride < chans + 2))
     return cudaErrorInvalidValue;
   SepParams p = {};
   int len = 0;
@@ -336,32 +420,36 @@ FLUID_API int fluid_sep_diffuse(const float* in, float* out, int c, int h,
   if (len != tap_len) return cudaErrorInvalidValue;
   p.rank = rank;
   p.ntaps = tap_len;
-  for (int ch = 0; ch < c; ++ch) {
+  for (int ch = 0; ch < chans; ++ch) {
     for (int i = 0; i < tap_len; ++i) p.taps[ch][i] = taps[ch * tap_len + i];
-    p.amp[ch] = amp != nullptr ? amp[ch] : 0.f;
+    p.amp[ch] = splat && prm == nullptr ? amp[ch] : 0.f;  // prm's rows otherwise
   }
-  p.splat = amp != nullptr;
+  p.splat = splat != 0;
   p.lx = lx;
   p.ly = ly;
   p.radius = radius;
+  const SepRows rows = {prm, prm_stride, chans};
+  const bool batch = prm != nullptr || n > chans;
   cudaError_t e;
   if (unrolled) {
     if (rank != 2 || radii[0] != 5 || radii[1] != 4) return cudaErrorInvalidValue;
-    auto kernel = sep_kernel_unrolled<2, 5, 4, 0>;
+    auto kernel = batch ? sep_kernel_unrolled<2, 5, 4, 0, true>
+                        : sep_kernel_unrolled<2, 5, 4, 0, false>;
     const size_t smem = SepDesign<2, 5, 4, 0>::smem;
     e = sep_allow_smem(kernel, smem);
     if (e != cudaSuccess) return e;
-    const dim3 grid((w + SEP_TW - 1) / SEP_TW, (h + SEP_TH - 1) / SEP_TH, c);
-    kernel<<<grid, dim3(32, SEP_WARPS), smem, s>>>(in, out, h, w, p);
+    const dim3 grid((w + SEP_TW - 1) / SEP_TW, (h + SEP_TH - 1) / SEP_TH, fluid_grid_z(n));
+    kernel<<<grid, dim3(32, SEP_WARPS), smem, s>>>(in, out, h, w, p, rows, n);
     return cudaGetLastError();
   }
   const int eh = GEN_TH + 2 * p.rmax;
   const int ew = GEN_TW + 2 * p.rmax;
   const size_t smem = sizeof(float) * (static_cast<size_t>(eh) * ew +
                                        static_cast<size_t>(eh) * GEN_TW + tap_len);
-  e = sep_allow_smem(sep_kernel_generic, smem);
+  auto kernel = batch ? sep_kernel_generic<true> : sep_kernel_generic<false>;
+  e = sep_allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((w + GEN_TW - 1) / GEN_TW, (h + GEN_TH - 1) / GEN_TH, c);
-  sep_kernel_generic<<<grid, dim3(FLUID_BX, FLUID_BY), smem, s>>>(in, out, h, w, p);
+  const dim3 grid((w + GEN_TW - 1) / GEN_TW, (h + GEN_TH - 1) / GEN_TH, fluid_grid_z(n));
+  kernel<<<grid, dim3(FLUID_BX, FLUID_BY), smem, s>>>(in, out, h, w, p, rows, n);
   return cudaGetLastError();
 }

@@ -5,11 +5,19 @@ The JAX package runs a parameter sweep as one vmapped rollout
 is written out: the state's fields carry a leading member axis, and each
 stage of a step is one call for the whole batch
 (``models/pipelines.make_batched_step``), one launch (or one burst plan)
-of H1–H4 on the card with each member's scalars in device memory.  The
-rollout is a Python loop over time, as ``Simulation.run`` is.  The fast
-modes and multigrid pressure have no batched kernels yet and raise
-``NotImplementedError`` on the kernels (``ops.cuda_kernels.check_batched``);
-``backend="ref"`` runs every configuration on the plain ops.
+of the kernels on the card with each member's scalars in device memory:
+H1–H4 for the parity step, H8 and H7 for the fast modes, H5 and H6 for
+multigrid pressure, where each member stops at its own V-cycle count as
+under a vmapped while-loop.  The rollout is a Python loop over time, as
+``Simulation.run`` is.  ``backend="ref"`` runs every configuration on the
+plain ops (and ignores the ``fast_*`` flags).
+
+One departure from the JAX package: its fast diffusion ignores the traced
+coefficient, so a ``fast_diffuse`` viscosity sweep there quietly runs
+every member at the config's viscosity.  Here, where the separable taps
+are in effect, :func:`make_diffusion_sweep_run` raises ``ValueError``
+before the first step unless every member's viscosity and dt are the
+config's (``ops.fastdiffuse.make_batched_ops``).
 """
 
 from __future__ import annotations
@@ -58,9 +66,10 @@ def run_batched(step_fn, state: FluidState, impulses: Impulse) -> FluidState:
     return state
 
 
-def make_ensemble_run(config: FluidConfig):
-    """``run(batched_state, (n, T) impulses) -> batched final state``."""
-    step = make_batched_step(config)
+def make_ensemble_run(config: FluidConfig, ops=None):
+    """``run(batched_state, (n, T) impulses) -> batched final state``;
+    ``ops``: a batched namespace (``get_batched_ops(config)`` when None)."""
+    step = make_batched_step(config, ops)
 
     def run(state: FluidState, impulses: Impulse) -> FluidState:
         return run_batched(step, state, impulses)
@@ -68,16 +77,23 @@ def make_ensemble_run(config: FluidConfig):
     return run
 
 
-def make_diffusion_sweep_run(config: FluidConfig):
+def make_diffusion_sweep_run(config: FluidConfig, ops=None):
     """A rollout with a velocity-diffusion coefficient per member:
     ``run(diffusions (n,), batched_state, (n, T) impulses) -> batched
     final``.  Channels 0-1 (velocity) of every diffusion op take the
     member's coefficient, the dye the config's (the JAX package's
-    ``_step_with_diffusion``)."""
-    ops = get_batched_ops(config)
+    ``_step_with_diffusion``).  ``ops``: a batched namespace
+    (``get_batched_ops(config)`` when None).  Where the namespace's
+    diffusion is the fast taps' (its ``check_sweep``), a member whose
+    viscosity, or a step whose dt, is not the config's raises
+    ``ValueError`` before the first step."""
+    ops = get_batched_ops(config) if ops is None else ops
+    check_sweep = getattr(ops, "check_sweep", None)
 
     def run(diffusions, state: FluidState, impulses: Impulse) -> FluidState:
         diffusions = np.asarray(diffusions, np.float32).reshape(-1)
+        if check_sweep is not None:
+            check_sweep(impulses.dt, diffusions)
         return run_batched(make_batched_step(config, ops, diffusions), state, impulses)
 
     return run

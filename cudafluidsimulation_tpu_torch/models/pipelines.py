@@ -224,11 +224,13 @@ def make_batched_step(config: FluidConfig, ops=None, diffusions=None) -> StepFn:
         pack = (torch.empty((n, 5) + tuple(u.shape[1:]), dtype=torch.float32,
                             device=u.device) if five else None)
 
-        # -- advection, then vorticity confinement (make_step's order)
-        u, v, _ = ops.advect_velocity(u, v, dt, config.decay_rate, return_stats=True,
-                                      params=adv_p)
-        dye = ops.advect_dye(dye, u, v, dt, config.decay_rate, params=adv_p,
-                             out=None if pack is None else pack[:, 2:])
+        # -- advection (each member's quiet branch of the fast modes from
+        #    its own bound, as make_step's), then vorticity confinement
+        u, v, vstats = ops.advect_velocity(u, v, dt, config.decay_rate,
+                                           vel_stats=state.vel_stats, return_stats=True,
+                                           params=adv_p)
+        dye = ops.advect_dye(dye, u, v, dt, config.decay_rate, vel_stats=vstats,
+                             params=adv_p, out=None if pack is None else pack[:, 2:])
         confine = ops.vorticity_confinement_cpu if cpu_variant else ops.vorticity_confinement_gpu
         u, v = confine(u, v, dt, config.vorticity, params=adv_p,
                        out=None if pack is None else pack[:, :2])

@@ -32,6 +32,10 @@ one launch of the same kernel, member b on grid z; each member's dt and
 decay come from its row of the step's device parameters
 (``ops/member_params.py``) and its bound goes to row b of ``stats``
 (B, 2).  The single entries are the case B = 1, with dt and decay by value.
+**H8 batched** (the same functions with ``packed=True``): the same over
+bf16-rounded taps, each member's quiet branch decided on the device from
+its own row of ``vel_stats`` (B, 2) and its own dt, so a batch may mix
+quiet and driven members and the step still reads nothing back.
 
 The wrappers take the plain versions (``ops.ref``, ``ops.advect_packed``)
 for CPU tensors and launch the kernel or raise for CUDA tensors.
@@ -56,10 +60,13 @@ KERNEL = Kernel("advect", _ADVECT)
 # the same entry, B members a launch (its own launch count)
 BATCHED = Kernel("advect", _ADVECT)
 # fluid_advect_packed(f0, f1, f2, o0, o1, o2, u, v, bound, scratch, stats,
-#                     c, h, w, dye, fast_path, dt, decay, stream)
-PACKED = Kernel("advect", {
-    "fluid_advect_packed": [_P] * 11 + [_I] * 5 + [_F, _F, _P],
-})
+#                     c, h, w, dye, fast_path, dt, decay, nb, in_ms, out_ms,
+#                     u_ms, v_ms, prm, prm_stride, stream)
+_PACKED = {"fluid_advect_packed": [_P] * 11 + [_I] * 5 + [_F, _F, _I] + [_L] * 4
+           + [_P, _I, _P]}
+PACKED = Kernel("advect", _PACKED)
+# the same entry, B members a launch (its own launch count)
+PACKED_BATCHED = Kernel("advect", _PACKED)
 
 
 def _ptrs(tensors):
@@ -105,7 +112,29 @@ def _launch_packed(planes, outs, u, v, vel_stats, stats, dt, decay_rate,
             scratch.data_ptr() if scratch is not None else None,
             stats.data_ptr() if stats is not None else None,
             len(planes), h, w, int(dye), int(bool(fast_path)),
-            float(ref.f32(dt)), ref.decay_factor(dt, decay_rate), stream_of(u))
+            float(ref.f32(dt)), ref.decay_factor(dt, decay_rate), 1, 0, 0, 0, 0, None, 0,
+            stream_of(u))
+
+
+def _launch_packed_batched(planes, outs, in_ms, out_ms, u, v, vel_stats, stats, params,
+                           dye: bool, fast_path: bool):
+    """H8 over the B members: as :func:`_launch_batched`, with each member's
+    quiet branch decided from its row of ``vel_stats`` (B, 2), or from its
+    maxima reduced first when ``vel_stats`` is None."""
+    n, h, w = u.shape
+    member_params.check(params, n, member_params.ADVECT_COLS, u.device)
+    if vel_stats is not None:
+        check_f32("vel_stats", vel_stats, (n, 2))
+    scratch = (torch.empty((n, 2), dtype=torch.float32, device=u.device)
+               if fast_path and vel_stats is None else None)
+    with torch.cuda.device(u.device):
+        PACKED_BATCHED.launch(
+            "fluid_advect_packed", *_ptrs(planes), *_ptrs(outs), u.data_ptr(), v.data_ptr(),
+            vel_stats.data_ptr() if vel_stats is not None else None,
+            scratch.data_ptr() if scratch is not None else None,
+            stats.data_ptr() if stats is not None else None,
+            len(planes), h, w, int(dye), int(bool(fast_path)), 0.0, 0.0, n, in_ms, out_ms,
+            u.stride(0), v.stride(0), params.data_ptr(), params.stride(0), stream_of(u))
 
 
 def _given(*tensors):
@@ -176,13 +205,21 @@ def _params(params, dt, decay_rate, device):
             if params is None else params)
 
 
-def advect_velocity_batched(u, v, dt, decay_rate, *, return_stats: bool = False,
-                            params=None):
+def advect_velocity_batched(u, v, dt, decay_rate, *, vel_stats=None,
+                            return_stats: bool = False, params=None, packed: bool = False,
+                            fast_path: bool = True):
     """H1 over B members: u, v (B, H, W) (each plane contiguous), dt (B,);
-    ``ops.ref.advect_velocity_batched`` semantics.  ``params``: the step's
-    (B, >= 2) device rows [dt, decay] (``ops/member_params.py``), uploaded
-    here when None.  Returns u', v' (B, H, W) [and stats (B, 2)]."""
-    if not on_card(u, v):
+    ``ops.ref.advect_velocity_batched`` semantics, or with ``packed`` H8's,
+    ``ops.advect_packed.advect_velocity_batched`` (``fast_path`` and each
+    member's row of ``vel_stats`` (B, 2) steer its quiet branch).
+    ``params``: the step's (B, >= 2) device rows [dt, decay]
+    (``ops/member_params.py``), uploaded here when None.  Returns u', v'
+    (B, H, W) [and stats (B, 2)]."""
+    if not on_card(*_given(u, v, vel_stats)):
+        if packed:
+            return advect_packed.advect_velocity_batched(
+                u, v, dt, decay_rate, vel_stats=vel_stats, return_stats=return_stats,
+                fast_path=fast_path)
         return ref.advect_velocity_batched(u, v, dt, decay_rate,
                                            return_stats=return_stats)
     n, h, w = u.shape
@@ -193,20 +230,31 @@ def advect_velocity_batched(u, v, dt, decay_rate, *, return_stats: bool = False,
     stats = torch.empty((n, 2), dtype=torch.float32, device=u.device)
     if u.stride(0) != v.stride(0):
         raise ValueError(f"u, v: member strides differ ({u.stride(0)}, {v.stride(0)})")
-    _launch_batched([u[0], v[0]], [out[0, 0], out[1, 0]], u.stride(0), h * w, u, v, stats,
-                    params, dye=False)
+    planes, outs = [u[0], v[0]], [out[0, 0], out[1, 0]]
+    if packed:
+        _launch_packed_batched(planes, outs, u.stride(0), h * w, u, v, vel_stats, stats,
+                               params, dye=False, fast_path=fast_path)
+    else:
+        _launch_batched(planes, outs, u.stride(0), h * w, u, v, stats, params, dye=False)
     return (out[0], out[1], stats) if return_stats else (out[0], out[1])
 
 
-def advect_dye_batched(dye, u, v, dt, decay_rate, *, params=None, out=None):
+def advect_dye_batched(dye, u, v, dt, decay_rate, *, vel_stats=None, params=None, out=None,
+                       packed: bool = False, fast_path: bool = True):
     """H1's dye fade over B members: dye (B, C, H, W) and u, v (B, H, W),
     each plane contiguous (the dye of a step is channels 2-4 of the last
-    one's pack); ``ops.ref.advect_dye_batched`` semantics.  ``out``
+    one's pack); ``ops.ref.advect_dye_batched`` semantics, or with
+    ``packed`` H8's (``ops.advect_packed.advect_dye_batched``, each
+    member's quiet branch from its row of ``vel_stats``).  ``out``
     (B, C, H, W) with contiguous planes (``ref.check_out_planes``), for
     example channels 2-4 of the step's (B, 5, H, W) pack."""
     if out is not None:
-        ref.check_out_planes(out, dye.shape, dye, u, v)
-    if not on_card(*_given(dye, u, v, out)):
+        ref.check_out_planes(out, dye.shape, dye, u, v, vel_stats)
+    if not on_card(*_given(dye, u, v, vel_stats, out)):
+        if packed:
+            return advect_packed.advect_dye_batched(dye, u, v, dt, decay_rate,
+                                                    vel_stats=vel_stats,
+                                                    fast_path=fast_path, out=out)
         return ref.advect_dye_batched(dye, u, v, dt, decay_rate, out=out)
     n, h, w = u.shape
     check_planes("u", u, (n, h, w))
@@ -216,6 +264,10 @@ def advect_dye_batched(dye, u, v, dt, decay_rate, *, params=None, out=None):
     check_planes("dye", dye, (n, dye.shape[1], h, w))
     params = _params(params, ref.member_vec(dt, n), decay_rate, u.device)
     out = torch.empty_like(dye) if out is None else out
-    _launch_batched(list(dye[0]), list(out[0]), dye.stride(0), out.stride(0), u, v,
-                    None, params, dye=True)
+    if packed:
+        _launch_packed_batched(list(dye[0]), list(out[0]), dye.stride(0), out.stride(0), u, v,
+                               vel_stats, None, params, dye=True, fast_path=fast_path)
+    else:
+        _launch_batched(list(dye[0]), list(out[0]), dye.stride(0), out.stride(0), u, v,
+                        None, params, dye=True)
     return out

@@ -24,6 +24,12 @@ The counterpart of the JAX package's ``advect_pallas._advect_core_packed``
 The JAX package's fallback to the f32 core when its VMEM plan splits the
 channels, and its ``max_displacement`` clamp, are TPU artifacts and are
 not copied: the port's backtrace is unbounded.
+
+The ``*_batched`` functions are the plain versions of batched H8 (B
+independent members, ``models/ensemble.py``): the single op on each member,
+with the member's own dt and ``vel_stats`` row, so each member takes the
+exact or the rounded branch from its own bound, as a vmapped ``lax.cond``
+selects per member.
 """
 
 from __future__ import annotations
@@ -87,3 +93,37 @@ def advect_dye(dye: Tensor, u: Tensor, v: Tensor, dt, decay_rate, *,
         exact = ref.advect_dye(dye, u, v, dt, decay_rate)
         res = torch.where(quiet(u, v, dt, vel_stats), exact, res)
     return ref._into(out, res)
+
+
+def _member_stats(vel_stats, i):
+    return None if vel_stats is None else vel_stats[i]
+
+
+def advect_velocity_batched(u: Tensor, v: Tensor, dt, decay_rate, *, vel_stats=None,
+                            return_stats: bool = False, fast_path: bool = True,
+                            params=None):
+    """:func:`advect_velocity` of each member: u, v (B, H, W), dt (B,),
+    ``vel_stats`` (B, 2) or None; stats (B, 2).  ``params`` (the kernel's
+    device rows) is accepted and unused."""
+    del params
+    dt = ref.member_vec(dt, u.shape[0])
+    out = ref._stacked(advect_velocity(u[i], v[i], dt[i], decay_rate, return_stats=True,
+                                       vel_stats=_member_stats(vel_stats, i),
+                                       fast_path=fast_path)
+                       for i in range(u.shape[0]))
+    return out if return_stats else out[:2]
+
+
+def advect_dye_batched(dye: Tensor, u: Tensor, v: Tensor, dt, decay_rate, *,
+                       vel_stats=None, fast_path: bool = True, params=None,
+                       out=None) -> Tensor:
+    """:func:`advect_dye` of each member: dye (B, C, H, W); ``out`` as in
+    ``ref.advect_dye_batched``."""
+    del params
+    if out is not None:
+        ref.check_out_planes(out, dye.shape, dye, u, v, vel_stats)
+    dt = ref.member_vec(dt, u.shape[0])
+    res = torch.stack([advect_dye(dye[i], u[i], v[i], dt[i], decay_rate,
+                                  vel_stats=_member_stats(vel_stats, i), fast_path=fast_path)
+                       for i in range(u.shape[0])])
+    return res if out is None else out.copy_(res)

@@ -2,7 +2,7 @@
 
 ``get_batched_ops(config)`` is the same for ensembles: ops over B
 independent members (``ops/ref.py``'s ``*_batched`` plain versions, and on
-``cuda`` the batched entries of H1–H4).
+``cuda`` the batched entries of H1–H8, ``cuda_kernels.batched_overrides``).
 
 ``get_ops(config)`` returns a namespace with every op of the JAX package's
 ``ops/backend.py``, multigrid's ``pressure_solve_mg`` included.  ``ref`` is
@@ -92,14 +92,11 @@ def batched_namespace(overrides=None) -> types.SimpleNamespace:
 
 
 def get_batched_ops(config: FluidConfig) -> types.SimpleNamespace:
-    """The batched op namespace for ``config``.  A configuration that would
-    run the kernels raises ``NotImplementedError`` where its step needs a
-    kernel without a batch dimension (``cuda_kernels.check_batched``), and
-    ``RuntimeError`` without a CUDA device, as :func:`get_ops`."""
-    from cudafluidsimulation_tpu_torch.ops import cuda_kernels
-
-    if config.backend != "ref":
-        cuda_kernels.check_batched(config)
+    """The batched op namespace for ``config``; raises ``RuntimeError``
+    for ``cuda`` and ``auto`` without a CUDA device, as :func:`get_ops`.
+    ``ref`` ignores the ``fast_*`` flags."""
     if config.resolve_backend() == "ref":
         return batched_namespace()
-    return batched_namespace(cuda_kernels.batched_overrides())
+    from cudafluidsimulation_tpu_torch.ops import cuda_kernels
+
+    return batched_namespace(cuda_kernels.batched_overrides(config))

@@ -25,9 +25,11 @@ Pallas kernels.
   prolongation ride the ends' launches (``ops/multigrid.py``).
 
 Ensembles (``models/ensemble.py``) run B members a launch on the batched
-entries of H1–H4 (``batched_overrides``); the other kernels have no batch
-dimension yet, so :func:`check_batched` refuses a configuration that needs
-them.
+entries of H1–H8 (``batched_overrides(config)``): H8 and H7 where the fast
+modes ask for them (H7 where ``fastdiffuse.worthwhile`` grants it, with
+every member's dt and coefficients held to the nominal ones), and H5 and
+H6 under ``pressure_project_mg`` for multigrid pressure, each member
+stopping at its own V-cycle count.
 
 The TPU kernels' planners (strip heights, bursts, column tiles, padding)
 have no counterpart: every kernel here takes any grid shape, so every
@@ -74,31 +76,21 @@ def overrides(config: FluidConfig) -> dict:
     return out
 
 
-def check_batched(config: FluidConfig) -> None:
-    """Raise ``NotImplementedError`` for an ensemble whose step needs a
-    kernel without a batch dimension: the fast modes (H7, H8) and
-    multigrid pressure (H5, H6).  Nothing falls back to a loop or to the
-    CPU; ``backend="ref"`` runs every configuration on the plain ops."""
-    lacking = []
-    if config.fast_dye or config.fast_velocity or config.fast_diffuse:
-        lacking.append("the fast modes (H7 separable diffusion, H8 bf16-tap advection)")
-    if config.pressure_solver == "multigrid":
-        lacking.append("multigrid pressure (H5 divergence/projection, H6 smoother ends)")
-    if lacking:
-        raise NotImplementedError(
-            "ensembles on the CUDA kernels run H1-H4 only; " + " and ".join(lacking)
-            + " need kernels that have no batch dimension yet (H5-H8; ROADMAP queue 1, "
-            "item 10). "
-            "Use backend='ref' for the plain ops.")
+def batched_overrides(config: FluidConfig) -> dict:
+    """Batched op name -> kernel wrapper over B members: H1 or H8 advection
+    (``fast_velocity``, ``fast_dye``), H2, H3 or H7 diffusion
+    (``fast_diffuse``, where granted), H4, and H5 with H6 under the
+    multigrid hook."""
+    from cudafluidsimulation_tpu_torch.ops import (
+        advect_cuda, fastdiffuse, jacobi_cuda, multigrid, multigrid_cuda)
 
-
-def batched_overrides() -> dict:
-    """Batched op name -> kernel wrapper (H1–H4 over B members)."""
-    from cudafluidsimulation_tpu_torch.ops import advect_cuda, jacobi_cuda
-
-    return {
-        "advect_velocity": advect_cuda.advect_velocity_batched,
-        "advect_dye": advect_cuda.advect_dye_batched,
+    out = {
+        "advect_velocity": functools.partial(
+            advect_cuda.advect_velocity_batched, packed=config.fast_velocity,
+            fast_path=config.advect_fast_path),
+        "advect_dye": functools.partial(
+            advect_cuda.advect_dye_batched, packed=config.fast_dye,
+            fast_path=config.advect_fast_path),
         "vorticity_confinement_gpu": functools.partial(
             jacobi_cuda.vorticity_confinement_batched, variant="gpu"),
         "vorticity_confinement_cpu": functools.partial(
@@ -107,4 +99,10 @@ def batched_overrides() -> dict:
         "diffuse_multi": jacobi_cuda.diffuse_multi_batched,
         "diffuse_multi_splat": jacobi_cuda.diffuse_multi_splat_batched,
         "pressure_project": jacobi_cuda.pressure_project_batched,
+        "pressure_project_mg": functools.partial(
+            multigrid.pressure_project_mg_batched, ends=multigrid_cuda.ENDS_BATCHED),
     }
+    if config.fast_diffuse:
+        # {} where the taps would not undercut the exact sweeps
+        out.update(fastdiffuse.make_batched_ops(config))
+    return out

@@ -25,6 +25,12 @@ truncation error as the interior.
   designed at the config's nominal dt and coefficients; unlike the JAX
   package, which ignores a call's ``dt``, ``coeffs`` and ``iters``, the
   port raises ``ValueError`` when they differ from the nominal ones.
+- :func:`sep_apply_batched` and :func:`make_batched_ops` are the same for
+  ensembles (B members, the batched H7 wrapper): the same taps for every
+  member, each member's dt and coefficients checked against the nominal
+  ones.  So a fast-diffusion viscosity sweep raises where the JAX package
+  quietly runs every member at the config's viscosity; the port designs no
+  taps per member, which would give other results than JAX's.
 
 Reference anchors: cpuFluidSim.cpp:182-233 (operator + swap),
 GPUFluidSim.cu:316-429 (k=20), GPUFluidSim.cu:52,55 (coefficients).
@@ -246,6 +252,21 @@ def sep_apply(fields: torch.Tensor, taps: np.ndarray, radii,
     return acc
 
 
+def sep_apply_batched(fields: torch.Tensor, taps: np.ndarray, radii, splat=None, *,
+                      params=None) -> torch.Tensor:
+    """:func:`sep_apply` of each member of (B, C, H, W) ``fields``, every
+    member with the same ``taps``; ``splat`` = (amps (B, C), last (B, 2),
+    radius) or None.  ``params`` (the kernel's device rows) is accepted and
+    unused."""
+    del params
+    n, c = fields.shape[:2]
+    if splat is None:
+        return torch.stack([sep_apply(fields[i], taps, radii) for i in range(n)])
+    amps, last = ref.member_rows(splat[0], n, c), ref.member_rows(splat[1], n, 2)
+    return torch.stack([sep_apply(fields[i], taps, radii, (amps[i], last[i], splat[2]))
+                        for i in range(n)])
+
+
 # ---------------------------------------------------------------------------
 # Namespace overrides
 # ---------------------------------------------------------------------------
@@ -265,6 +286,44 @@ def _check_nominal(what, dt, coeffs, iters, nominal_dt, nominal_coeffs,
             f"with dt={ref.f32(dt)!r}, coeffs={got.tolist()}, iters={iters}")
 
 
+def _check_members(what, dt, coeffs, iters, nominal_dt, nominal_coeffs,
+                   nominal_iters) -> None:
+    """:func:`_check_nominal` for B members: ``dt`` (B,) and ``coeffs``
+    (B, C) on the host, compared at once; the message names the first
+    member that differs."""
+    rows = np.asarray(coeffs, np.float32)
+    dts = ref.member_vec(dt, rows.shape[0])
+    if int(iters) == nominal_iters and (dts == nominal_dt).all() and (rows == nominal_coeffs).all():
+        return
+    bad = int(np.argmax((dts != nominal_dt) | (rows != nominal_coeffs).any(axis=1)))
+    _check_nominal(f"{what} (member {bad})", dts[bad], rows[bad], iters, nominal_dt,
+                   nominal_coeffs, nominal_iters)
+
+
+@functools.lru_cache(maxsize=16)
+def _design(config):
+    """(taps5, radii5, taps2, radii2) for the config's nominal velocity and
+    dye coefficients, or None where the taps would not undercut the exact
+    sweeps (:func:`worthwhile`) or the channels' radii differ."""
+    iters = config.diffusion_iters
+    a_v = config.velocity_diffusion ** 2 / config.dt
+    a_c = config.color_diffusion ** 2 / config.dt
+    if not worthwhile((a_v, a_c), iters):
+        return None
+    built = _taps_array([a_v] * 2 + [a_c] * 3, iters, rtol=2e-4)
+    built_v = _taps_array([a_v] * 2, iters, rtol=2e-4)
+    if built is None or built_v is None:
+        return None
+    return built + built_v
+
+
+def _nominal(config):
+    """(dt, the five channels' coefficients, the velocity's) in float32."""
+    return (ref.f32(config.dt),
+            ref.f32_vec([config.velocity_diffusion] * 2 + [config.color_diffusion] * 3),
+            ref.f32_vec([config.velocity_diffusion]))
+
+
 def make_ops(config, apply=None) -> dict:
     """Namespace overrides for ``config.fast_diffuse``: ``diffuse``,
     ``diffuse_multi`` and ``diffuse_multi_splat`` over kernel H7's wrapper
@@ -281,21 +340,12 @@ def make_ops(config, apply=None) -> dict:
         from cudafluidsimulation_tpu_torch.ops import fastdiffuse_cuda
 
         apply = fastdiffuse_cuda.sep_apply
+    design = _design(config)
+    if design is None:
+        return {}
+    taps5, radii5, taps2, radii2 = design
     iters = config.diffusion_iters
-    a_v = config.velocity_diffusion ** 2 / config.dt
-    a_c = config.color_diffusion ** 2 / config.dt
-    if not worthwhile((a_v, a_c), iters):
-        return {}
-    built = _taps_array([a_v] * 2 + [a_c] * 3, iters, rtol=2e-4)
-    built_v = _taps_array([a_v] * 2, iters, rtol=2e-4)
-    if built is None or built_v is None:
-        return {}
-    taps5, radii5 = built
-    taps2, radii2 = built_v
-    nominal_dt = ref.f32(config.dt)
-    coeffs5 = ref.f32_vec([config.velocity_diffusion] * 2
-                          + [config.color_diffusion] * 3)
-    coeff_v = ref.f32_vec([config.velocity_diffusion])
+    nominal_dt, coeffs5, coeff_v = _nominal(config)
 
     def diffuse(fields, dt, diffusion, iters_):
         _check_nominal("diffuse", dt, diffusion, iters_, nominal_dt, coeff_v,
@@ -325,4 +375,67 @@ def make_ops(config, apply=None) -> dict:
         "diffuse": diffuse,
         "diffuse_multi": diffuse_multi,
         "diffuse_multi_splat": diffuse_multi_splat,
+    }
+
+
+def make_batched_ops(config, apply=None) -> dict:
+    """:func:`make_ops` for ensembles: the batched ``diffuse``,
+    ``diffuse_multi`` and ``diffuse_multi_splat`` over the batched H7
+    wrapper (``fastdiffuse_cuda.sep_apply_batched``; ``apply`` replaces
+    it, for example :func:`sep_apply_batched`), each member blurred with
+    the same nominal taps, and ``check_sweep(dt, diffusions)``, which the
+    diffusion sweep (``models/ensemble.py``) calls before its first step.
+    Every member's dt and coefficients must be the nominal ones, or the
+    call raises ``ValueError``.  {} where :func:`make_ops` gives {}: the
+    exact batched H3 then runs each member's own coefficients."""
+    if apply is None:
+        from cudafluidsimulation_tpu_torch.ops import fastdiffuse_cuda
+
+        apply = fastdiffuse_cuda.sep_apply_batched
+    design = _design(config)
+    if design is None:
+        return {}
+    taps5, radii5, taps2, radii2 = design
+    iters = config.diffusion_iters
+    nominal_dt, coeffs5, coeff_v = _nominal(config)
+
+    def diffuse(fields, dt, diffusion, iters_, *, params=None):
+        n, c = fields.shape[:2]
+        _check_members("diffuse", dt, ref.member_vec(diffusion, n)[:, None], iters_,
+                       nominal_dt, coeff_v, iters)
+        return apply(fields, np.broadcast_to(taps2[:1], (c, taps2.shape[1])), radii2)
+
+    def diffuse_multi(fields, dt, coeffs, iters_, *, params=None):
+        c = fields.shape[1]
+        _check_members("diffuse_multi", dt, ref.member_rows(coeffs, fields.shape[0], c),
+                       iters_, nominal_dt, coeffs5[:c], iters)
+        return apply(fields, taps5[:c], radii5)
+
+    def diffuse_multi_splat(fields, dt, coeffs, iters_, amps, last, radius, *,
+                            params=None):
+        # params: the step's diffuse_cols rows; the splat's columns from 2C on
+        c = fields.shape[1]
+        _check_members("diffuse_multi_splat", dt,
+                       ref.member_rows(coeffs, fields.shape[0], c), iters_, nominal_dt,
+                       coeffs5[:c], iters)
+        return apply(fields, taps5[:c], radii5, (amps, last, radius),
+                     params=None if params is None else params[:, 2 * c:])
+
+    def check_sweep(dt, diffusions):
+        # before a sweep's first step: each member's viscosity and every
+        # step's dt must be the ones the taps were designed for
+        k, dts = ref.f32_vec(diffusions), ref.f32_vec(dt)
+        if not ((k == coeff_v[0]).all() and (dts == nominal_dt).all()):
+            raise ValueError(
+                f"fast_diffuse sweep: taps designed for the velocity diffusion "
+                f"{coeff_v[0]!r} and dt={nominal_dt!r}; called with diffusions "
+                f"{sorted(set(k.tolist()))} and dts {sorted(set(dts.tolist()))}. The taps are "
+                "not designed per member (the JAX package's fast sweep runs every member "
+                "at the nominal values); use fast_diffuse=False for a viscosity sweep")
+
+    return {
+        "diffuse": diffuse,
+        "diffuse_multi": diffuse_multi,
+        "diffuse_multi_splat": diffuse_multi_splat,
+        "check_sweep": check_sweep,
     }

@@ -54,7 +54,9 @@ replaces ``divergence`` → ``_divergence_kernel`` and ``project`` →
 reads u, v and writes div (48 MiB); the projection reads p, u, v and
 writes u', v' (80 MiB), with the velocity bound as a block max and an
 atomic max (zeroed on the stream first).  The multigrid projection
-(``ops/multigrid.py``) ends on ``project``.
+(``ops/multigrid.py``) ends on ``project``.  ``divergence_batched`` and
+``project_batched`` (``STENCIL_BATCHED``) take B members a launch, member b
+on grid z, u and v at any member stride (a (B, 5, H, W) pack's planes).
 """
 
 from __future__ import annotations
@@ -97,12 +99,14 @@ PRESSURE_BATCHED = Kernel("pressure", _PRESSURE)
 PRESSURE_SOLVE = Kernel("pressure", {
     "fluid_pressure_solve": [_P] * 3 + [_I] * 4 + [_P, _I, _P],
 })
-# fluid_divergence(u, v, div, h, w, half, stream);
-# fluid_project(p, u, v, u2, v2, stats, h, w, stream), stats may be null
-STENCIL = Kernel("pressure", {
-    "fluid_divergence": [_P] * 3 + [_I] * 3 + [_P],
-    "fluid_project": [_P] * 6 + [_I] * 2 + [_P],
-})
+# fluid_divergence(u, v, div, h, w, half, nb, u_ms, v_ms, stream);
+# fluid_project(p, u, v, u2, v2, stats, h, w, nb, u_ms, v_ms, stream),
+# stats may be null
+_STENCIL = {"fluid_divergence": [_P] * 3 + [_I] * 4 + [_L] * 2 + [_P],
+            "fluid_project": [_P] * 6 + [_I] * 3 + [_L] * 2 + [_P]}
+STENCIL = Kernel("pressure", _STENCIL)
+# the same entries, B members a launch (their own launch count)
+STENCIL_BATCHED = Kernel("pressure", _STENCIL)
 
 MAX_CHANNELS = 8  # csrc/diffuse.cu FLUID_MAX_CHANNELS: by-value parameters
 MAX_GRID_Z = 65535  # csrc/fluid_common.cuh: a block walks z beyond it
@@ -397,7 +401,7 @@ def divergence(u, v, half: bool):
     div = torch.empty_like(u)
     with torch.cuda.device(u.device):
         STENCIL.launch("fluid_divergence", u.data_ptr(), v.data_ptr(),
-                       div.data_ptr(), h, w, int(bool(half)), stream_of(u))
+                       div.data_ptr(), h, w, int(bool(half)), 1, 0, 0, stream_of(u))
     return div
 
 
@@ -416,7 +420,7 @@ def project(u, v, p, *, return_stats: bool = False):
         STENCIL.launch(
             "fluid_project", p.data_ptr(), u.data_ptr(), v.data_ptr(),
             uv2[0].data_ptr(), uv2[1].data_ptr(),
-            stats.data_ptr() if stats is not None else None, h, w,
+            stats.data_ptr() if stats is not None else None, h, w, 1, 0, 0,
             stream_of(u))
     if return_stats:
         return uv2[0], uv2[1], stats
@@ -537,3 +541,40 @@ def pressure_project_batched(u, v, iters: int, half: bool, *, return_stats: bool
             int(bool(half)), n, u.stride(0), v.stride(0), stream_of(u))
     out = (uv2[0], uv2[1], p, stats)
     return out if return_stats else out[:3]
+
+
+def divergence_batched(u, v, half: bool):
+    """H5's divergence over B members: u, v (B, H, W), each plane
+    contiguous at any member stride; ``ops.ref.divergence_batched``."""
+    if not on_card(u, v):
+        return ref.divergence_batched(u, v, half)
+    n, h, w = u.shape
+    check_planes("u", u, (n, h, w))
+    check_planes("v", v, (n, h, w))
+    div = torch.empty((n, h, w), dtype=torch.float32, device=u.device)
+    with torch.cuda.device(u.device):
+        STENCIL_BATCHED.launch("fluid_divergence", u.data_ptr(), v.data_ptr(), div.data_ptr(),
+                               h, w, int(bool(half)), n, u.stride(0), v.stride(0),
+                               stream_of(u))
+    return div
+
+
+def project_batched(u, v, p, *, return_stats: bool = False):
+    """H5's gradient subtraction over B members: u, v (B, H, W) with
+    contiguous planes, p (B, H, W) contiguous; returns (u', v'[, vel_stats
+    (B, 2)]); ``ops.ref.project_batched``."""
+    if not on_card(u, v, p):
+        return ref.project_batched(u, v, p, return_stats=return_stats)
+    n, h, w = u.shape
+    check_planes("u", u, (n, h, w))
+    check_planes("v", v, (n, h, w))
+    check_f32("p", p, (n, h, w))
+    uv2 = torch.empty((2, n, h, w), dtype=torch.float32, device=u.device)
+    stats = (torch.empty((n, 2), dtype=torch.float32, device=u.device)
+             if return_stats else None)
+    with torch.cuda.device(u.device):
+        STENCIL_BATCHED.launch(
+            "fluid_project", p.data_ptr(), u.data_ptr(), v.data_ptr(), uv2[0].data_ptr(),
+            uv2[1].data_ptr(), stats.data_ptr() if stats is not None else None, h, w, n,
+            u.stride(0), v.stride(0), stream_of(u))
+    return (uv2[0], uv2[1], stats) if return_stats else (uv2[0], uv2[1])

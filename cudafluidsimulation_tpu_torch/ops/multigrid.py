@@ -31,6 +31,18 @@ Two entry points:
 Residual-targeted stopping (``tol > 0``) needs the residual's value on the
 host: :func:`probed_tol_loop` reads ``mean(res**2)`` once per loop test, so
 a step that completes k cycles waits on the device k + 1 times.
+
+Ensembles (B independent members, ``models/ensemble.py``):
+:func:`pressure_project_mg_batched` is :func:`pressure_project_mg` over a
+namespace of batched ends (:data:`PLAIN_BATCHED`, the plain ends of each
+member, or the H6 wrappers' ``ops.multigrid_cuda.ENDS_BATCHED``), one end
+call a level each way for all members.  Its residual-targeted loop is
+:func:`probed_tol_loop` on (B,) tests, what a vmapped ``lax.while_loop``
+does: it runs until every member has stopped, a stopped member keeps its carry,
+and each member returns its own probed or completed iterate; so each member
+stops at its own cycle count and equals its single run.  It reads one (B,)
+vector a test: k + 1 reads for a step whose members complete at most k
+cycles.
 """
 
 from __future__ import annotations
@@ -53,29 +65,31 @@ OMEGA = 0.8  # damped-Jacobi smoothing weight
 
 
 def _restrict(x: torch.Tensor) -> torch.Tensor:
-    """2x2 average: strided adds, rows first, then columns."""
-    r = x[0::2, :] + x[1::2, :]
-    return (r[:, 0::2] + r[:, 1::2]) * 0.25
+    """2x2 average: strided adds, rows first, then columns (of the last two
+    axes; leading member axes broadcast)."""
+    r = x[..., 0::2, :] + x[..., 1::2, :]
+    return (r[..., 0::2] + r[..., 1::2]) * 0.25
 
 
 def bilinear_from_padded(xp: torch.Tensor) -> torch.Tensor:
     """Cell-centred bilinear (9-3-3-1) prolongation from a one-cell-padded
     coarse plane (the caller supplies the padding: clamped edges on one
-    device, exchanged halos on a sharded one)."""
-    c = xp[1:-1, 1:-1]
-    u, d = xp[:-2, 1:-1], xp[2:, 1:-1]
-    l, r = xp[1:-1, :-2], xp[1:-1, 2:]
-    ul, ur = xp[:-2, :-2], xp[:-2, 2:]
-    dl, dr = xp[2:, :-2], xp[2:, 2:]
+    device, exchanged halos on a sharded one); leading member axes
+    broadcast."""
+    c = xp[..., 1:-1, 1:-1]
+    u, d = xp[..., :-2, 1:-1], xp[..., 2:, 1:-1]
+    l, r = xp[..., 1:-1, :-2], xp[..., 1:-1, 2:]
+    ul, ur = xp[..., :-2, :-2], xp[..., :-2, 2:]
+    dl, dr = xp[..., 2:, :-2], xp[..., 2:, 2:]
     s = 1.0 / 16.0
     f00 = (9.0 * c + 3.0 * u + 3.0 * l + ul) * s  # fine (2i, 2j)
     f01 = (9.0 * c + 3.0 * u + 3.0 * r + ur) * s
     f10 = (9.0 * c + 3.0 * d + 3.0 * l + dl) * s
     f11 = (9.0 * c + 3.0 * d + 3.0 * r + dr) * s
-    h, w = c.shape
-    top = torch.stack([f00, f01], dim=-1).reshape(h, 2 * w)
-    bot = torch.stack([f10, f11], dim=-1).reshape(h, 2 * w)
-    return torch.stack([top, bot], dim=1).reshape(2 * h, 2 * w)
+    lead, (h, w) = tuple(c.shape[:-2]), c.shape[-2:]
+    top = torch.stack([f00, f01], dim=-1).reshape(lead + (h, 2 * w))
+    bot = torch.stack([f10, f11], dim=-1).reshape(lead + (h, 2 * w))
+    return torch.stack([top, bot], dim=-2).reshape(lead + (2 * h, 2 * w))
 
 
 def _prolong(x: torch.Tensor) -> torch.Tensor:
@@ -208,6 +222,21 @@ PLAIN = types.SimpleNamespace(
 )
 
 
+def _per_member(fn):
+    """``fn`` over a leading member axis: each tensor argument's member i
+    (None stays None), the other arguments as given, results stacked."""
+    def batched(*args, **kw):
+        n = next(a.shape[0] for a in args if isinstance(a, torch.Tensor))
+        pick = lambda a, i: a[i] if isinstance(a, torch.Tensor) else a  # noqa: E731
+        outs = [fn(*(pick(a, i) for a in args), **kw) for i in range(n)]
+        if isinstance(outs[0], torch.Tensor):
+            return torch.stack(outs)
+        return tuple(torch.stack(list(parts)) for parts in zip(*outs))
+
+    batched.__doc__ = f"``{fn.__name__}`` of each member, stacked."
+    return batched
+
+
 # ---------------------------------------------------------------------------
 # The V-cycle and the solves built on it
 # ---------------------------------------------------------------------------
@@ -282,8 +311,48 @@ def make_vcycle(neighbors_fn, smooth_fn=None, bottom_fn=None,
 _vcycle, _, _probe, _finish = make_vcycle(neighbors, parts=True)
 
 
-def _res_mean(r: torch.Tensor) -> torch.Tensor:
-    return torch.mean(r * r)
+# The stopping test's reduction, in the fixed order of the card's
+# ``fluid_mean_square`` (csrc/multigrid.cu): a chunk of MS_THREADS x
+# MS_PER_THREAD cells of a plane, thread t adding the squares of cells t,
+# t + MS_THREADS, ... in turn, the threads' sums meeting in a tree; then the
+# plane's chunk sums the same way, divided by the plane's cells.  The order
+# depends on nothing but the plane's size, so a member of a batch sees the
+# value of its single plane; torch.mean's own order depends on the shape of
+# the whole call.
+MS_THREADS, MS_PER_THREAD = 256, 32
+
+
+def _tree(x: torch.Tensor) -> torch.Tensor:
+    """(..., T) -> (...): s[t] += s[t + off] for off = T/2, T/4, ..., 1."""
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def _chunk_sums(x: torch.Tensor, per_thread: int) -> torch.Tensor:
+    """(..., n) -> (..., chunks): each chunk's threads' sums, from 0 in
+    turn, then their tree (cells past n add nothing: zeros)."""
+    chunk = MS_THREADS * per_thread
+    n = x.shape[-1]
+    chunks = -(-n // chunk)
+    x = F.pad(x, (0, chunks * chunk - n)).reshape(
+        tuple(x.shape[:-1]) + (chunks, per_thread, MS_THREADS))
+    acc = torch.zeros_like(x[..., 0, :])
+    for j in range(per_thread):
+        acc = acc + x[..., j, :]
+    return _tree(acc)
+
+
+def mean_square(r: torch.Tensor) -> torch.Tensor:
+    """mean(r**2) over the last two axes ((...) for (..., H, W)), summed in
+    the order of kernel ``fluid_mean_square`` (its plain version): the
+    residual-targeted loop's stopping test on every path."""
+    n = r.shape[-2] * r.shape[-1]
+    sq = (r * r).reshape(tuple(r.shape[:-2]) + (n,))
+    part = _chunk_sums(sq, MS_PER_THREAD)
+    total = _chunk_sums(part, -(-part.shape[-1] // MS_THREADS))[..., 0]
+    return total / torch.full_like(total, float(n))
 
 
 def probed_tol_loop(probe, finish, res_mean_fn, p0, first, tol, max_cycles):
@@ -294,24 +363,48 @@ def probed_tol_loop(probe, finish, res_mean_fn, p0, first, tol, max_cycles):
     float32(tol)**2 or after ``max_cycles`` completed cycles; returns the
     probed iterate when converged, else the last completed cycle's, so a
     capped run equals the fixed-count run.  Each loop test reads the
-    residual's mean on the host."""
+    residual's mean on the host, one copy.
+
+    ``res_mean_fn`` gives a 0-d tensor for one plane, or (B,) for B
+    members (iterates (B, H, W)), which the loop treats as a vmapped
+    while-loop does: it goes on while any member's test fails, a member
+    whose test has passed keeps its carry (its later cycles are computed
+    for the batch and selected away by ``torch.where`` with a mask made on
+    the device, only while the members disagree), and each member returns
+    its own probed or completed iterate."""
     p1, r1 = first
     tol2 = float(np.float32(tol) ** 2)
     pf = p0
-    rsq = float(res_mean_fn(r1))
+    rsq_dev = res_mean_fn(r1)  # each member's test, kept from where it stopped
+    rsq = rsq_dev.cpu().numpy()
     i = 0
-    while i < max_cycles and rsq >= tol2:
-        pf = finish(p1, r1)
-        p1, r1 = probe(pf)
-        rsq = float(res_mean_fn(r1))
+    while i < max_cycles and (rsq >= tol2).any():
+        pf_next = finish(p1, r1)
+        p_next, r1 = probe(pf_next)  # a stopped member's residual is never read
+        rsq_next = res_mean_fn(r1)
+        if (rsq >= tol2).all():
+            pf, p1, rsq_dev = pf_next, p_next, rsq_next
+        else:
+            active = rsq_dev >= tol2
+            m = active[:, None, None]
+            pf = pf_next if pf is None else torch.where(m, pf_next, pf)
+            p1 = torch.where(m, p_next, p1)
+            rsq_dev = torch.where(active, rsq_next, rsq_dev)
+        rsq = rsq_dev.cpu().numpy()
         i += 1
-    return p1 if rsq < tol2 else pf
+    done = rsq < tol2
+    if done.all():
+        return p1
+    if not done.any():
+        return pf
+    return torch.where((rsq_dev < tol2)[:, None, None], p1, pf)
 
 
 def run_cycles(vcycle, probe_fn, finish_fn, res_mean_fn, p, rhs, level,
                cycles, tol, max_cycles, nu1, nu2, coarse_sweeps):
     """A fixed ``cycles`` count (``tol <= 0``), or cycles until the rms
-    residual drops below ``tol`` (at most ``max_cycles``)."""
+    residual drops below ``tol`` (at most ``max_cycles``), by
+    :func:`probed_tol_loop`."""
     if tol <= 0:
         for _ in range(cycles):
             p = vcycle(p, rhs, level, nu1, nu2, coarse_sweeps)
@@ -323,8 +416,7 @@ def run_cycles(vcycle, probe_fn, finish_fn, res_mean_fn, p, rhs, level,
     def finish(q, res):
         return finish_fn(q, res, rhs, level, nu1, nu2, coarse_sweeps)
 
-    return probed_tol_loop(probe, finish, res_mean_fn, p, probe(p), tol,
-                           max_cycles)
+    return probed_tol_loop(probe, finish, res_mean_fn, p, probe(p), tol, max_cycles)
 
 
 def pressure_solve_mg(div, cycles: int = 2, nu1: int = 2, nu2: int = 2,
@@ -337,8 +429,11 @@ def pressure_solve_mg(div, cycles: int = 2, nu1: int = 2, nu2: int = 2,
     ``smoother`` None smooths with plain sweeps (the ``ref`` op); a
     namespace with ``smooth_damped`` and ``smooth_res`` (:data:`PLAIN`, or
     the H6 wrappers ``ops.multigrid_cuda.ENDS``) takes over the sweeps and
-    the pre-smooth with its residual: the same arithmetic."""
-    h, w = div.shape
+    the pre-smooth with its residual: the same arithmetic.  A batched
+    namespace (:data:`PLAIN_BATCHED`, ``ENDS_BATCHED``) solves (B, H, W)
+    members, each stopping at its own cycle count.  The stopping test is
+    the namespace's ``res_mean`` (the kernel's), else :func:`mean_square`."""
+    h, w = div.shape[-2:]
     lv = _levels(h, w)
     rhs = -div
     if smoother is None:
@@ -349,8 +444,9 @@ def pressure_solve_mg(div, cycles: int = 2, nu1: int = 2, nu2: int = 2,
             smooth_fn=lambda p, r, n: smoother.smooth_damped(p, r, n, OMEGA),
             smooth_res_fn=lambda p, r, n: smoother.smooth_res(p, r, n, OMEGA),
             parts=True)
-    return run_cycles(vc, probe, fin, _res_mean, torch.zeros_like(div), rhs,
-                      lv, cycles, tol, max_cycles, nu1, nu2, coarse_sweeps)
+    return run_cycles(vc, probe, fin, getattr(smoother, "res_mean", mean_square),
+                      torch.zeros_like(div), rhs, lv, cycles, tol, max_cycles, nu1, nu2,
+                      coarse_sweeps)
 
 
 def residual_norm(p, div) -> torch.Tensor:
@@ -391,7 +487,7 @@ def pressure_project_mg(u, v, cycles: int = 2, nu1: int = 2, nu2: int = 2,
     standalone ``project`` follows.  A grid with a single level has no
     coarse correction and runs the composition."""
     ends = PLAIN if ends is None else ends
-    h, w = u.shape
+    h, w = u.shape[-2:]
     lv = _levels(h, w)
     if lv == 1:
         p = pressure_solve_mg(ends.divergence(u, v, half), cycles, nu1, nu2,
@@ -423,7 +519,27 @@ def pressure_project_mg(u, v, cycles: int = 2, nu1: int = 2, nu2: int = 2,
 
     # the loop returns p0 only when it may complete no cycle
     p0 = torch.zeros_like(rhs) if max_cycles < 1 else None
-    p = probed_tol_loop(probe, finish, lambda pending: _res_mean(pending[0]),
+    res_mean = getattr(ends, "res_mean", mean_square)
+    p = probed_tol_loop(probe, finish, lambda pending: res_mean(pending[0]),
                         p0, (p, (res, rhs_c)), tol, max_cycles)
     out = ends.project(u, v, p, return_stats=return_stats)
     return (out[0], out[1], p) + tuple(out[2:])
+
+
+PLAIN_BATCHED = types.SimpleNamespace(
+    **{name: _per_member(fn) for name, fn in vars(PLAIN).items()})
+
+
+def pressure_project_mg_batched(u, v, cycles: int = 2, nu1: int = 2, nu2: int = 2,
+                                coarse_sweeps: int = 20, tol: float = 0.0,
+                                max_cycles: int = 8, half: bool = True,
+                                return_stats: bool = False, ends=None):
+    """:func:`pressure_project_mg` of B members, u and v (B, H, W), over a
+    namespace of batched ends (:data:`PLAIN_BATCHED` when None, or
+    ``ops.multigrid_cuda.ENDS_BATCHED``): returns (u', v', p[, vel_stats
+    (B, 2)]).  The fixed-cycle path is the single one's end calls on all
+    members at once; with ``tol > 0`` each member stops at its own cycle
+    count (:func:`probed_tol_loop`)."""
+    return pressure_project_mg(u, v, cycles, nu1, nu2, coarse_sweeps, tol, max_cycles,
+                               half, return_stats,
+                               ends=PLAIN_BATCHED if ends is None else ends)

@@ -502,20 +502,23 @@ def _stacked(results):
     return tuple(torch.stack(list(parts)) for parts in zip(*results))
 
 
-def advect_velocity_batched(u, v, dt, decay_rate, *, return_stats: bool = False,
-                            params=None):
-    """:func:`advect_velocity` of each member; dt (B,); stats (B, 2)."""
-    del params
+def advect_velocity_batched(u, v, dt, decay_rate, *, vel_stats=None,
+                            return_stats: bool = False, params=None):
+    """:func:`advect_velocity` of each member; dt (B,); stats (B, 2).
+    ``vel_stats`` is accepted for signature parity and unused."""
+    del params, vel_stats
     dt = member_vec(dt, u.shape[0])
     out = _stacked(advect_velocity(u[i], v[i], dt[i], decay_rate, return_stats=True)
                    for i in range(u.shape[0]))
     return out if return_stats else out[:2]
 
 
-def advect_dye_batched(dye, u, v, dt, decay_rate, *, params=None, out=None):
+def advect_dye_batched(dye, u, v, dt, decay_rate, *, vel_stats=None, params=None,
+                       out=None):
     """:func:`advect_dye` of each member; ``out`` (B, C, H, W)
-    (:func:`check_out_planes`), for example ``pack[:, 2:5]``."""
-    del params
+    (:func:`check_out_planes`), for example ``pack[:, 2:5]``; ``vel_stats``
+    is accepted for signature parity and unused."""
+    del params, vel_stats
     if out is not None:
         check_out_planes(out, dye.shape, dye, u, v)
     dt = member_vec(dt, u.shape[0])
@@ -602,6 +605,17 @@ def pressure_project_batched(u, v, iters: int, half: bool, *, return_stats: bool
     out = _stacked(pressure_project(u[i], v[i], iters, half, return_stats=True)
                    for i in range(u.shape[0]))
     return out if return_stats else out[:3]
+
+
+def divergence_batched(u, v, half: bool):
+    """:func:`divergence` of each member: (B, H, W)."""
+    return torch.stack([divergence(u[i], v[i], half) for i in range(u.shape[0])])
+
+
+def project_batched(u, v, p, *, return_stats: bool = False):
+    """:func:`project` of each member; stats (B, 2)."""
+    out = _stacked(project(u[i], v[i], p[i], return_stats=True) for i in range(u.shape[0]))
+    return out if return_stats else out[:2]
 
 
 def pressure_project_mg_batched(u, v, cycles: int, *, tol: float = 0.0,

@@ -364,8 +364,9 @@ def test_vcycle_calls_one_end_a_level_each_way(rng, kw):
     coarse_pre = [s for n, s in calls if n == "smooth_res_restrict" and s != (h, w)]
     assert len(coarse_pre) == (lv - 2) * finishes
     assert [s for n, s in calls if n == "smooth_damped"] == [(16, 16)] * finishes
+    # and the residual-targeted loop's stopping test, the ends' res_mean
     assert set(names) <= {"first_smooth_res_restrict", "smooth_res_restrict", "smooth_damped",
-                          "prolong_smooth", "prolong_smooth_project", "project"}
+                          "prolong_smooth", "prolong_smooth_project", "project", "res_mean"}
     if kw.get("tol", 0) <= 0:
         assert finishes == kw["cycles"] and names[-1] == "prolong_smooth_project"
     else:
