@@ -109,7 +109,25 @@ caught:
    stop together (14 + 14k at k V-cycles), the host reads of the sweep's
    last step, and one batched fast step under
    ``set_sync_debug_mode("error")``;
-10. timing with CUDA events after a warm-up: driven and quiet steps/s of
+10. the headless CLI (``cudafluidsimulation_tpu_torch.cli.main``, in
+   process, outputs under a temporary directory) at 2048² on the default
+   backend: the parity run (``--steps 200 --impulse orbit --pressure-iters
+   40 --max-displacement 31``, frames every 50 steps, ``--video``,
+   ``--save-fields``, ``--checkpoint`` every 100 steps, ``--health``,
+   ``--report``) with 4 PNGs, an AVI that parses back with 4 frames, its
+   rollout's launches exactly 200 steps' worth, its fields and checkpoint
+   bit-equal to ``Simulation.run`` over the same orbit; the same rollout
+   with ``--report`` alone (the step rate without outputs); 10 steps resumed
+   from that checkpoint, bit-equal to ``Simulation.run`` from
+   ``load_state``, with ``--profile-dir`` (one trace written; its kernel
+   events counted); ``--preset quality`` and ``--preset fast``, 50 steps
+   each with ``--report``, bit-equal to ``Simulation.run`` with their
+   report rows; ``--report-mode decomposed``, 20 steps, launching H4's
+   ``pressure_solve`` entry and H5's divergence and projection 20 times
+   each, and one decomposed step against the fused step within 1e-5 of
+   scale (the splat's ulp); one ``cli`` JSON line with each run's
+   steps/s, stage ms and seconds;
+11. timing with CUDA events after a warm-up: driven and quiet steps/s of
    the parity, quality and fast paths, the fixed-cycle path's ms/step, the
    plain versions' ms/step on the card, the device launches one H3, one H4
    and each H6 call of the quality path make (``torch.profiler``; one each
@@ -1444,6 +1462,257 @@ def ensemble_rest_phase(smi, gen, worst, reset_counts, read_counts, kernels):
     return timing
 
 
+# phase 10, the headless CLI: the parity run's flags (bench.py's parity
+# configuration with frames, video, fields, checkpoints, health checks and
+# the sampled report), a resume, the quality and fast presets, and the
+# decomposed report (the first driven path through H4's pressure_solve)
+CLI_STEPS = {"parity": 200, "resume": 10, "quality": 50, "fast": 50, "decomposed": 20}
+CLI_FRAME_EVERY = 50
+CLI_CHECKPOINT_EVERY = 100
+CLI_BUCKETS = {
+    "parity": ["Advect", "Vorticity", "Diffuse+Force", "Pressure+Project", "Paint+Bloom"],
+    "quality": ["Advect", "Vorticity", "Diffuse+Force", "Pressure", "Project", "Paint+Bloom"],
+    "fast": ["Advect", "Vorticity", "Diffuse+Force", "Pressure+Project", "Paint+Bloom"],
+    "decomposed": ["Advect", "Vorticity", "Diffuse", "Force", "Pressure", "Project"],
+}
+
+
+def _cli_report(text):
+    """(steps/s, ms/step, {bucket: ms}) from the CLI's end-of-run report."""
+    import re
+
+    rows = {name: float(ms) for name, ms in
+            re.findall(r"^(.+) compute time: ([-\d.]+)ms$", text, flags=re.M)}
+    per_step = float(re.search(r"^Average compute time: ([\d.]+)ms / step$", text,
+                               flags=re.M).group(1))
+    sps = float(re.search(r"^Throughput: (\S+) steps/s$", text, flags=re.M).group(1))
+    return sps, per_step, rows
+
+
+def _avi_frames(path):
+    """The frame count of an AVI from its main header and its index."""
+    import struct
+
+    data = Path(path).read_bytes()
+    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
+        raise AssertionError(f"{path} is not an AVI")
+    avih = data.index(b"avih") + 8
+    frames = struct.unpack("<14I", data[avih:avih + 56])[4]
+    idx = data.index(b"idx1")
+    entries = struct.unpack("<I", data[idx + 4:idx + 8])[0] // 16
+    if entries != frames:
+        raise AssertionError(f"{path}: {frames} frames in the header, {entries} indexed")
+    return frames, data[data.index(b"strh") + 12:data.index(b"strh") + 16].decode()
+
+
+def cli_phase(smi, reset_counts, read_counts, dev):
+    """Phase 10: ``cudafluidsimulation_tpu_torch.cli.main`` in-process at
+    2048² on the default backend, its outputs under a temporary directory.
+
+    The rollout's launches are counted around each ``Simulation.run`` the
+    CLI makes (its warm-up step and its report are not the rollout), and
+    every count of the whole call is read too.  Returns the decomposed
+    run's counts of the whole call (the row of H4's pressure_solve)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from cudafluidsimulation_tpu_torch import FluidConfig, Simulation, cli
+    from cudafluidsimulation_tpu_torch.models.pipelines import make_step
+    from cudafluidsimulation_tpu_torch.ops.backend import get_ops
+    from cudafluidsimulation_tpu_torch.utils.checkpoint import load_state
+    from cudafluidsimulation_tpu_torch.utils.impulse import (
+        no_impulse, orbit_impulse, slice_step)
+    from cudafluidsimulation_tpu_torch.utils.instrument import StageSpans, timed_ops
+
+    dt = 1.0 / 60.0
+    rollout = {}
+
+    class CountedSimulation(Simulation):
+        def run(self, state, impulses):
+            before = read_counts()
+            out = super().run(state, impulses)
+            for k, n in read_counts().items():
+                rollout[k] = rollout.get(k, 0) + n - before[k]
+            return out
+
+    def run_cli(argv):
+        out = io.StringIO()
+        rollout.clear()
+        reset_counts()
+        cli.Simulation = CountedSimulation
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv)
+        finally:
+            cli.Simulation = Simulation
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        if rc != 0:
+            raise AssertionError(f"cli {' '.join(argv)}: exit {rc}")
+        return out.getvalue(), counts, dict(rollout), seconds
+
+    def per_step(cfg):
+        """Each kernel's launches in one driven step of ``cfg``."""
+        sim = Simulation(cfg)
+        reset_counts()
+        sim.run(sim.init(), orbit_impulse(1, dt, center=(N / 2, N / 2), radius=N / 8,
+                                          omega=3.0))
+        torch.cuda.synchronize()
+        return read_counts()
+
+    def bit_equal(what, path, state):
+        with np.load(path) as d:
+            for k in ("u", "v", "dye", "pressure"):
+                if not torch.equal(torch.from_numpy(d[k]).to(dev), getattr(state, k)):
+                    err = _max_err(torch.from_numpy(d[k]).to(dev), getattr(state, k))
+                    raise AssertionError(f"cli {what}: {k} differs from Simulation.run "
+                                         f"(max abs {err[0]:.3e})")
+
+    def buckets(what, rows, runs_segments=True):
+        expect = CLI_BUCKETS[what] + (["Min frame", "Max frame"] if runs_segments else [])
+        if list(rows) != expect:
+            raise AssertionError(f"cli {what}: report rows {list(rows)}, expected {expect}")
+
+    base = ["--grid", str(N), "--pressure-iters", "40", "--max-displacement", "31"]
+    parity_cfg = FluidConfig.gpu_reference(nx=N, ny=N, dt=dt, pressure_iters=40,
+                                           max_displacement=31)
+    fast_cfg = FluidConfig.gpu_reference(nx=N, ny=N, dt=dt, pressure_iters=40,
+                                         max_displacement=31, **FAST)
+    quality_cfg = FluidConfig.gpu_reference(nx=N, ny=N, dt=dt, pressure_solver="multigrid",
+                                            mg_tol=0.05, max_displacement=31)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        tmp = Path(tmp)
+
+        # -- the parity run
+        steps = CLI_STEPS["parity"]
+        text, counts, rolled, seconds = run_cli(base + [
+            "--steps", str(steps), "--impulse", "orbit",
+            "--frames-dir", str(tmp / "frames"), "--frame-every", str(CLI_FRAME_EVERY),
+            "--video", str(tmp / "run.avi"), "--save-fields", str(tmp / "parity.npz"),
+            "--checkpoint", str(tmp / "ck.npz"), "--checkpoint-every", str(CLI_CHECKPOINT_EVERY),
+            "--health", "--report"])
+        one = per_step(parity_cfg)
+        expect = {k: steps * n for k, n in one.items()}
+        if rolled != expect:
+            diff = {k: (rolled[k], expect[k]) for k in expect if rolled[k] != expect[k]}
+            raise AssertionError(f"cli parity: rollout launches (got, {steps} steps' worth): {diff}")
+        for k in ("H1", "H2", "H3", "H4"):
+            if rolled[k] == 0:
+                raise AssertionError(f"cli parity: {k} not launched")
+        pngs = sorted((tmp / "frames").glob("frame_*.png"))
+        n_frames = steps // CLI_FRAME_EVERY
+        if len(pngs) != n_frames:
+            raise AssertionError(f"cli parity: {len(pngs)} PNG frames, expected {n_frames}")
+        avi_frames, codec = _avi_frames(tmp / "run.avi")
+        if avi_frames != n_frames:
+            raise AssertionError(f"cli parity: the AVI holds {avi_frames} frames")
+        sim = Simulation(parity_cfg)
+        ref_state = sim.run(sim.init(), orbit_impulse(steps, dt, center=(N / 2, N / 2),
+                                                      radius=N / 8, omega=3.0))
+        bit_equal("parity", tmp / "parity.npz", ref_state)
+        ck = load_state(str(tmp / "ck.npz"), dev)
+        if int(ck.step) != steps or not all(torch.equal(getattr(ck, k), getattr(ref_state, k))
+                                            for k in ("u", "v", "dye", "pressure", "vel_stats")):
+            raise AssertionError("cli parity: the checkpoint is not the final state")
+        sps, ms, rows = _cli_report(text)
+        buckets("parity", rows)
+        runs["parity"] = {"steps": steps, "steps_per_s": sps, "ms_per_step": ms,
+                          "stage_ms": rows, "seconds": seconds, "frames": len(pngs),
+                          "video_codec": codec, "rollout_launches": rolled,
+                          "call_launches": counts}
+        del ref_state
+
+        # -- the same rollout with the report alone: one synchronize a
+        #    20-step segment and no output inside the timed window
+        text, counts, rolled, seconds = run_cli(base + [
+            "--steps", str(steps), "--impulse", "orbit", "--report"])
+        if rolled != expect:
+            raise AssertionError(f"cli parity --report: rollout launches {rolled}")
+        sps, ms, rows = _cli_report(text)
+        buckets("parity", rows)
+        runs["parity_report"] = {"steps": steps, "steps_per_s": sps, "ms_per_step": ms,
+                                 "stage_ms": rows, "seconds": seconds}
+
+        # -- resume from the parity run's checkpoint
+        steps = CLI_STEPS["resume"]
+        text, counts, rolled, seconds = run_cli(base + [
+            "--steps", str(steps), "--impulse", "none", "--resume", str(tmp / "ck.npz"),
+            "--save-fields", str(tmp / "resume.npz"), "--profile-dir", str(tmp / "prof")])
+        bit_equal("resume", tmp / "resume.npz", sim.run(ck, no_impulse(steps, dt)))
+        traces = list((tmp / "prof").glob("*.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"cli resume: {len(traces)} profiler traces")
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        sps, ms, _ = _cli_report(text)
+        runs["resume"] = {"steps": steps, "steps_per_s": sps, "ms_per_step": ms,
+                          "seconds": seconds, "rollout_launches": rolled,
+                          "profile_kernel_events": sum(e.get("cat") == "kernel"
+                                                       for e in events)}
+
+        # -- the quality and fast presets
+        for what, cfg in (("quality", quality_cfg), ("fast", fast_cfg)):
+            steps = CLI_STEPS[what]
+            text, counts, rolled, seconds = run_cli(base + [
+                "--steps", str(steps), "--impulse", "orbit", "--preset", what, "--report",
+                "--save-fields", str(tmp / f"{what}.npz")])
+            psim = Simulation(cfg)
+            bit_equal(what, tmp / f"{what}.npz",
+                      psim.run(psim.init(), orbit_impulse(steps, dt, center=(N / 2, N / 2),
+                                                          radius=N / 8, omega=3.0)))
+            if what == "fast":
+                one = per_step(cfg)
+                expect = {k: steps * n for k, n in one.items()}
+                if rolled != expect:
+                    raise AssertionError(f"cli fast: rollout launches {rolled}, expected {expect}")
+                launched, idle = ("H2", "H4", "H7", "H8"), ("H1", "H3")
+            else:
+                launched, idle = ("H1", "H2", "H3", "H5", "H6 prolong_smooth"), ("H4",)
+            for k in launched:
+                if rolled[k] == 0:
+                    raise AssertionError(f"cli {what}: {k} not launched")
+            for k in idle:
+                if rolled[k] != 0:
+                    raise AssertionError(f"cli {what}: {k} launched")
+            sps, ms, rows = _cli_report(text)
+            buckets(what, rows)
+            runs[what] = {"steps": steps, "steps_per_s": sps, "ms_per_step": ms,
+                          "stage_ms": rows, "seconds": seconds}
+
+    # -- the decomposed report: H5 divergence, H4 pressure_solve, H5 project
+    steps = CLI_STEPS["decomposed"]
+    text, decomposed, rolled, seconds = run_cli(base + [
+        "--steps", str(steps), "--impulse", "orbit", "--report", "--report-mode", "decomposed"])
+    if decomposed["H4 solve"] != steps or decomposed["H5"] != 2 * steps:
+        raise AssertionError(f"cli decomposed: H4 solve {decomposed['H4 solve']}, H5 "
+                             f"{decomposed['H5']} launches in {steps} steps")
+    if rolled["H4 solve"] != 0 or rolled["H5"] != 0 or rolled["H4"] != steps:
+        raise AssertionError(f"cli decomposed: the rollout is not the fused step: {rolled}")
+    sps, ms, rows = _cli_report(text)
+    buckets("decomposed", rows)
+    # one decomposed step against the fused step, from the parity state;
+    # the splat after the sweeps rounds its division otherwise (one ulp)
+    imp = slice_step(orbit_impulse(CLI_STEPS["parity"] + 1, dt, center=(N / 2, N / 2),
+                                   radius=N / 8, omega=3.0), CLI_STEPS["parity"])
+    spans = StageSpans(dev)
+    got = make_step(parity_cfg, timed_ops(get_ops(parity_cfg), spans))(ck, imp)
+    exp = sim.step(ck, imp)
+    step_err = {k: _max_err(getattr(got, k), getattr(exp, k))[1] for k in STATE_FIELDS}
+    if not max(step_err.values()) <= STEP_RTOL:
+        raise AssertionError(f"cli decomposed: one step off the fused step by {step_err}")
+    billed = spans.seconds()
+    runs["decomposed"] = {"steps": steps, "steps_per_s": sps, "ms_per_step": ms,
+                          "stage_ms": rows, "seconds": seconds, "call_launches": decomposed,
+                          "step_vs_fused_max_rel_err": step_err, "tol": STEP_RTOL,
+                          "one_step_billed_ms": {k: 1e3 * v for k, v in billed.items()}}
+    _json({"phase": "cli", "grid": f"{N}x{N}", "runs": runs, "smi": smi})
+    return decomposed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2015,7 +2284,10 @@ def main() -> int:
     # -- 9. fast and multigrid ensembles: H5-H8 over B members a launch --------
     rest = ensemble_rest_phase(smi[0], gen, worst, reset_counts, read_counts, kernels)
 
-    # -- 10. timing ------------------------------------------------------------
+    # -- 10. the headless CLI at 2048² -----------------------------------------
+    cli_decomposed = cli_phase(smi[0], reset_counts, read_counts, dev)
+
+    # -- 11. timing ------------------------------------------------------------
     def rates(what, sim_, ref_sim_):
         driven_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), driven), iters=3))
         quiet_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), quiet), iters=3))
@@ -2184,14 +2456,15 @@ def main() -> int:
 
     # each row's launches come from the path that runs it
     paths = {"H1": "parity", "H2": "parity", "H3": "parity", "H4": "parity",
-             "H4 solve": None, "H5": "quality", "H6 smooth_damped": "quality",
+             "H4 solve": "cli decomposed", "H5": "quality", "H6 smooth_damped": "quality",
              "H6 smooth_res": None, "H6 first_smooth_res": None,
              "H6 last_smooth_project": None, "H6 smooth_res_restrict": "quality",
              "H6 first_smooth_res_restrict": "quality", "H6 prolong_smooth": "quality",
              "H6 prolong_smooth_project": "fixed-cycle", "H6 mean_square": "quality",
              "H7": "fast", "H8": "fast"}
     path_launches = {"parity": parity_launches, "quality": quality_launches,
-                     "fixed-cycle": fixed_launches, "fast": fast_launches}
+                     "fixed-cycle": fixed_launches, "fast": fast_launches,
+                     "cli decomposed": cli_decomposed}
     rows = []
     for k, (kern_fn, plain_fn) in cases.items():
         inputs, ops = io[k]

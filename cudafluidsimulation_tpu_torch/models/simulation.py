@@ -20,7 +20,7 @@ from cudafluidsimulation_tpu_torch.ops.backend import get_ops
 from cudafluidsimulation_tpu_torch.state import FluidState, default_device, init_state
 from cudafluidsimulation_tpu_torch.utils.impulse import (
     Impulse, no_impulse, num_steps, slice_step)
-from cudafluidsimulation_tpu_torch.utils.timing import StageReport, cuda_times_ms
+from cudafluidsimulation_tpu_torch.utils.timing import StageReport, cuda_times_ms, time_stage
 
 
 def run_scan(step_fn, state: FluidState, impulses: Impulse) -> FluidState:
@@ -139,3 +139,121 @@ class Simulation:
         ms = statistics.median(cuda_times_ms(lambda: self.run(state, impulses), iters=iters))
         return StageReport(grid=f"{self.config.nx}x{self.config.ny}",
                            steps=steps, total_s=ms / 1000.0)
+
+    def stage_timings(self, iters: int = 24,
+                      state: Optional[FluidState] = None) -> StageReport:
+        """Per-stage breakdown out of band, the analogue of the reference's
+        per-stage averages (Main.cpp:195-206) and of the JAX package's
+        ``Simulation.stage_timings``, with the same buckets.  Each bucket is
+        the op that the configured pipeline runs, fusions included: one
+        "Pressure+Project" bucket where the pipeline runs the fused
+        divergence -> Jacobi -> projection op (H4 on the card), "Pressure"
+        (divergence, then the V-cycles) and "Project" under multigrid;
+        "Diffuse+Force" where the splat rides the last diffusion sweep (H3,
+        or H7 where the fast preset grants it), else "Diffuse" and "Force";
+        "Paint+Bloom" where the render blooms, else "Paint".  The CLI's
+        ``--report-mode decomposed`` (``utils.instrument``) splits the
+        fused ops back into the reference's buckets.
+
+        Each stage runs ``iters`` times with its output threaded back in
+        (``utils.timing.time_stage``: CUDA events on the card, the host
+        clock on the CPU), from ``state`` (the initial state when None).
+        The advection threads its velocity bound as the step does.  A
+        stage that injects energy self-amplifies (confinement run alone
+        grows |v| each time), so flow-dependent rows can read above their
+        in-step cost; the step total is the ground truth."""
+        cfg = self.config
+        ops = self.ops
+        if state is None:
+            state = self.init()
+        dt = np.float32(cfg.dt)
+        u, v, dye, p = state.u, state.v, state.dye, state.pressure
+        color = cfg.palette_array()[0]
+        pos = np.asarray([cfg.nx / 2.0, cfg.ny / 2.0], np.float32)
+        five = cfg.color_diffusion_enabled
+        fused_splat = five and cfg.variant == "gpu"
+        coeffs = np.asarray([cfg.velocity_diffusion] * 2 + [cfg.color_diffusion] * 3,
+                            np.float32)
+
+        def advect_body(c):
+            u, v, dye, st = c
+            u2, v2, st2 = ops.advect_velocity(u, v, dt, cfg.decay_rate, vel_stats=st,
+                                              return_stats=True)
+            return u2, v2, ops.advect_dye(dye, u2, v2, dt, cfg.decay_rate,
+                                          vel_stats=st2), st2
+
+        vort = (ops.vorticity_confinement_cpu if cfg.variant == "cpu"
+                else ops.vorticity_confinement_gpu)
+
+        def vorticity_body(c):
+            return vort(c[0], c[1], dt, cfg.vorticity)
+
+        if fused_splat:
+            # the pipeline's op: the splat folded into the last sweep
+            amps = np.concatenate([np.ones((2,), np.float32), color])
+
+            def diffuse_body(c):
+                return (ops.diffuse_multi_splat(c[0], dt, coeffs, cfg.diffusion_iters,
+                                                amps, pos, cfg.splat_radius),)
+        elif five:
+            def diffuse_body(c):
+                return (ops.diffuse_multi(c[0], dt, coeffs, cfg.diffusion_iters),)
+        else:
+            def diffuse_body(c):
+                return (ops.diffuse(c[0], dt, cfg.velocity_diffusion, cfg.diffusion_iters),)
+        pack = (torch.cat([torch.stack([u, v]), dye]) if five
+                else torch.stack([u, v]))
+
+        splat = ops.splat_cpu if cfg.variant == "cpu" else ops.splat_gpu
+
+        def force_body(c):
+            return splat(*c, pos, pos, dt, cfg.force_scale, cfg.splat_radius, color)
+
+        def pressure_body(c):
+            u, v, _ = c
+            div = ops.divergence(u, v, cfg.half_divergence)
+            return u, v, ops.pressure_solve_mg(div, cfg.mg_cycles, tol=cfg.mg_tol,
+                                               max_cycles=cfg.mg_max_cycles)
+
+        def pressure_project_body(c):
+            # the pipeline's op on the Jacobi path: fused divergence ->
+            # sweeps -> gradient subtraction
+            return ops.pressure_project(c[0], c[1], cfg.pressure_iters, cfg.half_divergence)
+
+        def project_body(c):
+            u, v, p = c
+            return (*ops.project(u, v, p), p)
+
+        def paint_body(c):
+            return c[0], ops.pack_rgba(c[0])
+
+        def render_body(c):
+            # the pipeline's render op with the bloom active: the driven
+            # (interactive) worst case
+            return c[0], ops.render_frame(c[0], pos, cfg.bloom_intense, cfg.splat_radius, True)
+
+        stages = {
+            "Advect": (advect_body, (u, v, dye, state.vel_stats)),
+            "Vorticity": (vorticity_body, (u, v)),
+        }
+        if fused_splat:
+            stages["Diffuse+Force"] = (diffuse_body, (pack,))
+        else:
+            stages["Diffuse"] = (diffuse_body, (pack,))
+            stages["Force"] = (force_body, (u, v, dye))
+        if cfg.pressure_solver == "multigrid":
+            stages["Pressure"] = (pressure_body, (u, v, p))
+            stages["Project"] = (project_body, (u, v, p))
+        else:
+            stages["Pressure+Project"] = (pressure_project_body, (u, v, p))
+        if cfg.bloom_enabled:
+            stages["Paint+Bloom"] = (render_body, (dye, None))
+        else:
+            stages["Paint"] = (paint_body, (dye, None))
+
+        report = StageReport(grid=f"{cfg.nx}x{cfg.ny}", steps=1, total_s=0.0)
+        for name, (body, carry) in stages.items():
+            sec = time_stage(body, carry, n=iters)
+            report.stage_ms[name] = sec * 1000.0
+            report.total_s += sec
+        return report

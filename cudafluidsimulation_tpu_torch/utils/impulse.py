@@ -71,6 +71,41 @@ def orbit_impulse(
     return _stack(pos, last, pressed, np.full((steps,), dt, np.float32))
 
 
+def concat_impulses(*parts: Impulse) -> Impulse:
+    """The streams ``parts`` one after another."""
+    return Impulse(*(torch.cat(fields, dim=0) for fields in zip(*parts)))
+
+
+def impulse_from_file(path: str, dt: float) -> Impulse:
+    """Load a scripted impulse stream from JSON — the replayable equivalent
+    of the reference's recorded mouse interaction.
+
+    Format: a list of events, each ``[x, y, pressed]`` (grid coords, one per
+    step) or ``{"pos": [x, y], "pressed": bool, "dt": t}``.  ``last_pos`` is
+    the previous event's position (like GLFW polling, Main.cpp:228-233).
+    """
+    import json
+
+    with open(path) as f:
+        events = json.load(f)
+    if not events:
+        raise ValueError(f"{path}: empty impulse script")
+    pos, pressed, dts = [], [], []
+    for ev in events:
+        if isinstance(ev, dict):
+            pos.append(tuple(ev["pos"]))
+            pressed.append(bool(ev.get("pressed", True)))
+            dts.append(float(ev.get("dt", dt)))
+        else:
+            x, y, p = ev
+            pos.append((float(x), float(y)))
+            pressed.append(bool(p))
+            dts.append(dt)
+    pos = np.asarray(pos, np.float32)
+    last = np.concatenate([pos[:1], pos[:-1]], axis=0)
+    return _stack(pos, last, np.asarray(pressed, bool), np.asarray(dts, np.float32))
+
+
 def mouse_to_grid(
     mx: float,
     my: float,
