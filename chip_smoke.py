@@ -119,15 +119,35 @@ caught:
    bit-equal to ``Simulation.run`` over the same orbit; the same rollout
    with ``--report`` alone (the step rate without outputs); 10 steps resumed
    from that checkpoint, bit-equal to ``Simulation.run`` from
-   ``load_state``, with ``--profile-dir`` (one trace written; its kernel
-   events counted); ``--preset quality`` and ``--preset fast``, 50 steps
+   ``load_state``, with ``--profile-dir`` (one trace written, whose
+   kernel events, its pad of spin kernels left out by name, must equal the
+   rollout's entry calls times each entry's device launches: 110);
+   ``--preset quality`` and ``--preset fast``, 50 steps
    each with ``--report``, bit-equal to ``Simulation.run`` with their
    report rows; ``--report-mode decomposed``, 20 steps, launching H4's
    ``pressure_solve`` entry and H5's divergence and projection 20 times
    each, and one decomposed step against the fused step within 1e-5 of
    scale (the splat's ulp); one ``cli`` JSON line with each run's
    steps/s, stage ms and seconds;
-11. timing with CUDA events after a warm-up: driven and quiet steps/s of
+11. the live views at 2048² on the parity configuration with a fixed dt
+   (``models.app.FluidApp``, 64 frames a loop, launches read around every
+   loop: H1 128, H2-H4 64, nothing else): the loop's final state bit-equal
+   to ``Simulation.run`` over the impulses its orbit source gave; plain and
+   pipelined frames equal by their SHA-1, the last one
+   ``Simulation.frame_image``'s bytes; frames/s and Min/Max/avg frame ms
+   with no sink, ``TermViewer`` into a string, the native ``HttpViewer``
+   (required) with a ``/stream`` client (JPEG parts), ``/frame`` (PNG) and
+   ``/input`` mapped by ``input_source``, and ``FrameSink`` (required;
+   written + dropped = 64), each pipelined and not; a ``TermInput`` drag
+   whose dye peaks under it; the CLI's ``--view http --interactive
+   --backend cuda`` ended by a client's press and ``q`` (exit 0, dye in
+   ``--save-fields``) and ``--view term --impulse orbit --video`` (an AVI
+   of 64 frames, fields bit-equal to the loop's); the render's device ms
+   and the readback's parts; one ``views`` JSON line; then ``entry()``
+   (one 512² step bit-equal to ``Simulation.step``) and
+   ``examples/headless_run_torch.py`` (30 frames through ``FrameSink``, a
+   checkpoint that loads);
+12. timing with CUDA events after a warm-up: driven and quiet steps/s of
    the parity, quality and fast paths, the fixed-cycle path's ms/step, the
    plain versions' ms/step on the card, the device launches one H3, one H4
    and each H6 call of the quality path make (``torch.profiler``; one each
@@ -158,6 +178,7 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -222,8 +243,11 @@ MAX_DEVICE_LAUNCHES = {"H3": 5, "H4": 8, "H4 solve": 8,
                        "H6 smooth_res_restrict": 1, "H6 first_smooth_res_restrict": 1,
                        "H6 prolong_smooth": 1, "H6 smooth_damped": 1}
 # marker kernels launched before and after the work a profiler session
-# counts, and the sessions tried before a trace that lost records fails
-MARKERS = 8
+# counts, and the sessions tried before a trace that lost records fails.
+# The leading records a session loses grow with the process's age
+# (chip_profiler_loss.py): late in this script a session lost more than 8,
+# so each side has the CLI's pad of 32 (cli.PROFILE_PAD)
+MARKERS = 32
 TRACE_TRIES = 5
 # the profiler sessions this run opened, and how many of them had each
 # pattern of markers seen before/between/after the work's records
@@ -509,7 +533,7 @@ def ensemble_phase(smi, gen, worst, reset_counts, read_counts, kernels):
     device operations of one batched step and runs one under
     ``set_sync_debug_mode("error")``; steps a cpu-variant ensemble and holds
     one step against the plain versions on the card.  Returns the timing
-    part, called in phase 9, which returns the batched rows of the kernels
+    part, called in phase 12 (timing), which returns the batched rows of the kernels
     line."""
     import dataclasses
 
@@ -1079,7 +1103,7 @@ def ensemble_rest_phase(smi, gen, worst, reset_counts, read_counts, kernels):
     multigrid steps from the sweep's state; the device operations of one
     batched fast step and one batched quality step, and the fast step under
     ``set_sync_debug_mode("error")``.  Returns the timing part, called in
-    phase 10: member-steps/s batched against one member at a time, and the
+    phase 12 (timing): member-steps/s batched against one member at a time, and the
     batched rows of the kernels line."""
     import dataclasses
 
@@ -1477,6 +1501,16 @@ CLI_BUCKETS = {
 }
 
 
+def _cli_kernels_per_call():
+    """Device kernels one entry call of the parity rollout launches at N²:
+    H1 and H2 one, H3 and H4 a burst each (the planner's plans for 20
+    diffusion and 40 pressure sweeps; memsets are not kernels)."""
+    from cudafluidsimulation_tpu_torch.ops import jacobi_cuda
+
+    return {"H1": 1, "H2": 1, "H3": len(jacobi_cuda.plan_bursts(N, N, 20, "diffuse").depths),
+            "H4": len(jacobi_cuda.plan_bursts(N, N, 40, "project").depths)}
+
+
 def _cli_report(text):
     """(steps/s, ms/step, {bucket: ms}) from the CLI's end-of-run report."""
     import re
@@ -1648,11 +1682,25 @@ def cli_phase(smi, reset_counts, read_counts, dev):
         if len(traces) != 1:
             raise AssertionError(f"cli resume: {len(traces)} profiler traces")
         events = json.loads(traces[0].read_text())["traceEvents"]
+        # the trace holds every kernel the rollout launched: its entry
+        # calls times each entry's device launches, the pad left out by name
+        kernel_names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        pad = sum("spin_kernel" in name for name in kernel_names)
+        traced = len(kernel_names) - pad
+        launched = sum(rolled[k] * n for k, n in _cli_kernels_per_call().items())
+        if traced != launched or any(n for k, n in rolled.items()
+                                     if k not in _cli_kernels_per_call()):
+            raise AssertionError(f"cli resume: the --profile-dir trace holds {traced} kernels "
+                                 f"besides its {pad} pad kernels; the rollout launched "
+                                 f"{launched} ({rolled})")
         sps, ms, _ = _cli_report(text)
         runs["resume"] = {"steps": steps, "steps_per_s": sps, "ms_per_step": ms,
                           "seconds": seconds, "rollout_launches": rolled,
                           "profile_kernel_events": sum(e.get("cat") == "kernel"
-                                                       for e in events)}
+                                                       for e in events),
+                          "profile_pad_events": pad, "profile_pad_launched": 2 * cli.PROFILE_PAD,
+                          "profile_rollout_kernel_events": traced,
+                          "rollout_device_kernels": launched}
 
         # -- the quality and fast presets
         for what, cfg in (("quality", quality_cfg), ("fast", fast_cfg)):
@@ -1711,6 +1759,384 @@ def cli_phase(smi, reset_counts, read_counts, dev):
                           "one_step_billed_ms": {k: 1e3 * v for k, v in billed.items()}}
     _json({"phase": "cli", "grid": f"{N}x{N}", "runs": runs, "smi": smi})
     return decomposed
+
+
+# phase 11, the live views: FluidApp frames at N² on the parity
+# configuration, through every sink in both modes, and the CLI's --view
+VIEW_FRAMES = 64
+VIEW_SINKS = ("none", "term", "http", "framesink")
+# the CLI's unbounded --view http --interactive session: at most this many
+# frames if the client's q were lost, and how long the client holds its press
+VIEW_CLI_CAP = 2000
+VIEW_PRESS_S = 0.5
+
+
+def _get(url, timeout=10):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.headers, r.read()
+
+
+def _stream_reader(port, found):
+    """Read /stream until the server closes it, as a browser's <img> does;
+    record each whole part's Content-Type and first two body bytes in
+    ``found``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("localhost", port, timeout=30)
+    conn.request("GET", "/stream")
+    resp = conn.getresponse()
+    found.update(status=resp.status, types=[], soi=[])
+    buf = b""
+    try:
+        while True:
+            chunk = resp.read1(1 << 20)
+            if not chunk:
+                break
+            buf += chunk
+            while True:
+                start = buf.find(b"--frame\r\n")
+                end = buf.find(b"\r\n\r\n", start)
+                if start < 0 or end < 0:
+                    break
+                head = dict(line.split(": ", 1) for line in
+                            buf[start:end].decode().split("\r\n")[1:])
+                body = end + 4
+                if len(buf) < body + int(head["Content-Length"]):
+                    break
+                found["types"].append(head["Content-Type"])
+                found["soi"].append(buf[body:body + 2].hex())
+                buf = buf[body + int(head["Content-Length"]):]
+    except OSError:
+        pass  # the server closed the connection
+    finally:
+        conn.close()
+
+
+def views_phase(smi, reset_counts, read_counts, dev):
+    """Phase 11: ``models.app.FluidApp`` at N² on the parity configuration
+    (fixed dt), its final state bit-equal to ``Simulation.run`` over the
+    impulses its source gave, pipelined frames equal to plain ones, every
+    sink in both modes (none, ``TermViewer``, the native ``HttpViewer``
+    with a stream client, ``FrameSink``), a ``TermInput`` drag, and the
+    CLI's ``--view http --interactive`` and ``--view term --video``.  The
+    kernels' launches are read around every loop: H1 2 a frame, H2-H4 one,
+    nothing else.  Returns the parity launches of one VIEW_FRAMES loop."""
+    import contextlib
+    import hashlib
+    import io
+    import socket
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from cudafluidsimulation_tpu_torch import FluidConfig, Simulation, cli
+    from cudafluidsimulation_tpu_torch.models.app import (
+        FluidApp, finish_readback, orbit_source, queue_readback)
+    from cudafluidsimulation_tpu_torch.utils import http_view, native_sink
+    from cudafluidsimulation_tpu_torch.utils.impulse import Impulse, single
+    from cudafluidsimulation_tpu_torch.utils.native_sink import FrameSink
+    from cudafluidsimulation_tpu_torch.utils.term_input import TermInput
+    from cudafluidsimulation_tpu_torch.utils.term_view import TermViewer
+    from cudafluidsimulation_tpu_torch.utils.timing import cuda_times_ms
+
+    t_phase = time.perf_counter()
+    dt = 1.0 / 60.0
+    n = VIEW_FRAMES
+    cfg = FluidConfig.gpu_reference(nx=N, ny=N, dt=dt, pressure_iters=40, max_displacement=31)
+    expect = {k: 0 for k in read_counts()}
+    expect.update({"H1": 2 * n, "H2": n, "H3": n, "H4": n})
+    if not (native_sink.native_available() and http_view.native_available()):
+        raise AssertionError("views: the native frame sink or HTTP server did not build")
+
+    def loop(what, sink, pipelined, source=None, frames=n, counted=True):
+        """A FluidApp loop from the zero state: (app, {frames/s and the
+        report's Min/Max/avg frame ms})."""
+        app = FluidApp(cfg, input_source=source or orbit_source(cfg), frame_sink=sink,
+                       fixed_dt=dt)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        rep = app.run(max_frames=frames, pipelined=pipelined)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if counted and counts != expect:
+            diff = {k: (counts[k], expect[k]) for k in expect if counts[k] != expect[k]}
+            raise AssertionError(f"views {what}: launches (got, expected) {diff}")
+        if app.frames != frames:
+            raise AssertionError(f"views {what}: {app.frames} frames, not {frames}")
+        # the pipelined loop's first frame has no previous one to wait on
+        # and is not timed
+        timed = frames - (1 if pipelined and sink is not None else 0)
+        return app, {"frames_per_s": frames / wall, "min_frame_ms": rep.stage_ms["Min frame"],
+                     "max_frame_ms": rep.stage_ms["Max frame"],
+                     "avg_frame_ms": 1e3 * rep.total_s / timed}
+
+    def hashing():
+        digests = []
+        return (lambda frame: digests.append(hashlib.sha1(frame).hexdigest())), digests
+
+    # warm-up: the loop's first frames hold two pinned blocks of the host cache
+    loop("warm-up", lambda frame: None, True, frames=4, counted=False)
+
+    # -- the loop without a sink equals the plain rollout over its impulses
+    seen = []
+    orbit = orbit_source(cfg)
+
+    def recording(t):
+        seen.append(orbit(t))
+        return seen[-1]
+
+    app, _ = loop("recorded", None, False, source=recording)
+    imp = Impulse(*(torch.stack(f) for f in zip(*(single(p, l, q, dt) for p, l, q in seen))))
+    sim = Simulation(cfg)
+    ref_state = sim.run(sim.init(), imp)
+    for k in STATE_FIELDS:
+        if not torch.equal(getattr(app.state, k), getattr(ref_state, k)):
+            raise AssertionError(f"views: the loop's {k} differs from Simulation.run over its "
+                                 f"impulses (max abs {_max_err(getattr(app.state, k), getattr(ref_state, k))[0]})")
+    loop_state = app.state
+    del ref_state
+
+    # -- pipelined equals plain, frame for frame; the sink's bytes are
+    #    Simulation.frame_image's and the old host layout's
+    runs = {}
+    digests = {}
+    for mode in ("plain", "pipelined"):
+        sink, digests[mode] = hashing()
+        app, runs[f"hash {mode}"] = loop(f"hashing {mode}", sink, mode == "pipelined")
+        for k in STATE_FIELDS:
+            if not torch.equal(getattr(app.state, k), getattr(loop_state, k)):
+                raise AssertionError(f"views: the {mode} loop's {k} differs from the loop "
+                                     "without a sink")
+    if digests["plain"] != digests["pipelined"] or len(digests["plain"]) != n:
+        bad = [i for i, (a, b) in enumerate(zip(digests["plain"], digests["pipelined"]))
+               if a != b]
+        raise AssertionError(f"views: pipelined frames differ from plain ones at {bad[:8]}")
+    frame = sim.render_fn(loop_state)
+    old = np.ascontiguousarray(np.moveaxis(frame.cpu().numpy(), 0, -1)[::-1])
+    if not (hashlib.sha1(sim.frame_image(frame)).hexdigest() == hashlib.sha1(old).hexdigest()
+            == digests["plain"][-1]):
+        raise AssertionError("views: the last frame is not Simulation.frame_image's bytes")
+    _check_frame("views last frame", old)
+
+    # -- every sink, both modes
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_views_") as tmp:
+        tmp = Path(tmp)
+        http_checks = {}
+        for mode in ("plain", "pipelined"):
+            piped = mode == "pipelined"
+            _, runs[f"none {mode}"] = loop(f"none {mode}", None, piped)
+
+            text = io.StringIO()
+            _, runs[f"term {mode}"] = loop(f"term {mode}", TermViewer(stream=text), piped)
+            if text.getvalue().count("\u2580") < n:
+                raise AssertionError(f"views term {mode}: the viewer painted nothing")
+
+            hv = http_view.HttpViewer(width=N, height=N)
+            found = {}
+            reader = threading.Thread(target=_stream_reader, args=(hv.port, found), daemon=True)
+            reader.start()
+            while hv.clients < 1 and reader.is_alive():
+                time.sleep(0.001)
+            _, runs[f"http {mode}"] = loop(f"http {mode}", hv, piped)
+            status, headers, png = _get(hv.url + "frame")
+            x, y = N // 7 + 0.25, N // 3 + 0.5  # exact in float32
+            _get(hv.url + f"input?x={x}&y={y}&p=1")
+            pos, _, pressed = hv.input_source(N, N)(0.0)
+            frames_served = hv.frames
+            hv.close()
+            reader.join(timeout=30)
+            if reader.is_alive():
+                raise AssertionError("views http: the stream client did not end with the server")
+            if (status != 200 or headers["Content-Type"] != "image/png"
+                    or png[:8] != b"\x89PNG\r\n\x1a\n"
+                    or png[16:24] != N.to_bytes(4, "big") * 2):
+                raise AssertionError(f"views http: /frame {status} {headers['Content-Type']}")
+            # JPEG parts: the native server's stream (the fallback's is PNG)
+            if not found["types"] or set(found["types"]) != {"image/jpeg"} \
+                    or set(found["soi"]) != {"ffd8"}:
+                raise AssertionError(f"views http: stream parts {found}")
+            if pos != (x, N - 1.0 - y) or not pressed:
+                raise AssertionError(f"views http: /input ({x}, {y}) mapped to {pos}, {pressed}")
+            http_checks[mode] = {"stream_parts": len(found["types"]), "frames_pushed": frames_served,
+                                 "frame_png_bytes": len(png), "input_grid_pos": pos}
+
+            with FrameSink(str(tmp / mode), N, N) as fs:
+                _, rates = loop(f"framesink {mode}", fs.push, piped)
+                fs.flush()
+                if fs.written + fs.dropped != n or fs.written < 1:
+                    raise AssertionError(f"views framesink {mode}: {fs.written} written + "
+                                         f"{fs.dropped} dropped of {n}")
+                runs[f"framesink {mode}"] = {**rates, "written": fs.written,
+                                             "dropped": fs.dropped}
+            if len(list((tmp / mode).glob("frame_*.png"))) != runs[f"framesink {mode}"]["written"]:
+                raise AssertionError(f"views framesink {mode}: files != written")
+
+        # -- a TermInput drag steers the loop: the dye lies under it
+        tin = TermInput(N, N, cols=80, rows=22)
+        tin.feed(b"\x1b[<0;20;8M")
+        app = FluidApp(cfg, input_source=tin.source(), fixed_dt=dt)
+        app.run(max_frames=4)
+        start = tin.pos
+        tin.feed(b"\x1b[<32;26;8M")
+        app.run(max_frames=8)
+        end = tin.pos
+        tin.feed(b"\x1b[<0;26;8m")
+        dye = app.state.dye.amax(dim=0)
+        iy, ix = divmod(int(dye.argmax()), N)
+        xs, ys = sorted((start[0], end[0])), sorted((start[1], end[1]))
+        if not (dye.max() > 0.1 and xs[0] - 64 <= ix <= xs[1] + 64
+                and ys[0] - 64 <= iy <= ys[1] + 64) or tin.pressed:
+            raise AssertionError(f"views term input: the dye's peak at ({ix}, {iy}) is not "
+                                 f"under the drag {start} -> {end}")
+        drag = {"from": start, "to": end, "dye_peak_at": [ix, iy], "dye_max": dye.max().item()}
+
+        # -- the CLI: a browser-like client presses, holds, then quits
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            port = probe.getsockname()[1]
+        client = {}
+
+        def browser():
+            url = f"http://localhost:{port}/"
+            t_end = time.perf_counter() + 120
+            while time.perf_counter() < t_end:
+                try:
+                    client["page"] = _get(url)[2] == http_view.PAGE_HTML
+                    break
+                except OSError:
+                    time.sleep(0.01)
+            t_hold = time.perf_counter() + VIEW_PRESS_S
+            while time.perf_counter() < t_hold:  # the page's ~30 Hz keepalive
+                _get(url + f"input?x={N / 2}&y={N / 2}&p=1")
+                time.sleep(0.03)
+            _get(url + "input?x=0&y=0&p=0&q=1")
+            client["quit_sent"] = True
+
+        out = io.StringIO()
+        reset_counts()
+        th = threading.Thread(target=browser, daemon=True)
+        th.start()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--grid", str(N), "--pressure-iters", "40", "--max-displacement", "31",
+                           "--backend", "cuda", "--view", "http", "--interactive",
+                           "--http-port", str(port), "--steps", str(VIEW_CLI_CAP),
+                           "--save-fields", str(tmp / "http.npz")])
+        cli_http_s = time.perf_counter() - t0
+        th.join(timeout=30)
+        counts = read_counts()
+        text = out.getvalue()
+        steps = int(re.search(r"^Grid: \S+ +Steps: (\d+)$", text, flags=re.M).group(1))
+        with np.load(tmp / "http.npz") as d:
+            dye_max = float(np.abs(d["dye"]).max())
+        if (rc != 0 or not client.get("quit_sent") or not client.get("page")
+                or not 0 < steps < VIEW_CLI_CAP or dye_max <= 0
+                or f"live view: http://localhost:{port}/" not in text):
+            raise AssertionError(f"views cli http: rc {rc}, client {client}, {steps} frames, "
+                                 f"dye max {dye_max}")
+        want = {k: 0 for k in counts}
+        want.update({"H1": 2 * (steps + 1), "H2": steps + 1, "H3": steps + 1, "H4": steps + 1})
+        if counts != want:
+            raise AssertionError(f"views cli http: launches {counts} for {steps} frames "
+                                 "and the warm-up step")
+        cli_http = {"frames": steps, "seconds": cli_http_s, "dye_max": dye_max,
+                    "report": _cli_report(text)[0]}
+
+        # -- the CLI's terminal view records its session; its fields are the loop's
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--grid", str(N), "--pressure-iters", "40", "--max-displacement", "31",
+                           "--view", "term", "--impulse", "orbit", "--steps", str(n),
+                           "--video", str(tmp / "view.avi"),
+                           "--save-fields", str(tmp / "term.npz")])
+        avi_frames, codec = _avi_frames(tmp / "view.avi")
+        if rc != 0 or avi_frames != n:
+            raise AssertionError(f"views cli term: rc {rc}, the AVI holds {avi_frames} frames")
+        with np.load(tmp / "term.npz") as d:
+            for k in ("u", "v", "dye", "pressure"):
+                if not torch.equal(torch.from_numpy(d[k]).to(dev), getattr(loop_state, k)):
+                    raise AssertionError(f"views cli term: {k} differs from FluidApp's")
+        cli_term = {"frames": n, "video_codec": codec, "report": _cli_report(out.getvalue())[0]}
+
+    # -- the render and the readback at N², by CUDA events and the host clock
+    render_ms = statistics.median(cuda_times_ms(lambda: sim.render_fn(loop_state), iters=10))
+    layout_ms = statistics.median(cuda_times_ms(lambda: Simulation.frame_layout(frame), iters=10))
+    img = Simulation.frame_layout(frame)
+    pinned = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+    copy_ms = statistics.median(cuda_times_ms(lambda: pinned.copy_(img, non_blocking=True),
+                                              iters=10))
+
+    def host_ms(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    readback = {
+        "queue_and_wait_ms": host_ms(lambda: finish_readback(queue_readback(frame))),
+        "device_layout_ms": layout_ms, "pinned_copy_ms": copy_ms,
+        "frame_image_ms": host_ms(lambda: sim.frame_image(frame)),
+        "old_cpu_copy_ms": host_ms(lambda: frame.cpu()),
+        "old_host_gather_ms": host_ms(
+            lambda: np.ascontiguousarray(np.moveaxis(frame.cpu().numpy(), 0, -1)[::-1]))}
+    _json({"phase": "views", "grid": f"{N}x{N}", "frames": n, "runs": runs,
+           "render_device_ms": render_ms, "readback": readback, "http": http_checks,
+           "term_input_drag": drag, "cli_http": cli_http, "cli_term": cli_term,
+           "seconds": time.perf_counter() - t_phase, "smi": smi})
+    return expect
+
+
+def entry_phase(reset_counts, read_counts, dev):
+    """The port's ``entry()`` (one 512² parity step, bit-equal to
+    ``Simulation.step``) and ``examples/headless_run_torch.py`` (30 frames
+    through ``FrameSink`` and a checkpoint that loads) on the card."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+
+    from cudafluidsimulation_tpu_torch import FluidConfig, Simulation
+    from cudafluidsimulation_tpu_torch.entry import entry
+    from cudafluidsimulation_tpu_torch.utils.checkpoint import load_state
+
+    step, (state, imp) = entry()
+    if state.u.device.type != "cuda":
+        raise AssertionError("entry: the state is not on the card")
+    reset_counts()
+    got = step(state, imp)
+    torch.cuda.synchronize()
+    counts = {k: c for k, c in read_counts().items() if c}
+    exp = Simulation(FluidConfig.gpu_reference(nx=512, ny=512, pressure_iters=40)).step(state, imp)
+    for k in STATE_FIELDS:
+        if not torch.equal(getattr(got, k), getattr(exp, k)):
+            raise AssertionError(f"entry: {k} differs from Simulation.step")
+    if counts != {"H1": 2, "H2": 1, "H3": 1, "H4": 1}:
+        raise AssertionError(f"entry: launches {counts}")
+
+    path = Path(__file__).resolve().parent / "examples" / "headless_run_torch.py"
+    spec = importlib.util.spec_from_file_location("headless_run_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_example_") as tmp:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            final = example.main(tmp)
+        seconds = time.perf_counter() - t0
+        pngs = list((Path(tmp) / "out_frames").glob("frame_*.png"))
+        ck = load_state(str(Path(tmp) / "out_state.npz"), dev)
+        if len(pngs) != 30 or int(ck.step) != 300 or not all(
+                torch.equal(getattr(ck, k), getattr(final, k)) for k in STATE_FIELDS):
+            raise AssertionError(f"example: {len(pngs)} frames, checkpoint step {int(ck.step)}")
+    _json({"phase": "entry", "launches": counts, "example_frames": len(pngs),
+           "example_seconds": seconds})
 
 
 def main() -> int:
@@ -2287,7 +2713,11 @@ def main() -> int:
     # -- 10. the headless CLI at 2048² -----------------------------------------
     cli_decomposed = cli_phase(smi[0], reset_counts, read_counts, dev)
 
-    # -- 11. timing ------------------------------------------------------------
+    # -- 11. the live views at 2048², the entry and the example ---------------
+    view_launches = views_phase(smi[0], reset_counts, read_counts, dev)
+    entry_phase(reset_counts, read_counts, dev)
+
+    # -- 12. timing ------------------------------------------------------------
     def rates(what, sim_, ref_sim_):
         driven_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), driven), iters=3))
         quiet_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), quiet), iters=3))

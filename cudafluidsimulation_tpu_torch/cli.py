@@ -1,19 +1,22 @@
-"""Headless CLI of the PyTorch/CUDA port — the app shell the reference
-never had.
+"""CLI of the PyTorch/CUDA port — the app shell the reference never had.
 
 The counterpart of the JAX package's CLI, with the same options and
 defaults: scripted simulations of either parity variant at any size,
 frames (PNG, APNG, AVI), fields and checkpoints, and the end-of-run timing
-report in the reference's format (Main.cpp:195-206).
+report in the reference's format (Main.cpp:195-206); or a live view of the
+frame loop (``models.app.FluidApp``) in the terminal or a browser, steered
+with ``--interactive``.
 
     python -m cudafluidsimulation_tpu_torch.cli --grid 2048 --steps 300 \\
         --impulse orbit --frames-dir out/ --report
+    python -m cudafluidsimulation_tpu_torch.cli --grid 1024 --steps 0 \\
+        --view http --interactive
 
 It runs on the CUDA device: the default ``--backend auto`` (and ``cuda``)
 runs the Hopper kernels and exits, naming ``--backend ref``, when there is
 no card; ``--backend ref`` runs the plain PyTorch ops on the CPU.  The
-live views (``--view term|http``) and the sharded rollout (``--mesh
-rows|2d``) parse but are not yet ported: they exit with a message.
+sharded rollout (``--mesh rows|2d``) parses but is not yet ported: it
+exits with a message (with ``--view`` it is ignored, as in the JAX CLI).
 
 The port's advection is the reference's unbounded backtrace on every
 backend, so there is no advection-clamp warning (``utils.health.clamp_axes``).
@@ -39,6 +42,10 @@ from cudafluidsimulation_tpu_torch.utils.checkpoint import (
 from cudafluidsimulation_tpu_torch.utils.health import HealthError, check_health
 from cudafluidsimulation_tpu_torch.utils.png import write_png
 from cudafluidsimulation_tpu_torch.utils.timing import StageReport
+
+# spin kernels at each end of a --profile-dir trace (see _pad)
+PROFILE_PAD = 32
+
 
 def _backend(name: str) -> str:
     """The JAX package's name for its kernels' backend is the port's cuda."""
@@ -144,9 +151,12 @@ def build_parser() -> argparse.ArgumentParser:
                    "the rollout on the unfused ops).  'instrumented' is a "
                    "deprecated alias for 'decomposed'")
     p.add_argument("--profile-dir", default="",
-                   help="write a torch.profiler trace of the rollout here")
+                   help="write a torch.profiler trace of the rollout here; on "
+                   f"the card the trace also holds {PROFILE_PAD} spin kernels "
+                   "('spin_kernel', from torch.cuda._sleep) at each end, a pad "
+                   "that keeps every kernel of the rollout in the trace")
     p.add_argument("--view", choices=["none", "term", "http"], default="none",
-                   help="live view (not yet ported in this package)")
+                   help="live view: ANSI terminal or browser HTTP stream")
     p.add_argument("--http-port", type=int, default=0,
                    help="port for --view http (0 = pick a free one)")
     p.add_argument("--http-host", default="127.0.0.1",
@@ -265,23 +275,171 @@ def _warm_up(sim: Simulation, state: FluidState, imp: imps.Impulse, render: bool
     _sync(sim.device)
 
 
+def _pad(device: torch.device) -> None:
+    """PROFILE_PAD spin kernels (``torch.cuda._sleep``, ``spin_kernel`` in
+    the trace) between pauses of the host, then a synchronize; nothing on
+    the CPU.  A ``torch.profiler`` session on the card can lose its first
+    device records (up to 7 in a row were seen on an H100, in a process
+    that had opened many sessions): the pad, not the rollout, takes that
+    loss."""
+    if device.type != "cuda":
+        return
+    time.sleep(0.01)
+    for _ in range(PROFILE_PAD):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize(device)
+    time.sleep(0.01)
+
+
+@contextlib.contextmanager
 def _profile(profile_dir: str, device: torch.device):
     """A torch.profiler session over the rollout (CPU and, on the card, CUDA
-    activity); its Chrome trace lands in ``profile_dir`` on exit."""
+    activity), with the device idle at its start and a pad of spin kernels
+    at each end (:func:`_pad`); its Chrome trace lands in ``profile_dir``
+    on exit."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir))
+    _sync(device)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir)):
+        _pad(device)
+        yield
+        _sync(device)
+        _pad(device)
+
+
+def _view(args, cfg: FluidConfig, state: FluidState, imp: imps.Impulse,
+          video_quality: int) -> int:
+    """The live frame loop (``models.app.FluidApp``) with a view: the ANSI
+    terminal or a browser HTTP stream; honors the chosen impulse source and
+    the save/checkpoint/video flags (the JAX CLI's ``--view`` branch)."""
+    from cudafluidsimulation_tpu_torch.models.app import (
+        FluidApp, finish_readback, orbit_source, queue_readback, replay_source)
+
+    nx, ny = cfg.nx, cfg.ny
+    if args.impulse_file:
+        # replay the loaded script frame-by-frame (dt comes from the frame
+        # loop; see models.app.replay_source)
+        source = replay_source(imp)
+    elif args.impulse == "orbit":
+        source = orbit_source(cfg)
+    elif args.impulse == "center":
+        def source(t, _c=(nx / 2.0, ny / 2.0)):
+            return _c, (_c[0] - 3.0, _c[1] - 2.0), True
+    else:
+        def source(t, _c=(0.0, 0.0)):
+            return _c, _c, False
+
+    for flag, name in [(args.frames_dir, "--frames-dir"), (args.apng, "--apng")]:
+        if flag:
+            print(f"note: {name} is ignored with --view {args.view} "
+                  "(frames go to the live view)")
+    if args.health is not None:
+        print(f"note: --health is ignored with --view {args.view} "
+              "(the frame loop surfaces failures per frame)")
+
+    # periodic checkpointing works in the frame loop too (long interactive
+    # sessions should survive a crash/Ctrl-C)
+    ckpt_every = args.checkpoint_every if args.checkpoint else 0
+    if args.checkpoint_every and not args.checkpoint:
+        print("note: --checkpoint-every needs --checkpoint; ignored")
+
+    def on_frame(state, nframes):
+        if nframes % ckpt_every == 0:
+            save_state(args.checkpoint, state)
+
+    if args.view == "http":
+        from cudafluidsimulation_tpu_torch.utils.http_view import HttpViewer
+
+        viewer = HttpViewer(port=args.http_port, width=nx, height=ny, host=args.http_host)
+        print(f"live view: {'  '.join(viewer.urls)}  "
+              f"(bound on {args.http_host}; Ctrl-C to stop)", flush=True)
+    else:
+        from cudafluidsimulation_tpu_torch.utils.term_view import TermViewer
+
+        viewer = TermViewer()
+
+    # --video records the live session: the AVI writer streams each frame
+    # to disk (flat memory), so a tee costs one encode per frame.  Wall-clock
+    # pacing varies in a live loop; the file plays back at --video-fps.
+    avi = None
+    sink = viewer
+    if args.video:
+        from cudafluidsimulation_tpu_torch.utils.video import AviWriter
+
+        avi = AviWriter(args.video, nx, ny, fps=args.video_fps, codec=args.video_codec,
+                        quality=video_quality)
+
+        def sink(frame):
+            viewer(frame)
+            avi.add(frame)
+
+    stop_when = None
+    tin = contextlib.nullcontext()
+    if args.interactive and args.view == "http":
+        # live input FROM the browser page itself: the stream page posts
+        # pointer drags back to /input, the source polls them per frame
+        # (Main.cpp:213-243, browser edition)
+        source = viewer.input_source(nx, ny)
+        stop_when = lambda: viewer.quit_requested  # noqa: E731
+    elif args.interactive:
+        # live input: mouse drag / WASD — the reference's interactive loop
+        # (Main.cpp:213-243), terminal edition, sized to the TERM viewer so
+        # mouse cells land on the rendered pixels
+        import shutil
+
+        from cudafluidsimulation_tpu_torch.utils.term_input import TermInput
+
+        size = shutil.get_terminal_size((80, 24))
+        viewer.cols = viewer.cols or min(size.columns, 120)
+        viewer.rows = viewer.rows or min(size.lines - 2, 48)
+        tin = TermInput(nx, ny, viewer.cols, viewer.rows)
+        source = tin.source()
+        stop_when = lambda: tin.quit  # noqa: E731
+
+    app = FluidApp(cfg, input_source=source, frame_sink=sink, fixed_dt=args.dt)
+    app.state = state
+    if app.sim.device.type == "cuda":
+        # the build, the first step's planning and the pinned host blocks of
+        # the frames' readback stay out of the first frames' times
+        _warm_up(app.sim, state, imps.constant_impulse(1, cfg.dt, pos=(nx / 2, ny / 2)),
+                 render=False)
+        frame = app.sim.render_fn(state)
+        for readback in [queue_readback(frame), queue_readback(frame)]:
+            finish_readback(readback)
+    try:
+        with tin:
+            # cbreak keeps ISIG, so Ctrl-C raises here rather than reaching
+            # TermInput's \x03 handler — the session's state must still reach
+            # the save/checkpoint flags below
+            report = app.run(max_frames=args.steps or None, pipelined=args.pipelined,
+                             stop_when=stop_when,
+                             on_frame=on_frame if ckpt_every > 0 else None)
+    except KeyboardInterrupt:
+        report = None
+    state = app.state
+    if args.view == "http":
+        viewer.close()
+    if avi is not None:
+        avi.close()
+        print(f"recorded {app.frames}-frame {avi.codec.upper()} AVI of "
+              f"the session to {args.video}")
+    if args.save_fields:
+        _save_fields(args.save_fields, state)
+        print(f"saved fields to {args.save_fields}")
+    if args.checkpoint:
+        save_state(args.checkpoint, state)
+        print(f"saved checkpoint to {args.checkpoint}")
+    if report is not None:
+        print(report.format())
+    return 0
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.view != "none":
-        raise SystemExit(f"--view {args.view} is not yet ported in this package; "
-                         "run it headless, or the JAX package's CLI for the live views")
-    if args.mesh != "none":
+    if args.mesh != "none" and args.view == "none":
         raise SystemExit(f"--mesh {args.mesh} is not yet ported in this package; "
                          "run on one device, or the JAX package's CLI for the "
                          "sharded rollout")
@@ -320,6 +478,12 @@ def main(argv=None) -> int:
             )
     else:
         state = sim.init()
+
+    if args.view != "none":
+        if args.mesh != "none":
+            print(f"note: --mesh is ignored with --view {args.view} "
+                  "(the live frame loop is single-device)")
+        return _view(args, cfg, state, imp, video_quality)
 
     collect = bool(args.frames_dir or args.apng or args.video)
     health_on = args.health is not None

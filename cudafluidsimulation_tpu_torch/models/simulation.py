@@ -93,11 +93,19 @@ class Simulation:
     # -- rendering ----------------------------------------------------------
 
     @staticmethod
+    def frame_layout(device_frame: torch.Tensor, flip: bool = True) -> torch.Tensor:
+        """(4, H, W) frame -> contiguous uint8 (H, W, 4) image on the frame's
+        device (y-up at the top when ``flip``) — the one place the
+        layout/flip convention lives.  On the card the permute and the flip
+        are two copies on the device, so the host reads the image whole."""
+        img = device_frame.flip(1) if flip else device_frame
+        return img.permute(1, 2, 0).contiguous()
+
+    @staticmethod
     def frame_image(device_frame: torch.Tensor, flip: bool = True) -> np.ndarray:
-        """(4, H, W) frame -> uint8 (H, W, 4) host image (y-up at the top
-        when ``flip``) — the one place the layout/flip convention lives."""
-        img = np.moveaxis(device_frame.cpu().numpy(), 0, -1)
-        return img[::-1] if flip else img
+        """(4, H, W) frame -> uint8 (H, W, 4) host image (:meth:`frame_layout`,
+        read back)."""
+        return Simulation.frame_layout(device_frame, flip).cpu().numpy()
 
     def render(self, state: FluidState, flip: bool = True) -> np.ndarray:
         """uint8 (H, W, 4) frame; ``flip`` puts y-up at the image top."""

@@ -9,12 +9,14 @@
   bit for bit, however the rollout is segmented.
 - The parser has JAX's option strings and defaults; ``--backend`` takes
   ``auto | ref | cuda`` (``pallas`` is taken as ``cuda``).
-- ``--view`` and ``--mesh`` exit, not yet ported; without ``--backend`` on a
-  machine without a card the CLI exits and names ``--backend ref``.
+- ``--mesh`` exits, not yet ported (``--view``: tests/test_torch_view_cli.py);
+  without ``--backend`` on a machine without a card the CLI exits and names
+  ``--backend ref``.
 - The flags the JAX package's tests drive (tests/test_harness.py): impulse
   scripts, periodic checkpoints with rotation, the health check and its
   salvage, ``--resume``, both report modes (bucket names and order equal
-  JAX's), ``--profile-dir``, ``--apng`` and ``--video``.
+  JAX's), ``--profile-dir`` (one trace; its pad of spin kernels is the
+  card's alone), ``--apng`` and ``--video``.
 """
 
 import json
@@ -115,8 +117,6 @@ def test_parser_matches_jax():
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--view", "term"], "--view term is not yet ported"),
-    (["--view", "http"], "--view http is not yet ported"),
     (["--mesh", "rows"], "--mesh rows is not yet ported"),
     (["--mesh", "2d"], "--mesh 2d is not yet ported"),
 ])
@@ -260,6 +260,25 @@ def test_cli_profile_dir_writes_a_trace(tmp_path):
     traces = list(prof.glob("*.json"))
     assert len(traces) == 1
     assert "traceEvents" in json.loads(traces[0].read_text())
+
+
+def test_cli_profile_pad_is_the_cards_alone(tmp_path, monkeypatch):
+    """On the CPU the trace's pad launches nothing and waits for nothing:
+    ``--backend ref`` still writes exactly one trace, with no spin kernel."""
+    def card_only(*a, **kw):
+        raise AssertionError("the profiler pad touched the card on the CPU")
+
+    monkeypatch.setattr(torch.cuda, "_sleep", card_only)
+    monkeypatch.setattr(torch.cuda, "synchronize", card_only)
+    cli._pad(torch.device("cpu"))
+    prof = tmp_path / "prof"
+    assert cli.main(BASE + LIGHT + ["--steps", "3", "--report", "--profile-dir", str(prof)]) == 0
+    traces = list(prof.glob("*.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert not any("spin_kernel" in str(e.get("name", "")) for e in events)
+    assert not any(e.get("cat") == "kernel" for e in events)
+    assert f"{cli.PROFILE_PAD} spin kernels" in cli.build_parser().format_help()
 
 
 def test_cli_apng_and_video_frame_counts(tmp_path):
