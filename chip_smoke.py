@@ -147,7 +147,26 @@ caught:
    (one 512² step bit-equal to ``Simulation.step``) and
    ``examples/headless_run_torch.py`` (30 frames through ``FrameSink``, a
    checkpoint that loads);
-12. timing with CUDA events after a warm-up: driven and quiet steps/s of
+12. the sharded rollout (``parallel/``): H1's and H8's window entry
+   against their plain versions, bit for bit but for the dye's ``powf``
+   (``RTOL``), on a first, a middle and the last shard of 8192² over 4 rows
+   ((2048 + 62) x 8192, y0 = -31, 2017, 6113), a 2 x 2 corner shard
+   ((4096 + 62)², x0 = -31) and a ragged 135 x 240 window, both modes,
+   driven and quiet flows, ``vel_stats`` given and absent; H4's solve from
+   an iterate at 1, k, k + 1, 2k + 1 sweeps on a (2048 + 18) x 8192 shard;
+   H3 on an 8-padded shard in bursts of 3, its rows by the seam equal to
+   the global sweeps; then gpu parity at 8192² with 100 pressure sweeps
+   (BASELINE.json config 5) on a 4-shard rows mesh and a 2 x 2 mesh on
+   the visible card(s): a 20-step orbit rollout (launches, each shard's,
+   exchange pairs a step), one step against the sharded ``ref`` step, the
+   first step against one device within 1e-5 and the rollout against
+   ``Simulation.run`` (the realized displacement printed: past the halo
+   the meshes clamp taps, so the comparison is information), ms a step of
+   both; the fast flags and the quality preset on the rows mesh (3 steps,
+   then one step against the plain versions); the CLI's ``--mesh 2d`` and
+   ``--mesh rows`` 20-step runs, whose final states equal the rollouts';
+   ``entry.dryrun_multichip(4)`` and ``examples/multichip_2d_torch.py``;
+13. timing with CUDA events after a warm-up: driven and quiet steps/s of
    the parity, quality and fast paths, the fixed-cycle path's ms/step, the
    plain versions' ms/step on the card, the device launches one H3, one H4
    and each H6 call of the quality path make (``torch.profiler``; one each
@@ -165,7 +184,9 @@ caught:
    steps (batched, one member at a time and the device trace, all from the
    state each rollout reached before them), and the rows ``H5 batched``,
    ``H6 batched <end>`` (every end at the 64x512² fine level, the bottom at
-   16²), ``H6 batched mean_square``, ``H7 batched`` and ``H8 batched``.
+   16²), ``H6 batched mean_square``, ``H7 batched`` and ``H8 batched``;
+   and the sharded rows at the rows mesh's shard shapes: ``H1 window``,
+   ``H8 window``, ``H3 sharded``, ``H4 solve init``, ``H7 sharded``.
 
 Every ``torch.profiler`` trace runs marker kernels before and after the
 work it counts, and is taken again when it lost device records.
@@ -217,6 +238,10 @@ MG_PAIRS = ((2048, 2048), (540, 960), (32, 32), (2050, 2046))
 RTOL = {"H1": 1e-6, "H2": 0.0, "H3": 1e-5, "H3 sweeps": 0.0, "H4": 0.0,
         "H4 solve": 0.0, "H5": 1e-6, "H6": 0.0, "H7": 1e-5, "H7 sweeps": 0.0,
         "H8": 1e-6}
+# phase 12, the sharded rollout's entries: H1/H8's window is H1's/H8's
+# arithmetic on global coordinates; H4's solve from an iterate and H3 on a
+# padded shard (no splat) are blocked sweeps in the plain order: 0
+RTOL.update({"H1 window": 1e-6, "H8 window": 1e-6, "H4 solve init": 0.0, "H3 sharded": 0.0})
 # the batched kernels against their batched plain versions: the single
 # kernels' tolerances (and each member equals its B = 1 launch bit for bit)
 RTOL.update({f"{k} batched": RTOL[k] for k in ("H1", "H2", "H3", "H3 sweeps", "H4")})
@@ -533,7 +558,7 @@ def ensemble_phase(smi, gen, worst, reset_counts, read_counts, kernels):
     device operations of one batched step and runs one under
     ``set_sync_debug_mode("error")``; steps a cpu-variant ensemble and holds
     one step against the plain versions on the card.  Returns the timing
-    part, called in phase 12 (timing), which returns the batched rows of the kernels
+    part, called in phase 13 (timing), which returns the batched rows of the kernels
     line."""
     import dataclasses
 
@@ -1103,7 +1128,7 @@ def ensemble_rest_phase(smi, gen, worst, reset_counts, read_counts, kernels):
     multigrid steps from the sweep's state; the device operations of one
     batched fast step and one batched quality step, and the fast step under
     ``set_sync_debug_mode("error")``.  Returns the timing part, called in
-    phase 12 (timing): member-steps/s batched against one member at a time, and the
+    phase 13 (timing): member-steps/s batched against one member at a time, and the
     batched rows of the kernels line."""
     import dataclasses
 
@@ -2094,6 +2119,365 @@ def views_phase(smi, reset_counts, read_counts, dev):
     return expect
 
 
+# phase 12, the sharded rollout at BASELINE.json config 5's size: 8192²,
+# gpu parity, 100 pressure sweeps, a 4-shard rows mesh and a 2 x 2 mesh on
+# the visible card(s) (round-robin), the orbit of the CLI's --impulse orbit
+SH_N, SH_SHARDS, SH_STEPS, SH_FEW = 8192, 4, 20, 3
+# the kernels' check windows: a rows shard of 8192² over 4 (first, middle
+# and last: y0 = -d, interior, the physical bottom), a 2 x 2 shard, and a
+# ragged one; (interior rows, cols, d, d_x, y0, x0, global extent)
+SH_WINDOWS = {
+    "rows first": (2048, 8192, 31, 0, -31, 0, 8192),
+    "rows middle": (2048, 8192, 31, 0, 2048 - 31, 0, 8192),
+    "rows last": (2048, 8192, 31, 0, 3 * 2048 - 31, 0, 8192),
+    "2x2 corner": (4096, 4096, 31, 31, 4096 - 31, -31, 8192),
+    "ragged": (135, 240, 7, 7, 100, 33, 400),
+}
+
+
+def sharded_phase(smi, gen, worst, reset_counts, read_counts, kernels, dev):
+    """Phase 12: the sharded rollout (``parallel/``) on the card.
+
+    H1/H8's window entry against its plain version on each window of
+    SH_WINDOWS, both modes, driven and quiet flows, ``vel_stats`` given and
+    absent; H4's solve from an iterate at 1, k, k + 1 and 2k + 1 sweeps; H3
+    on a kk-padded shard in bursts shallower than kk (kept rows equal to the
+    global sweeps at the seam).  Then gpu parity at 8192² with 100 pressure
+    sweeps on a 4-shard rows mesh and a 2 x 2 mesh: a 20-step rollout with
+    each shard's launches, the exchange pairs a step, one step against the
+    sharded ``ref`` step on the card, the rollout against the one-device
+    ``Simulation.run`` (its first step within rounding; the realized
+    displacement printed, past which the meshes clamp taps), ms a step of
+    both; the fast flags and the quality preset on the rows mesh against
+    the same schedule on the plain versions; the CLI's ``--mesh 2d`` and
+    ``--mesh rows`` runs, whose states equal the rollouts'; the dry run and
+    the 2-D example.  Returns (the launches of the rollouts, a function
+    giving the kernel rows)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from cudafluidsimulation_tpu_torch import FluidConfig, Simulation, cli
+    from cudafluidsimulation_tpu_torch.entry import dryrun_multichip
+    from cudafluidsimulation_tpu_torch.ops import (
+        advect_cuda, advect_packed, fastdiffuse, fastdiffuse_cuda, jacobi_cuda, ref)
+    from cudafluidsimulation_tpu_torch.parallel import mesh as pmesh
+    from cudafluidsimulation_tpu_torch.parallel import shardmap2d, shardmap_step
+    from cudafluidsimulation_tpu_torch.utils import impulse as timp
+    from cudafluidsimulation_tpu_torch.utils.impulse import orbit_impulse, slice_step
+    from cudafluidsimulation_tpu_torch.utils.timing import cuda_times_ms
+
+    t_phase = time.perf_counter()
+    dt, decay_rate = 1.0 / 60.0, 1.2
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    # -- the kernels against their plain versions ------------------------------
+    cells = {}
+    for label, (hl, wl, d, d_x, y0, x0, ext) in SH_WINDOWS.items():
+        win = ref.Window(y0=y0, h_phys=ext, d=d, x0=x0, w_phys=ext, d_x=d_x)
+        fh, fw = ref.window_shape(win, hl, wl)
+        # driven (taps past the halo, clamped at +-d) and quiet (H8's exact
+        # branch) flows
+        for flow, speed in (("driven", 900.0), ("quiet", 30.0)):
+            pack = randn(5, fh, fw)
+            uv = pack[:2].mul_(speed)
+            pack[2:].abs_()
+            u, v = uv[0, d:d + hl, d_x:d_x + wl], uv[1, d:d + hl, d_x:d_x + wl]
+            bound = torch.stack([u.abs().max(), v.abs().max()])
+            for packed, name in ((False, "H1 window"), (True, "H8 window")):
+                for given in (True, False):
+                    vs = bound if given else None
+                    case = f"{label} {flow} vel_stats {'given' if given else 'absent'}"
+                    got = advect_cuda.advect_window(uv, u, v, dt, decay_rate, "field", win,
+                                                    vel_stats=vs, return_stats=True,
+                                                    packed=packed)
+                    exp = advect_packed.window_plain(uv, u, v, dt, decay_rate, "field", win,
+                                                     vel_stats=vs, return_stats=True,
+                                                     packed=packed)
+                    _check(worst, name, f"field {case}", [("uv", got[0], exp[0]),
+                                                         ("bound", got[1], exp[1])])
+                    u2, v2 = got[0][0], got[0][1]
+                    out = torch.full((3, hl, wl), float("nan"), device=dev)
+                    gd = advect_cuda.advect_window(pack[2:], u2, v2, dt, decay_rate, "dye",
+                                                   win, vel_stats=got[1] if given else None,
+                                                   packed=packed, out=out)
+                    ed = advect_packed.window_plain(pack[2:], u2, v2, dt, decay_rate, "dye",
+                                                    win, vel_stats=got[1] if given else None,
+                                                    packed=packed)
+                    _check(worst, name, f"dye {case}", [("dye", gd, ed)])
+        cells[label] = (hl, wl)
+    hs, ws = 2048 + 2 * 9, SH_N  # a rows shard with a burst's halo (k + 1)
+    k = jacobi_cuda.DEPTH
+    div, p0 = randn(hs, ws), randn(hs, ws)
+    for iters in (1, k, k + 1, 2 * k + 1):
+        _check(worst, "H4 solve init", f"{hs}x{ws} {iters} sweeps", [
+            ("p", jacobi_cuda.pressure_solve(div, iters, init=p0),
+             ref.pressure_solve(div, iters, init=p0))])
+    g = randn(5, 4096, 2048)
+    kk = 8
+    rows = torch.arange(2048 - kk, 4096 + kk, device=dev)  # shard 1 of 2 and its halo
+    fp = g[:, rows.clamp(max=4095)].contiguous()
+    fp[:, -kk:] = g[:, 4096 - kk:].flip(1)  # the physical top: the mirror
+    plan = jacobi_cuda.plan_bursts(fp.shape[1], fp.shape[2], kk, "diffuse", depth=3)
+    exp = ref.diffuse_multi(g, dt, [0.8] * 5, kk)[:, 2048:]
+    got = jacobi_cuda._diffuse(fp, dt, [0.8] * 5, kk, plan=plan)
+    _check(worst, "H3 sharded", f"padded shard {tuple(fp.shape)} bursts {plan.depths}",
+           [("padded", got, ref.diffuse_multi(fp, dt, [0.8] * 5, kk))])
+    seam = (got[:, kk:kk + 1024] - exp[:, :1024]).abs().max().item()
+    if seam != 0.0:
+        raise AssertionError(f"H3 sharded: the kept rows by the seam differ by {seam}")
+    del g, fp, got, exp, div, p0
+
+    # -- the full-size paths ----------------------------------------------------
+    cfg = FluidConfig.gpu_reference(nx=SH_N, ny=SH_N, pressure_iters=100, backend="cuda")
+    rcfg = FluidConfig.gpu_reference(nx=SH_N, ny=SH_N, pressure_iters=100, backend="ref")
+    imp = orbit_impulse(SH_STEPS, cfg.dt, center=(SH_N / 2, SH_N / 2), radius=SH_N / 8,
+                        omega=3.0)
+    devices = pmesh.place(SH_SHARDS)
+    meshes = {"rows": pmesh.make_mesh(SH_SHARDS, devices=devices),
+              "2x2": pmesh.make_mesh2d(2, 2, devices=devices)}
+    builders = {"rows": (shardmap_step.make_shardmap_step, shardmap_step.make_shardmap_rollout),
+                "2x2": (shardmap2d.make_shardmap2d_step, shardmap2d.make_shardmap2d_rollout)}
+    sim = Simulation(cfg)
+    one, disp = sim.run_displacement(sim.init(), imp)
+    first = sim.step(sim.init(), slice_step(imp, 0))
+    torch.cuda.synchronize()
+    single_ms = statistics.median(cuda_times_ms(lambda: sim.run(sim.init(), imp), iters=2))
+    launches, finals, report = {}, {}, {}
+    for kind, mesh in meshes.items():
+        make_step, make_run = builders[kind]
+        run = make_run(cfg, mesh)
+        state0 = pmesh.shard_state(sim.init(), mesh)
+        run(state0, imp)  # warm: each shard's first calls
+        reset_counts()
+        final = run(state0, imp)
+        torch.cuda.synchronize()
+        launches[kind] = {k: c for k, c in read_counts().items() if c}
+        by_shard = {k: dict(kern.by_shard) for k, (kern, _, _) in kernels.items()
+                    if kern.by_shard}
+        for k in ("H1 window", "H3", "H4 solve"):
+            if sorted(by_shard.get(k, {})) != list(range(mesh.size)):
+                raise AssertionError(f"{kind}: {k} launched by shards {by_shard.get(k)}")
+        pairs = run.counts[0]["exchanges"] / SH_STEPS
+        whole = pmesh.gather_state(final)
+        _check_state(f"sharded {kind}", whole)
+        step = make_step(cfg, mesh)
+        rstep = make_step(rcfg, mesh)
+        x = slice_step(imp, SH_STEPS - 1)
+        got = pmesh.gather_state(step(final, x))
+        exp = pmesh.gather_state(rstep(final, x))
+        vs_ref = {n: _max_err(getattr(got, n), getattr(exp, n))[1] for n in STATE_FIELDS}
+        if not max(vs_ref.values()) <= STEP_RTOL:
+            raise AssertionError(f"{kind}: one sharded step, cuda vs ref: {vs_ref}")
+        first_sh = pmesh.gather_state(step(state0, slice_step(imp, 0)))
+        vs_one_first = {n: _max_err(getattr(first_sh, n), getattr(first, n))[1]
+                        for n in STATE_FIELDS}
+        if not max(vs_one_first.values()) <= STEP_RTOL:
+            raise AssertionError(f"{kind}: first step against one device: {vs_one_first}")
+        vs_one = {n: _max_err(getattr(whole, n), getattr(one, n))[1] for n in STATE_FIELDS}
+        ms = statistics.median(cuda_times_ms(lambda: run(state0, imp), iters=2)) / SH_STEPS
+        # where one step's device time goes (one step from the final state)
+        ops = {}
+        for name, us in _device_trace(lambda: step(final, x)):
+            key = name.replace("(anonymous namespace)::", "").replace("void ", "")
+            key = key.split("(")[0].split("<")[0][:48]
+            ops[key] = ops.get(key, 0.0) + us / 1e3
+        finals[kind] = whole
+        report[kind] = {"launches": launches[kind], "launches_by_shard": by_shard,
+                        "exchange_pairs_per_step": pairs,
+                        "bytes_per_step_per_shard": run.counts[0]["bytes"] / SH_STEPS,
+                        "step_vs_ref_max_rel_err": vs_ref,
+                        "first_step_vs_one_device_max_rel_err": vs_one_first,
+                        "rollout_vs_one_device_max_rel_diff": vs_one,
+                        "ms_per_step": ms,
+                        "one_step_device_ms": sum(ops.values()),
+                        "one_step_device_ops_ms": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+        del final, got, exp, first_sh
+    d = cfg.max_displacement
+    _json({"phase": "sharded", "grid": f"{SH_N}x{SH_N}", "pressure_iters": 100,
+           "steps": SH_STEPS, "shards": SH_SHARDS, "devices": [str(x) for x in devices],
+           "meshes": report, "one_device_ms_per_step": single_ms / SH_STEPS,
+           "realized_max_displacement": disp, "max_displacement": d,
+           "rollouts_compared": ("within rounding: the taps never reached past the halo"
+                                 if max(disp) <= d else
+                                 "information: the flow outran the halo, where the meshes "
+                                 "clamp taps and one device does not"),
+           "tol_rollout_when_within_halo": 1e-3, "smi": smi})
+    if max(disp) <= d:
+        for kind in meshes:
+            if not max(report[kind]["rollout_vs_one_device_max_rel_diff"].values()) <= 1e-3:
+                raise AssertionError(f"{kind}: the rollout differs from one device within "
+                                     "the halo")
+
+    # the fast flags and the quality preset on the rows mesh: a few steps,
+    # then one driven step against the same schedule on the plain versions
+    # on the card
+    extra = {}
+    few = orbit_impulse(SH_FEW + 1, cfg.dt, center=(SH_N / 2, SH_N / 2), radius=SH_N / 8,
+                        omega=3.0)
+    for what, c in (("fast", FluidConfig.gpu_reference(nx=SH_N, ny=SH_N, pressure_iters=100,
+                                                        backend="cuda", **FAST)),
+                    ("quality", FluidConfig.quality(nx=SH_N, ny=SH_N, backend="cuda"))):
+        mesh = meshes["rows"]
+        run = shardmap_step.make_shardmap_rollout(c, mesh)
+        step = shardmap_step.make_shardmap_step(c, mesh)
+        plain = shardmap_step.make_shardmap_step(c, mesh, kernels=shardmap_step.PLAIN)
+        state0 = pmesh.shard_state(Simulation(c).init(), mesh)
+        reset_counts()
+        reached = run(state0, timp.Impulse(*(f[:SH_FEW] for f in few)))
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in read_counts().items() if n}
+        x = slice_step(few, SH_FEW)
+        a, b = (pmesh.gather_state(fn(reached, x)) for fn in (step, plain))
+        err = {n: _max_err(getattr(a, n), getattr(b, n))[1] for n in STATE_FIELDS}
+        need = ("H8 window", "H7") if what == "fast" else ("H1 window", "H3")
+        if not all(counts.get(k, 0) > 0 for k in need):
+            raise AssertionError(f"sharded {what}: launches {counts}")
+        extra[what] = {"launches": counts, "steps": SH_FEW,
+                       "step_vs_plain_max_rel_err": err}
+        if not max(err.values()) <= STEP_RTOL:
+            raise AssertionError(f"sharded {what}: one step against the plain versions {err}")
+        if what == "fast":
+            fast_launches = counts
+        del a, b, state0, reached
+    _json({"phase": "sharded_fast_quality", "grid": f"{SH_N}x{SH_N}", **extra,
+           "tol": STEP_RTOL})
+
+    # the CLI: its final state (kept from --save-fields) equals the rollout's
+    cli_runs = {}
+    saved = []
+    write = cli._save_fields
+    cli._save_fields = lambda path, st: saved.append(st)
+    try:
+        for kind, flag in (("2x2", "2d"), ("rows", "rows")):
+            argv = ["--grid", str(SH_N), "--steps", str(SH_STEPS), "--pressure-iters", "100",
+                    "--mesh", flag, "--mesh-devices", str(SH_SHARDS), "--report",
+                    "--save-fields", "unused.npz"]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            seconds = time.perf_counter() - t0
+            text = buf.getvalue()
+            if rc != 0 or "skipped with --mesh" not in text:
+                raise AssertionError(f"cli --mesh {flag}: exit {rc}\n{text}")
+            st = saved.pop()
+            for n in STATE_FIELDS:
+                if not torch.equal(getattr(st, n).to(dev), getattr(finals[kind], n)):
+                    raise AssertionError(f"cli --mesh {flag}: {n} differs from the rollout")
+            thr = re.search(r"Throughput: ([\d.]+) steps/s", text)
+            cli_runs[flag] = {"seconds": seconds, "steps_per_s": float(thr.group(1)),
+                              "mesh_lines": re.findall(r"^mesh: .*$", text, flags=re.M),
+                              "warnings": re.findall(r"^warning: .*$", text, flags=re.M)}
+    finally:
+        cli._save_fields = write
+    _json({"phase": "sharded_cli", "runs": cli_runs})
+
+    dry = dryrun_multichip(SH_SHARDS)
+    path = Path(__file__).resolve().parent / "examples" / "multichip_2d_torch.py"
+    spec = importlib.util.spec_from_file_location("multichip_2d_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with contextlib.redirect_stdout(io.StringIO()):
+        ex = example.main()
+    if not bool(torch.isfinite(ex.u).all()):
+        raise AssertionError("example multichip_2d_torch: non-finite velocity")
+    _json({"phase": "sharded_dryrun", "dryrun_multichip": dry,
+           "seconds": time.perf_counter() - t_phase})
+
+    # the rows' shapes: the rows mesh's shard views at 8192²
+    hl = SH_N // SH_SHARDS
+    win = ref.Window(y0=hl - 31, h_phys=SH_N, d=31)  # d of the rows' check: a middle shard
+    dwin = ref.Window(y0=hl - 15, h_phys=SH_N, d=15)  # the path's d
+    fp = torch.cat([torch.stack([finals["rows"].u, finals["rows"].v]),
+                    finals["rows"].dye])[:, hl - 15:2 * hl + 15].contiguous()
+    u, v = fp[0, 15:15 + hl], fp[1, 15:15 + hl]
+    u2, v2 = advect_cuda.advect_window(fp[:2], u, v, dt, decay_rate, "field", dwin)
+    u2, v2 = u2.contiguous(), v2.contiguous()
+    st = torch.stack([u.abs().max(), v.abs().max()])
+    sdiv = ref.divergence(finals["rows"].u, finals["rows"].v, True)[hl - 9:2 * hl + 9].contiguous()
+    sp0 = finals["rows"].pressure[hl - 9:2 * hl + 9].contiguous()
+    s5 = torch.cat([torch.stack([finals["rows"].u, finals["rows"].v]),
+                    finals["rows"].dye])[:, hl - 8:2 * hl + 8].contiguous()
+    sep = fastdiffuse.sharded_sep(FluidConfig.gpu_reference(
+        nx=SH_N, ny=SH_N, backend="cuda", **FAST))
+    rm = sep[1]
+    s7 = torch.cat([torch.stack([finals["rows"].u, finals["rows"].v]),
+                    finals["rows"].dye])[:, hl - rm:2 * hl + rm].contiguous()
+    taps5, radii5 = fastdiffuse._design(FluidConfig.gpu_reference(
+        nx=SH_N, ny=SH_N, backend="cuda", **FAST))[:2]
+    del win
+    cases = {
+        "H1 window": (lambda: (advect_cuda.advect_window(fp[:2], u, v, dt, decay_rate, "field",
+                                                         dwin, return_stats=True),
+                               advect_cuda.advect_window(fp[2:], u2, v2, dt, decay_rate, "dye",
+                                                         dwin)),
+                      lambda: (ref.advect_window(fp[:2], u, v, dt, decay_rate, "field", dwin,
+                                                 return_stats=True),
+                               ref.advect_window(fp[2:], u2, v2, dt, decay_rate, "dye", dwin)),
+                      [fp, u2, v2], hl * SH_N * 72, "rows"),
+        "H8 window": (lambda: (advect_cuda.advect_window(fp[:2], u, v, dt, decay_rate, "field",
+                                                         dwin, vel_stats=st, return_stats=True,
+                                                         packed=True),
+                               advect_cuda.advect_window(fp[2:], u2, v2, dt, decay_rate, "dye",
+                                                         dwin, vel_stats=st, packed=True)),
+                      lambda: (advect_packed.advect_window(fp[:2], u, v, dt, decay_rate,
+                                                           "field", dwin, vel_stats=st,
+                                                           return_stats=True),
+                               advect_packed.advect_window(fp[2:], u2, v2, dt, decay_rate,
+                                                           "dye", dwin, vel_stats=st)),
+                      [fp, u2, v2, st], hl * SH_N * 82, "fast"),
+        "H3 sharded": (lambda: jacobi_cuda.diffuse_multi(s5, dt, [0.8] * 5, 8),
+                       lambda: ref.diffuse_multi(s5, dt, [0.8] * 5, 8),
+                       [s5], s5[0].numel() * 5 * 6 * 8, "rows"),
+        "H4 solve init": (lambda: jacobi_cuda.pressure_solve(sdiv, 8, init=sp0),
+                          lambda: ref.pressure_solve(sdiv, 8, init=sp0),
+                          [sdiv, sp0], sdiv.numel() * 5 * 8, "rows"),
+        "H7 sharded": (lambda: fastdiffuse_cuda.sep_apply(s7, taps5, radii5),
+                       lambda: fastdiffuse.sep_apply(s7, taps5, radii5),
+                       [s7], s7[0].numel() * 5 * 2 * sum(2 * (2 * r + 1) for r in radii5),
+                       "fast"),
+    }
+    path_launches = {"rows": {k: launches["rows"].get(k, 0) + launches["2x2"].get(k, 0)
+                              for k in set(launches["rows"]) | set(launches["2x2"])},
+                     "fast": fast_launches}
+    source = {"H1 window": ("H1 window", "advect.cu", "advect_pallas.py:413"),
+              "H8 window": ("H8 window", "advect.cu", "advect_pallas.py:195"),
+              "H3 sharded": ("H3", "diffuse.cu", "jacobi_pallas.py:492"),
+              "H4 solve init": ("H4 solve", "pressure.cu", "jacobi_pallas.py:681"),
+              "H7 sharded": ("H7", "sepdiffuse.cu", "fastdiffuse.py:262")}
+    worst_of = {"H1 window": "H1 window", "H8 window": "H8 window", "H3 sharded": "H3 sharded",
+                "H4 solve init": "H4 solve init", "H7 sharded": "H7 sweeps"}
+
+    def rows_fn(per_call):
+        out = []
+        for name, (kern_fn, plain_fn, inputs, ops, path) in cases.items():
+            counter, src, replaces = source[name]
+            nbytes = _nbytes(inputs) + _nbytes(kern_fn())
+            bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+            p1 = per_call(plain_fn, iters=2, warmup=1)
+            k1 = per_call(kern_fn, iters=3, warmup=1)
+            k2 = per_call(kern_fn, iters=3, warmup=0)
+            p2 = per_call(plain_fn, iters=2, warmup=0)
+            out.append({
+                "name": name, "route": "cuda",
+                "source": f"cudafluidsimulation_tpu_torch/csrc/{src}",
+                "replaces": f"cudafluidsimulation_tpu/ops/{replaces}",
+                "launches": path_launches[path].get(counter, 0),
+                "path": f"sharded {path} 8192²",
+                "max_abs_err": worst[worst_of[name]],
+                "ms": statistics.median(k1 + k2), "device_ms": _device_ms(kern_fn),
+                "plain_ms": statistics.median(p1 + p2),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes, "operations": ops, "library_ms": None})
+        return out
+
+    return launches, rows_fn
+
+
 def entry_phase(reset_counts, read_counts, dev):
     """The port's ``entry()`` (one 512² parity step, bit-equal to
     ``Simulation.step``) and ``examples/headless_run_torch.py`` (30 frames
@@ -2206,6 +2590,9 @@ def main() -> int:
                                    "multigrid.py:226"),
         "H7 batched": (fastdiffuse_cuda.SEP_BATCHED, "sepdiffuse.cu", "fastdiffuse.py:262"),
         "H8 batched": (advect_cuda.PACKED_BATCHED, "advect.cu", "advect_pallas.py:195"),
+        # phase 12: the sharded rollout's window entries of H1 and H8
+        "H1 window": (advect_cuda.WINDOW, "advect.cu", "advect_pallas.py:413"),
+        "H8 window": (advect_cuda.PACKED_WINDOW, "advect.cu", "advect_pallas.py:195"),
     }
     row_names = {"H8": "H8 advect_packed"}
 
@@ -2717,7 +3104,11 @@ def main() -> int:
     view_launches = views_phase(smi[0], reset_counts, read_counts, dev)
     entry_phase(reset_counts, read_counts, dev)
 
-    # -- 12. timing ------------------------------------------------------------
+    # -- 12. the sharded rollout at 8192² -----------------------------------------
+    _, sharded_rows = sharded_phase(smi[0], gen, worst, reset_counts, read_counts, kernels,
+                                    dev)
+
+    # -- 13. timing ------------------------------------------------------------
     def rates(what, sim_, ref_sim_):
         driven_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), driven), iters=3))
         quiet_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), quiet), iters=3))
@@ -2927,6 +3318,7 @@ def main() -> int:
         })
     rows += ens()
     rows += rest()
+    rows += sharded_rows(per_call)
     _json({"phase": "profiler_sessions", **TRACES})
     print(smi[0], flush=True)
     _json({"kernels": rows})

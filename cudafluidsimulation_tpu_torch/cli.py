@@ -14,18 +14,28 @@ with ``--interactive``.
 
 It runs on the CUDA device: the default ``--backend auto`` (and ``cuda``)
 runs the Hopper kernels and exits, naming ``--backend ref``, when there is
-no card; ``--backend ref`` runs the plain PyTorch ops on the CPU.  The
-sharded rollout (``--mesh rows|2d``) parses but is not yet ported: it
-exits with a message (with ``--view`` it is ignored, as in the JAX CLI).
+no card; ``--backend ref`` runs the plain PyTorch ops on the CPU.
 
-The port's advection is the reference's unbounded backtrace on every
-backend, so there is no advection-clamp warning (``utils.health.clamp_axes``).
+``--mesh rows|2d`` runs the sharded rollout (``parallel/``) over
+``--mesh-devices`` shards (default: every visible device); more shards than
+devices are placed round-robin on them, which a line says.  Frames, fields,
+health checks and checkpoints gather the state; ``--report`` keeps the
+whole-step timings and skips the sampled stage rows; with ``--view`` the
+mesh is ignored (the live frame loop is one device), as in the JAX CLI.
+
+    python -m cudafluidsimulation_tpu_torch.cli --grid 8192 --steps 100 \
+        --pressure-iters 100 --mesh 2d --mesh-devices 4 --report
+
+The one-device advection is the reference's unbounded backtrace; the
+meshes bound its taps by their halo (``utils.health.clamp_axes``), and the
+run warns when the realized displacement outran that bound.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import math
 import os
 import sys
 import time
@@ -39,7 +49,8 @@ from cudafluidsimulation_tpu_torch.state import FluidState
 from cudafluidsimulation_tpu_torch.utils import impulse as imps
 from cudafluidsimulation_tpu_torch.utils.checkpoint import (
     load_state_with_fallback, save_state)
-from cudafluidsimulation_tpu_torch.utils.health import HealthError, check_health
+from cudafluidsimulation_tpu_torch.utils.health import (
+    Health, HealthError, check_health, clamp_axes, displacement_check)
 from cudafluidsimulation_tpu_torch.utils.png import write_png
 from cudafluidsimulation_tpu_torch.utils.timing import StageReport
 
@@ -166,10 +177,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pipelined", action="store_true",
                    help="with --view: overlap step dispatch with frame readback")
     p.add_argument("--mesh", choices=["none", "rows", "2d"], default="none",
-                   help="shard the rollout over devices (not yet ported in "
-                   "this package)")
+                   help="shard the rollout over a device mesh (rows, or rows x "
+                   "cols); the grid must be divisible by the mesh shape")
     p.add_argument("--mesh-devices", type=int, default=0,
-                   help="device count for --mesh (0 = all visible devices)")
+                   help="device count for --mesh (0 = all visible devices; "
+                   "more are placed round-robin on the visible ones)")
     return p
 
 
@@ -186,6 +198,55 @@ def _save_fields(path: str, state: FluidState) -> None:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _clamp_warning(cfg: FluidConfig, state: FluidState, mesh: str):
+    """Warning string when the state's velocity bound shows a realized
+    advection displacement beyond ``max_displacement`` on a path that
+    clamps taps there (the meshes, ``utils.health.clamp_axes``); None when
+    the path is exact or the flow stayed within the bound."""
+    axes = clamp_axes(cfg.resolve_backend(), mesh)
+    if not axes:
+        return None
+    # the producer-emitted bound of the state's velocity: an 8-byte read
+    au, av = (float(x) for x in state.vel_stats.cpu())
+    if not (math.isfinite(au) and math.isfinite(av)):
+        return None  # blow-up reporting is the health check's job
+    return displacement_check(Health(True, 0.0, 0.0, au, av), cfg.dt,
+                              cfg.max_displacement, axes)
+
+
+def _mesh_run(args, cfg: FluidConfig, sim: Simulation, state: FluidState):
+    """``--mesh``: (the sharded rollout, the sharded state) over
+    ``--mesh-devices`` shards, round-robin on the visible devices of the
+    simulation's kind (the JAX CLI's mesh shapes: rows, or the squarest
+    rows x cols)."""
+    from cudafluidsimulation_tpu_torch.parallel import mesh as pmesh
+
+    visible = pmesh.visible_devices() if sim.device.type == "cuda" else [sim.device]
+    ndev = args.mesh_devices or len(visible)
+    devices = pmesh.place(ndev, visible)
+    if ndev > len(visible):
+        print(f"mesh: {ndev} shards on {len(visible)} {sim.device.type} device(s), "
+              "placed round-robin")
+    if args.mesh == "rows":
+        from cudafluidsimulation_tpu_torch.parallel.shardmap_step import make_shardmap_rollout
+
+        mesh = pmesh.make_mesh(ndev, devices=devices)
+        run_fn = make_shardmap_rollout(cfg, mesh)
+        print(f"mesh: {ndev} devices, rows-only decomposition")
+    else:
+        from cudafluidsimulation_tpu_torch.parallel.shardmap2d import make_shardmap2d_rollout
+
+        nr = 1
+        for cand in range(int(ndev ** 0.5), 0, -1):
+            if ndev % cand == 0:
+                nr = cand
+                break
+        mesh = pmesh.make_mesh2d(nr, ndev // nr, devices=devices)
+        run_fn = make_shardmap2d_rollout(cfg, mesh)
+        print(f"mesh: {ndev} devices, {nr}x{ndev // nr} rows x cols")
+    return run_fn, pmesh.shard_state(state, mesh)
 
 
 def _config(args, nx: int, ny: int) -> FluidConfig:
@@ -261,15 +322,24 @@ def _impulses(args, cfg: FluidConfig, nx: int, ny: int) -> imps.Impulse:
     return imp
 
 
-def _warm_up(sim: Simulation, state: FluidState, imp: imps.Impulse, render: bool) -> None:
+def _warm_up(sim: Simulation, state: FluidState, imp: imps.Impulse, render: bool,
+             run_fn=None) -> None:
     """Build the kernels (one nvcc a source, all at once) and run one step
     (and one render) on a copy of ``state``, dropped, so that neither the
-    build nor a first call's planning is billed to the timed rollout."""
+    build nor a first call's planning is billed to the timed rollout.
+    ``run_fn``: the sharded rollout, ``state`` then sharded."""
     from cudafluidsimulation_tpu_torch.ops import _build
 
     _build.build_all()
-    copy = FluidState(*(t.clone() for t in state))
-    warm = sim.step(copy, imps.slice_step(imp, 0))
+    if run_fn is not None:
+        from cudafluidsimulation_tpu_torch.parallel.mesh import ShardedState, gather_state
+
+        copy = ShardedState(state.mesh, tuple(FluidState(*(t.clone() for t in s))
+                                              for s in state.shards))
+        warm = gather_state(run_fn(copy, imps.Impulse(*(f[:1] for f in imp))))
+    else:
+        copy = FluidState(*(t.clone() for t in state))
+        warm = sim.step(copy, imps.slice_step(imp, 0))
     if render:
         sim.render_fn(warm)
     _sync(sim.device)
@@ -439,10 +509,6 @@ def _view(args, cfg: FluidConfig, state: FluidState, imp: imps.Impulse,
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh != "none" and args.view == "none":
-        raise SystemExit(f"--mesh {args.mesh} is not yet ported in this package; "
-                         "run on one device, or the JAX package's CLI for the "
-                         "sharded rollout")
     if args.checkpoint_every < 0:
         raise SystemExit("--checkpoint-every must be >= 0")
     nx = args.nx or args.grid
@@ -510,8 +576,17 @@ def main(argv=None) -> int:
     else:
         seg = max(1, n_total)
 
+    # --mesh: the sharded rollout over a device mesh; frames, fields,
+    # health checks and checkpoints gather the state
+    run_fn, whole, devices = sim.run, (lambda st: st), {sim.device}
+    if args.mesh != "none":
+        from cudafluidsimulation_tpu_torch.parallel.mesh import gather_state
+
+        run_fn, state = _mesh_run(args, cfg, sim, state)
+        whole, devices = gather_state, set(state.mesh.devices)
+
     if sim.device.type == "cuda" and n_total > 0:
-        _warm_up(sim, state, imp, collect)
+        _warm_up(sim, state, imp, collect, None if args.mesh == "none" else run_fn)
 
     frames = []
     seg_stats = []  # (wall seconds, steps) per segment
@@ -524,34 +599,45 @@ def main(argv=None) -> int:
         # tensors, so the state before a segment stays whole
         last_good = state
         steps_since_ckpt = 0
+        clamp_warned = False
         while start < n_total:
             end = min(start + seg, n_total)
             part = imps.Impulse(*(f[start:end] for f in imp))
             s0 = time.perf_counter()
-            state = sim.run(state, part)
-            _sync(sim.device)
+            state = run_fn(state, part)
+            for d in devices:
+                _sync(d)
             seg_stats.append((time.perf_counter() - s0, end - start))
             if collect:
-                frames.append(sim.render(state))
+                frames.append(sim.render(whole(state)))
             if health_on:
                 try:
-                    check_health(state, max_speed=max_speed)
+                    h = check_health(whole(state), max_speed=max_speed)
                 except HealthError as e:
                     # salvage the last healthy state so a long run is not a
                     # total loss (the recovery layer the reference lacks)
                     if args.checkpoint:
-                        save_state(args.checkpoint, last_good)
+                        good = whole(last_good)
+                        save_state(args.checkpoint, good)
                         print(f"saved last healthy state (step "
-                              f"{int(last_good.step)}) to {args.checkpoint}")
+                              f"{int(good.step)}) to {args.checkpoint}")
                     raise SystemExit(f"health check failed: {e}")
+                # per segment: a transient fast flow shows even if the
+                # final state has calmed
+                axes = clamp_axes(cfg.resolve_backend(), args.mesh)
+                w = displacement_check(h, cfg.dt, cfg.max_displacement, axes) if axes else None
+                if w and not clamp_warned:
+                    print(f"warning: {w}")
+                    clamp_warned = True
                 last_good = state
             if ckpt_every:
                 steps_since_ckpt += end - start
                 if steps_since_ckpt >= ckpt_every:
-                    save_state(args.checkpoint, state)
+                    save_state(args.checkpoint, whole(state))
                     steps_since_ckpt = 0
             start = end
         wall = time.perf_counter() - t0
+    state = whole(state)
 
     if args.frames_dir:
         os.makedirs(args.frames_dir, exist_ok=True)
@@ -581,8 +667,17 @@ def main(argv=None) -> int:
         save_state(args.checkpoint, state)
         print(f"saved checkpoint to {args.checkpoint}")
 
+    if not clamp_warned:
+        warn = _clamp_warning(cfg, state, args.mesh)
+        if warn:
+            print(f"warning: {warn}")
+
     rep = StageReport(grid=f"{nx}x{ny}", steps=args.steps, total_s=wall)
-    if args.report:
+    if args.report and args.mesh != "none":
+        print("note: per-stage --report sampling reflects the single-chip "
+              "op set; skipped with --mesh (whole-step timings above are "
+              "the sharded rollout's)")
+    elif args.report:
         if args.report_mode == "decomposed":
             from cudafluidsimulation_tpu_torch.utils.instrument import run_instrumented
 

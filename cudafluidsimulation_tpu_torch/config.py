@@ -11,11 +11,12 @@ difference: ``backend`` is ``ref | cuda | auto``.
 - ``auto`` (the default): the same as ``cuda``, and it raises without a
   CUDA device too, so a simulation never falls back to the CPU unasked.
 
-Fields that only steer the TPU kernels' scheduling (``block_rows``,
-``jacobi_burst``) are carried for parity and have no effect here.
-``max_displacement`` bounds the TPU advection kernel's backtrace; the
-port's advection is unbounded like the JAX ref backend, so it has no
-effect either.  Multigrid pressure (the ``quality`` preset) and the fast
+``block_rows``, which steers the TPU kernels' strips, is carried for
+parity and has no effect here.  ``jacobi_burst`` and ``max_displacement``
+set the sharded rollout's halos (``parallel/``): the sweeps between two
+exchanges, and the advection's halo depth, which bounds its taps there;
+on one device neither has an effect (the port's advection is unbounded
+like the JAX ref backend).  Multigrid pressure (the ``quality`` preset) and the fast
 modes are ported: ``fast_diffuse`` (separable diffusion, kernel H7),
 ``fast_velocity`` and ``fast_dye`` (bf16-tap advection, kernel H8).  With
 a packed mode, ``advect_fast_path`` decides whether a quiet step (realized

@@ -35,6 +35,21 @@
 // lax.cond of the JAX package becomes a per-member select.  A single call
 // is the case B = 1 with the scalars by value; it compiles without the
 // member loop (the BATCH template flag).
+//
+// The window entry (fluid_advect_window, H1, or H8 with packed) serves the
+// sharded rollout (the port's parallel/shardmap_step.py and shardmap2d.py),
+// which advects each shard on a halo-padded local view, as the JAX package's
+// sharded step calls advect_pallas.advect with y0, h_phys, x0, w_phys and
+// d_x (advect_pallas.py _tap_setup).  A thread takes one cell of the view's
+// interior (rows [d, d + h), columns [d_x, d_x + w)), backtraces from the
+// cell's global coordinates, truncates the corner toward zero, clamps it to
+// the physical grid [0, h_phys - 1] x [0, w_phys - 1], bounds the tap's
+// offset from the cell to +-d rows (and +-d_x columns when d_x > 0), and
+// reads the tap in the padded planes.  The halo rows are never written: the
+// TPU kernel advects the whole padded view and its caller slices the
+// interior, which gives the same cells.  The velocity bound covers the
+// interior alone, the cells the caller keeps.  The single-device entries
+// above are compiled apart and keep their bits.
 #include <stdint.h>
 
 #include "fluid_common.cuh"
@@ -49,30 +64,15 @@ __device__ __forceinline__ float bf16_tap(float x) {
   return __uint_as_float((__float_as_uint(x) + 0x8000u) & 0xFFFF0000u);
 }
 
-// One cell of both kernels: bit ch of round_mask rounds channel ch's taps;
-// clamp clamps the dye blend to >= 0.  Writes the outputs and sets mu, mv
-// to |u'|, |v'| in the velocity mode.
+// The blend of one cell's four taps (flat indices i00..i11 into the field
+// planes) by the fractions tx, ty, into output index io: bit ch of
+// round_mask rounds channel ch's taps; clamp clamps the dye blend to >= 0.
+// Writes the outputs and sets mu, mv to |u'|, |v'| in the velocity mode.
 template <bool DYE>
-__device__ __forceinline__ void advect_cell(
-    const Planes& planes, int c, const float* __restrict__ u,
-    const float* __restrict__ v, int h, int w, int x, int y, float dt,
-    float decay, unsigned round_mask, bool clamp, float& mu, float& mv) {
-  const int i = y * w + x;
-  // departure point pos - dt*vel (GPUFluidSim.cu:267)
-  const float px = static_cast<float>(x) - dt * u[i];
-  const float py = static_cast<float>(y) - dt * v[i];
-  const float x1 = truncf(px);
-  const float y1 = truncf(py);
-  const float tx = px - x1;
-  const float ty = py - y1;
-  const float wm = static_cast<float>(w - 1);
-  const float hm = static_cast<float>(h - 1);
-  const int xi1 = static_cast<int>(fminf(fmaxf(x1, 0.f), wm));
-  const int xi2 = static_cast<int>(fminf(fmaxf(x1 + 1.f, 0.f), wm));
-  const int yi1 = static_cast<int>(fminf(fmaxf(y1, 0.f), hm));
-  const int yi2 = static_cast<int>(fminf(fmaxf(y1 + 1.f, 0.f), hm));
-  const int i00 = yi1 * w + xi1, i01 = yi1 * w + xi2;
-  const int i10 = yi2 * w + xi1, i11 = yi2 * w + xi2;
+__device__ __forceinline__ void advect_blend(
+    const Planes& planes, int c, int i00, int i01, int i10, int i11, float tx,
+    float ty, int io, float decay, unsigned round_mask, bool clamp, float& mu,
+    float& mv) {
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
     if (ch >= c) break;
@@ -98,8 +98,78 @@ __device__ __forceinline__ void advect_cell(
       if (ch == 0) mu = fabsf(r);
       if (ch == 1) mv = fabsf(r);
     }
-    planes.out[ch][i] = r;
+    planes.out[ch][io] = r;
   }
+}
+
+// One cell of the single-device kernels.
+template <bool DYE>
+__device__ __forceinline__ void advect_cell(
+    const Planes& planes, int c, const float* __restrict__ u,
+    const float* __restrict__ v, int h, int w, int x, int y, float dt,
+    float decay, unsigned round_mask, bool clamp, float& mu, float& mv) {
+  const int i = y * w + x;
+  // departure point pos - dt*vel (GPUFluidSim.cu:267)
+  const float px = static_cast<float>(x) - dt * u[i];
+  const float py = static_cast<float>(y) - dt * v[i];
+  const float x1 = truncf(px);
+  const float y1 = truncf(py);
+  const float tx = px - x1;
+  const float ty = py - y1;
+  const float wm = static_cast<float>(w - 1);
+  const float hm = static_cast<float>(h - 1);
+  const int xi1 = static_cast<int>(fminf(fmaxf(x1, 0.f), wm));
+  const int xi2 = static_cast<int>(fminf(fmaxf(x1 + 1.f, 0.f), wm));
+  const int yi1 = static_cast<int>(fminf(fmaxf(y1, 0.f), hm));
+  const int yi2 = static_cast<int>(fminf(fmaxf(y1 + 1.f, 0.f), hm));
+  advect_blend<DYE>(planes, c, yi1 * w + xi1, yi1 * w + xi2, yi2 * w + xi1,
+                    yi2 * w + xi2, tx, ty, i, decay, round_mask, clamp, mu, mv);
+}
+
+// Where a shard's padded view lies in the global grid (ops/ref.py Window):
+// the global row and column of its (0, 0), the global extents, the halo
+// depths (d_x 0: columns unbounded), the padded width (the field planes'
+// row pitch) and the row pitch of u and v.
+struct Window {
+  int y0, x0, h_phys, w_phys, d, d_x, fw, uw;
+};
+
+// One interior cell (x, y) of the window: padded coordinates (x + d_x,
+// y + d), global (x0 + x + d_x, y0 + y + d); output index y * w + x.
+template <bool DYE>
+__device__ __forceinline__ void advect_cell_window(
+    const Planes& planes, int c, const float* __restrict__ u,
+    const float* __restrict__ v, const Window& g, int w, int x, int y,
+    float dt, float decay, unsigned round_mask, bool clamp, float& mu,
+    float& mv) {
+  const int ly = y + g.d, lx = x + g.d_x;
+  const int gy = g.y0 + ly, gx = g.x0 + lx;
+  const int iu = y * g.uw + x;
+  const float px = static_cast<float>(gx) - dt * u[iu];
+  const float py = static_cast<float>(gy) - dt * v[iu];
+  const float x1 = truncf(px);
+  const float y1 = truncf(py);
+  const float tx = px - x1;
+  const float ty = py - y1;
+  const float wm = static_cast<float>(g.w_phys - 1);
+  const float hm = static_cast<float>(g.h_phys - 1);
+  const int cx1 = static_cast<int>(fminf(fmaxf(x1, 0.f), wm));
+  const int cx2 = static_cast<int>(fminf(fmaxf(x1 + 1.f, 0.f), wm));
+  const int cy1 = static_cast<int>(fminf(fmaxf(y1, 0.f), hm));
+  const int cy2 = static_cast<int>(fminf(fmaxf(y1 + 1.f, 0.f), hm));
+  const int ry1 = ly + min(max(cy1 - gy, -g.d), g.d);
+  const int ry2 = ly + min(max(cy2 - gy, -g.d), g.d);
+  int rx1, rx2;
+  if (g.d_x > 0) {
+    rx1 = lx + min(max(cx1 - gx, -g.d_x), g.d_x);
+    rx2 = lx + min(max(cx2 - gx, -g.d_x), g.d_x);
+  } else {
+    rx1 = cx1 - g.x0;
+    rx2 = cx2 - g.x0;
+  }
+  advect_blend<DYE>(planes, c, ry1 * g.fw + rx1, ry1 * g.fw + rx2,
+                    ry2 * g.fw + rx1, ry2 * g.fw + rx2, tx, ty, y * w + x,
+                    decay, round_mask, clamp, mu, mv);
 }
 
 // Member strides (floats) of the field planes in and out and of u and v;
@@ -307,5 +377,102 @@ FLUID_API int fluid_advect_packed(const float* f0, const float* f1,
   else
     advect_packed_kernel<false, false><<<grid, block, 0, s>>>(
         planes, c, u, v, bound, st, h, w, dt, decay, fast_path, m);
+  return cudaGetLastError();
+}
+
+// H1 (PACKED false) or H8 on the interior of a window; bound: the device
+// [max|u|, max|v|] that decides H8's quiet branch (read when PACKED and
+// fast_path); stats, when not null, receives [max|u'|, max|v'|] of the
+// interior in the velocity mode.
+template <bool DYE, bool PACKED>
+__global__ void advect_window_kernel(Planes planes, int c,
+                                     const float* __restrict__ u,
+                                     const float* __restrict__ v,
+                                     const float* __restrict__ bound,
+                                     float* __restrict__ stats, int h, int w,
+                                     float dt, float decay, int fast_path,
+                                     Window g) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  unsigned mask = 0u;
+  bool clamp = false;
+  if (PACKED) {
+    const bool quiet = fast_path && bound[0] * dt < 1.f && bound[1] * dt < 1.f;
+    mask = quiet ? 0u : 3u;
+    clamp = DYE && !quiet;
+  }
+  float mu = 0.f, mv = 0.f;
+  if (x < w && y < h)
+    advect_cell_window<DYE>(planes, c, u, v, g, w, x, y, dt, decay, mask, clamp, mu, mv);
+  if (!DYE && stats != nullptr) fluid_block_max2_atomic(mu, mv, stats);
+}
+
+// [max|u|, max|v|] of the (h, w) cells at row pitch uw into out[0..1]
+// (zeroed first)
+__global__ void window_bound_kernel(const float* __restrict__ u,
+                                    const float* __restrict__ v,
+                                    float* __restrict__ out, int h, int w, int uw) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  float a = 0.f, b = 0.f;
+  if (x < w && y < h) {
+    a = fabsf(u[y * uw + x]);
+    b = fabsf(v[y * uw + x]);
+  }
+  fluid_block_max2_atomic(a, b, out);
+}
+
+// The window entry.  fields: c <= 3 padded planes f0..f2 of (h + 2d) rows
+// by fw columns, fw >= w + 2 d_x; outputs o0..o2: (h, w); u, v: the (h, w)
+// cells' velocity at row pitch uw.  y0, x0, h_phys, w_phys, d, d_x: the
+// window (ops/ref.py Window; w_phys > 0).  With d_x = 0 the taps' columns
+// are global ones shifted by -x0, so [0, w_phys) must lie within the view.
+// packed selects H8 (fast_path, bound and scratch as fluid_advect_packed's);
+// stats (velocity mode, may be null) receives the interior's bound.
+FLUID_API int fluid_advect_window(const float* f0, const float* f1, const float* f2,
+                                  float* o0, float* o1, float* o2, const float* u,
+                                  const float* v, const float* bound, float* scratch,
+                                  float* stats, int c, int h, int w, int dye, int packed,
+                                  int fast_path, float dt, float decay, int y0, int x0,
+                                  int h_phys, int w_phys, int d, int d_x, int fw, int uw,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c < 1 || c > 3 || h < 1 || w < 1 || d < 0 || d_x < 0 || h_phys < 1 || w_phys < 1 ||
+      fw < w + 2 * d_x || uw < w)
+    return cudaErrorInvalidValue;
+  if (d_x == 0 && (x0 > 0 || w_phys - x0 > fw)) return cudaErrorInvalidValue;
+  Planes planes = {{f0, f1, f2}, {o0, o1, o2}};
+  const Window g = {y0, x0, h_phys, w_phys, d, d_x, fw, uw};
+  const dim3 block(FLUID_BX, FLUID_BY);
+  const dim3 grid = fluid_grid2d(h, w);
+  cudaError_t e;
+  if (!packed || !fast_path) {
+    bound = nullptr;
+  } else if (bound == nullptr) {
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    e = cudaMemsetAsync(scratch, 0, 2 * sizeof(float), s);
+    if (e != cudaSuccess) return e;
+    window_bound_kernel<<<grid, block, 0, s>>>(u, v, scratch, h, w, uw);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    bound = scratch;
+  }
+  float* st = dye ? nullptr : stats;
+  if (st != nullptr) {
+    e = cudaMemsetAsync(st, 0, 2 * sizeof(float), s);
+    if (e != cudaSuccess) return e;
+  }
+  if (dye && packed)
+    advect_window_kernel<true, true><<<grid, block, 0, s>>>(planes, c, u, v, bound, st, h, w, dt,
+                                                            decay, fast_path, g);
+  else if (dye)
+    advect_window_kernel<true, false><<<grid, block, 0, s>>>(planes, c, u, v, bound, st, h, w, dt,
+                                                             decay, fast_path, g);
+  else if (packed)
+    advect_window_kernel<false, true><<<grid, block, 0, s>>>(planes, c, u, v, bound, st, h, w, dt,
+                                                             decay, fast_path, g);
+  else
+    advect_window_kernel<false, false><<<grid, block, 0, s>>>(planes, c, u, v, bound, st, h, w,
+                                                              dt, decay, fast_path, g);
   return cudaGetLastError();
 }

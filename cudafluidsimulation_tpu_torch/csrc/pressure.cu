@@ -6,7 +6,8 @@
 // -> _single_pressure_kernel, _first_pressure_kernel, _pressure_kernel,
 // _last_pressure_kernel (and _first_/_last_pressure_kernel_tiled,
 // _pressure_kernel_tiled), with _emit_vel_stats; its pressure_solve entry
-// replaces jacobi_pallas.py pressure_solve -> _pressure_kernel.
+// replaces jacobi_pallas.py pressure_solve -> _pressure_kernel, from p = 0
+// or from a given iterate (its init).
 //   div = (uR - uL) + (vT - vB), times 0.5 when half   (GPUFluidSim.cu:297-310)
 //   p   = (pL + pR + pB + pT - div) * 0.25, iters sweeps from p = 0
 //   u' = u - 0.5*(pR - pL), v' = v - 0.5*(pT - pB)     (GPUFluidSim.cu:498-516)
@@ -226,7 +227,7 @@ static cudaError_t pressure_bursts(PressureBurst k, const int* depths,
     PressureBurst b = k;
     b.depth = depths[j];
     b.from_uv = from_uv && j == 0;
-    b.from_zero = j == 0;
+    b.from_zero = j == 0 && k.p_in == nullptr;  // else the first burst continues from p_in
     b.project = project && last;
     b.div_out = (from_uv && j == 0 && !last) ? div : nullptr;
     if (j > 0) b.div_in = from_uv ? div : k.div_in;
@@ -276,17 +277,24 @@ FLUID_API int fluid_pressure_project(const float* u, const float* v,
                          static_cast<cudaStream_t>(stream));
 }
 
-// div in; p out; scratch: (h, w), used when nbursts >= 2.  nbursts = 0
-// (iters = 0) zeroes p.
+// div in; p out; scratch: (h, w), used when nbursts >= 2.  init: the
+// (h, w) iterate the sweeps continue from (the sharded rollout chains its
+// bursts across halo exchanges, as jacobi_pallas.py pressure_solve's init
+// does), or null to start from p = 0 with the first sweep's shortcut.
+// nbursts = 0 (iters = 0) zeroes p, or copies init into it.
 FLUID_API int fluid_pressure_solve(const float* div, float* p, float* scratch,
                                    int h, int w, int tile_h, int tile_w,
                                    const int* depths, int nbursts,
-                                   void* stream) {
+                                   const float* init, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (h < 1 || w < 1 || nbursts < 0) return cudaErrorInvalidValue;
-  if (nbursts == 0) return cudaMemsetAsync(p, 0, sizeof(float) * h * w, s);
+  if (nbursts == 0)
+    return init == nullptr
+               ? cudaMemsetAsync(p, 0, sizeof(float) * h * w, s)
+               : cudaMemcpyAsync(p, init, sizeof(float) * h * w, cudaMemcpyDeviceToDevice, s);
   PressureBurst k = {};
   k.nb = 1;
+  k.p_in = init;
   k.div_in = div;
   k.h = h;
   k.w = w;

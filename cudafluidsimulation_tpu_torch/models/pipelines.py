@@ -66,12 +66,22 @@ def make_step(config: FluidConfig, ops=None) -> StepFn:
                 if five else None)
 
         # -- advection: velocity first; dye through the advected velocity
-        #    (cpuFluidSim.cpp:340-341 / GPUFluidSim.cu:620-622)
-        u, v, vstats = ops.advect_velocity(u, v, dt, config.decay_rate,
-                                           vel_stats=state.vel_stats,
-                                           return_stats=True)
-        dye = ops.advect_dye(dye, u, v, dt, config.decay_rate, vel_stats=vstats,
-                             out=None if pack is None else pack[2:])
+        #    (cpuFluidSim.cpp:340-341 / GPUFluidSim.cu:620-622).  A namespace
+        #    may give the optional ``advect_both`` (the sharded rollout's:
+        #    one halo exchange carries velocity and dye, since both tap
+        #    pre-advection data)
+        dye_out = None if pack is None else pack[2:]
+        advect_both = getattr(ops, "advect_both", None)
+        if advect_both is not None:
+            u, v, dye, vstats = advect_both(u, v, dye, dt, config.decay_rate,
+                                            vel_stats=state.vel_stats, return_stats=True,
+                                            out=dye_out)
+        else:
+            u, v, vstats = ops.advect_velocity(u, v, dt, config.decay_rate,
+                                               vel_stats=state.vel_stats,
+                                               return_stats=True)
+            dye = ops.advect_dye(dye, u, v, dt, config.decay_rate, vel_stats=vstats,
+                                 out=dye_out)
 
         # -- vorticity confinement
         confine = ops.vorticity_confinement_cpu if cpu_variant else ops.vorticity_confinement_gpu

@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
@@ -38,6 +39,17 @@ NVCC_FLAGS = [
 ]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one build or load at a time: the shards of a mesh (parallel/mesh.py) call
+# the wrappers from one thread each
+_LOAD_LOCK = threading.Lock()
+# the shard (``parallel.mesh``) whose thread launches: its index in the
+# mesh, or None outside a sharded run
+_SHARD = threading.local()
+
+
+def set_shard(index: Optional[int]) -> None:
+    """Tag this thread's launches with shard ``index`` (None: untagged)."""
+    _SHARD.index = index
 
 
 def nvcc() -> str:
@@ -103,13 +115,14 @@ def build_log(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build_all([name])[name]))
-        lib.fluid_error_string.argtypes = [ctypes.c_int]
-        lib.fluid_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
-    return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all([name])[name]))
+            lib.fluid_error_string.argtypes = [ctypes.c_int]
+            lib.fluid_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return lib
 
 
 class Kernel:
@@ -118,22 +131,26 @@ class Kernel:
 
     ``launches`` is a plain integer that :meth:`launch` adds one to each
     time a wrapper launches the kernel; nothing else changes it but
-    :meth:`reset`.
+    :meth:`reset`.  ``by_shard`` counts the same launches by the shard
+    (:func:`set_shard`) whose thread made them.
     """
 
     def __init__(self, name: str, entries: Dict[str, list]):
         self.name = name
         self.entries = entries
         self.launches = 0
+        self.by_shard: Dict[int, int] = {}
         self._lib: Optional[ctypes.CDLL] = None
+        self._count_lock = threading.Lock()
 
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
             lib = load(self.name)
-            for fn, argtypes in self.entries.items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            self._lib = lib
+            with _LOAD_LOCK:
+                for fn, argtypes in self.entries.items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                self._lib = lib
         return self._lib
 
     def launch(self, entry: str, *args) -> None:
@@ -144,10 +161,16 @@ class Kernel:
         if code != 0:
             msg = lib.fluid_error_string(code).decode()
             raise RuntimeError(f"{self.name}: {entry} failed: CUDA error {code} ({msg})")
-        self.launches += 1
+        shard = getattr(_SHARD, "index", None)
+        with self._count_lock:
+            self.launches += 1
+            if shard is not None:
+                self.by_shard[shard] = self.by_shard.get(shard, 0) + 1
 
     def reset(self) -> None:
-        self.launches = 0
+        with self._count_lock:
+            self.launches = 0
+            self.by_shard = {}
 
 
 def stream_of(t: torch.Tensor) -> int:

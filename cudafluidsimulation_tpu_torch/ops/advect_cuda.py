@@ -37,6 +37,16 @@ bf16-rounded taps, each member's quiet branch decided on the device from
 its own row of ``vel_stats`` (B, 2) and its own dt, so a batch may mix
 quiet and driven members and the step still reads nothing back.
 
+**H1 window and H8 window** (:func:`advect_window`, ``WINDOW``): the
+sharded rollout (``parallel/``) advects each shard on a halo-padded local
+view, as the JAX package's sharded step calls ``advect_pallas.advect`` with
+``y0``, ``h_phys``, ``x0``, ``w_phys`` and ``d_x``.  One thread per interior
+cell backtraces from the cell's global coordinates, clamps the corner to
+the physical grid, bounds the tap's offset from the cell by the halo depth
+(``ref.Window``) and reads the padded planes; only the interior, the rows
+the caller keeps, is computed and bounds the velocity.  Plain versions:
+``ref.advect_window`` and ``advect_packed.advect_window``.
+
 The wrappers take the plain versions (``ops.ref``, ``ops.advect_packed``)
 for CPU tensors and launch the kernel or raise for CUDA tensors.
 """
@@ -67,6 +77,13 @@ _PACKED = {"fluid_advect_packed": [_P] * 11 + [_I] * 5 + [_F, _F, _I] + [_L] * 4
 PACKED = Kernel("advect", _PACKED)
 # the same entry, B members a launch (its own launch count)
 PACKED_BATCHED = Kernel("advect", _PACKED)
+# fluid_advect_window(f0, f1, f2, o0, o1, o2, u, v, bound, scratch, stats,
+#                     c, h, w, dye, packed, fast_path, dt, decay, y0, x0,
+#                     h_phys, w_phys, d, d_x, fw, uw, stream)
+_WINDOW = {"fluid_advect_window": [_P] * 11 + [_I] * 6 + [_F, _F] + [_I] * 8 + [_P]}
+# H1's window (the sharded rollout), and H8's (packed), each its own count
+WINDOW = Kernel("advect", _WINDOW)
+PACKED_WINDOW = Kernel("advect", _WINDOW)
 
 
 def _ptrs(tensors):
@@ -270,4 +287,72 @@ def advect_dye_batched(dye, u, v, dt, decay_rate, *, vel_stats=None, params=None
     else:
         _launch_batched(list(dye[0]), list(out[0]), dye.stride(0), out.stride(0), u, v,
                         None, params, dye=True)
+    return out
+
+
+def _check_cells(name, t, shape):
+    """(h, w) float32 cells at a row pitch (a view of a padded plane's
+    interior): unit column stride; returns the pitch."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.stride(-1) != 1 or t.stride(0) < t.shape[1]:
+        raise ValueError(f"{name}: expected rows of unit stride")
+    return t.stride(0)
+
+
+def advect_window(fields, u, v, dt, decay_rate, mode: str, window: ref.Window, *,
+                  vel_stats=None, return_stats: bool = False, packed: bool = False,
+                  fast_path: bool = True, out=None):
+    """Advection of the interior of a shard's padded view (``ref.Window``):
+    ``fields`` (C <= 3, h + 2d, w + 2d_x), each plane contiguous; ``u``,
+    ``v`` the (h, w) cells' velocity, rows of unit stride at one pitch (the
+    interior of a padded plane may be passed as it lies).  ``mode``
+    "field" (decay; ``return_stats`` also returns the interior's
+    [max|u'|, max|v'|]) or "dye" (the fade; ``out`` (C, h, w) receives it).
+    ``packed`` takes H8's bf16 taps, with ``fast_path`` and ``vel_stats``
+    steering its quiet branch.  Semantics: ``advect_packed.window_plain``,
+    the plain version on CPU tensors."""
+    if out is not None:
+        ref.check_out(out, (fields.shape[0],) + tuple(u.shape), fields, u, v, vel_stats)
+    if not on_card(*_given(fields, u, v, vel_stats, out)):
+        return advect_packed.window_plain(
+            fields, u, v, dt, decay_rate, mode, window, vel_stats=vel_stats,
+            return_stats=return_stats, packed=packed, fast_path=fast_path, out=out)
+    if mode not in ("field", "dye"):
+        raise ValueError(f"mode must be 'field' or 'dye', got {mode!r}")
+    if return_stats and mode != "field":
+        raise ValueError("return_stats: the velocity bound is the 'field' mode's")
+    h, w = u.shape
+    fh, fw = ref.window_shape(window, h, w)
+    if fields.dim() != 3 or not 1 <= fields.shape[0] <= 3:
+        raise ValueError(f"fields: expected (C<=3, H, W), got {tuple(fields.shape)}")
+    check_planes("fields", fields, (fields.shape[0], fh, fw))
+    pitch = _check_cells("u", u, (h, w))
+    if _check_cells("v", v, (h, w)) != pitch:
+        raise ValueError(f"u, v: row pitches differ ({pitch}, {v.stride(0)})")
+    if vel_stats is not None:
+        check_f32("vel_stats", vel_stats, (2,))
+    w_phys = window.w_phys or fw
+    if window.d_x == 0 and (window.x0 > 0 or w_phys - window.x0 > fw):
+        raise ValueError(f"window {window}: columns [0, {w_phys}) lie outside the view")
+    c = fields.shape[0]
+    out = torch.empty((c, h, w), dtype=torch.float32, device=u.device) if out is None else out
+    stats = torch.empty((2,), dtype=torch.float32, device=u.device) if return_stats else None
+    scratch = (torch.empty((2,), dtype=torch.float32, device=u.device)
+               if packed and fast_path and vel_stats is None else None)
+    kern = PACKED_WINDOW if packed else WINDOW
+    with torch.cuda.device(u.device):
+        kern.launch(
+            "fluid_advect_window", *_ptrs(list(fields)), *_ptrs(list(out)),
+            u.data_ptr(), v.data_ptr(),
+            vel_stats.data_ptr() if vel_stats is not None else None,
+            scratch.data_ptr() if scratch is not None else None,
+            stats.data_ptr() if stats is not None else None,
+            c, h, w, int(mode == "dye"), int(bool(packed)), int(bool(fast_path)),
+            float(ref.f32(dt)), ref.decay_factor(dt, decay_rate), window.y0, window.x0,
+            window.h_phys, w_phys, window.d, window.d_x, fw, pitch, stream_of(u))
+    if return_stats:
+        return out, stats
     return out

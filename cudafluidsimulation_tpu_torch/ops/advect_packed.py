@@ -127,3 +127,44 @@ def advect_dye_batched(dye: Tensor, u: Tensor, v: Tensor, dt, decay_rate, *,
                                   vel_stats=_member_stats(vel_stats, i), fast_path=fast_path)
                        for i in range(u.shape[0])])
     return res if out is None else out.copy_(res)
+
+
+def advect_window(fields: Tensor, u: Tensor, v: Tensor, dt, decay_rate, mode: str,
+                  window: ref.Window, *, vel_stats=None, return_stats: bool = False,
+                  fast_path: bool = True, out=None):
+    """Kernel H8's window entry, plain: ``ref.advect_window`` (the sharded
+    rollout's padded view, ``ref.Window``) over bf16-rounded taps, rounded
+    as :func:`advect_velocity` and :func:`advect_dye` round them ("field":
+    both channels; "dye": channels 0 and 1, the blend clamped to >= 0),
+    and with ``fast_path`` the exact result on a quiet step, decided from
+    ``vel_stats`` or from the maxima of the cells' (u, v)."""
+    if return_stats and mode != "field":
+        raise ValueError("return_stats: the velocity bound is the 'field' mode's")
+    if mode == "dye":
+        taps = torch.cat([bf16_round(fields[:2]), fields[2:]])
+    else:
+        taps = bf16_round(fields)
+    s = ref.window_bilerp(taps, u, v, dt, window)
+    if mode == "dye":
+        s = torch.where(s < 0, 0.0, s)
+    res = ref.finish_advect(s, dt, decay_rate, mode)
+    if fast_path:
+        exact = ref.advect_window(fields, u, v, dt, decay_rate, mode, window)
+        res = torch.where(quiet(u, v, dt, vel_stats), exact, res)
+    res = ref._into(out, res)
+    if return_stats:
+        return res, ref.vel_max(res[0], res[1])
+    return res
+
+
+def window_plain(fields, u, v, dt, decay_rate, mode, window, *, vel_stats=None,
+                 return_stats: bool = False, packed: bool = False,
+                 fast_path: bool = True, out=None):
+    """The plain version of the window entries of H1 (``ref.advect_window``)
+    and, with ``packed``, of H8 (:func:`advect_window`)."""
+    if packed:
+        return advect_window(fields, u, v, dt, decay_rate, mode, window,
+                             vel_stats=vel_stats, return_stats=return_stats,
+                             fast_path=fast_path, out=out)
+    return ref.advect_window(fields, u, v, dt, decay_rate, mode, window,
+                             return_stats=return_stats, out=out)

@@ -25,6 +25,8 @@ truncation error as the interior.
   designed at the config's nominal dt and coefficients; unlike the JAX
   package, which ignores a call's ``dt``, ``coeffs`` and ``iters``, the
   port raises ``ValueError`` when they differ from the nominal ones.
+- :func:`sharded_sep` gives the sharded rollout the same ops and the halo
+  radius their one mirror exchange needs.
 - :func:`sep_apply_batched` and :func:`make_batched_ops` are the same for
   ensembles (B members, the batched H7 wrapper): the same taps for every
   member, each member's dt and coefficients checked against the nominal
@@ -376,6 +378,27 @@ def make_ops(config, apply=None) -> dict:
         "diffuse_multi": diffuse_multi,
         "diffuse_multi_splat": diffuse_multi_splat,
     }
+
+
+def sharded_sep(config, apply=None):
+    """(ops, halo radius) for the sharded rollout's namespaces
+    (``parallel/``), or None where :func:`make_ops` gives none.
+
+    The separable op is one pass, so a shard runs it on its local array
+    padded by ONE rmax-deep mirror exchange: the mirror is the half-sample
+    symmetric ghost the op's edges need at the physical edges; at the seams
+    the halo rows are the neighbours' real rows, and the op's own edge
+    reflection only reaches the halo's output rows, which are dropped.
+    ``apply`` as in :func:`make_ops`."""
+    ops = make_ops(config, apply)
+    if not ops:
+        return None
+    iters = config.diffusion_iters
+    rmax = 0
+    for coeff in (config.velocity_diffusion, config.color_diffusion):
+        xs, _ = design_taps(coeff ** 2 / config.dt, iters, rtol=2e-4)
+        rmax = max(rmax, max((len(x) - 1) // 2 for x in xs))
+    return ops, rmax
 
 
 def make_batched_ops(config, apply=None) -> dict:

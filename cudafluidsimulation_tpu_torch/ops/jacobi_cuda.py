@@ -37,7 +37,8 @@ and v and sweeps from p = 0, the last runs one ring deeper, subtracts the
 gradient and emits [max|u'|, max|v'|].  Its standalone entry
 ``pressure_solve`` (``PRESSURE_SOLVE``, its own launch count) replaces
 ``jacobi_pallas.pressure_solve`` → ``_pressure_kernel``: the same bursts
-over a given ``div``.  40 sweeps at 2048²: 0.385 ms, against 0.96 ms one
+over a given ``div``, from p = 0 or, as JAX's ``init``, from a given
+iterate.  40 sweeps at 2048²: 0.385 ms, against 0.96 ms one
 launch a sweep (same card); the solve alone 0.32 ms.
 
 :func:`plan_bursts` chooses the tile and the sweeps of each burst: fewer,
@@ -95,9 +96,9 @@ VORTICITY_BATCHED = Kernel("vorticity", _VORTICITY)
 DIFFUSE_BATCHED = Kernel("diffuse", _DIFFUSE)
 PRESSURE_BATCHED = Kernel("pressure", _PRESSURE)
 # fluid_pressure_solve(div, p, scratch, h, w, tile_h, tile_w, depths*,
-#                      nbursts, stream)
+#                      nbursts, init, stream); init may be null
 PRESSURE_SOLVE = Kernel("pressure", {
-    "fluid_pressure_solve": [_P] * 3 + [_I] * 4 + [_P, _I, _P],
+    "fluid_pressure_solve": [_P] * 3 + [_I] * 4 + [_P, _I, _P, _P],
 })
 # fluid_divergence(u, v, div, h, w, half, nb, u_ms, v_ms, stream);
 # fluid_project(p, u, v, u2, v2, stats, h, w, nb, u_ms, v_ms, stream),
@@ -373,12 +374,15 @@ def pressure_project(u, v, iters: int, half: bool, *,
     return out if return_stats else out[:3]
 
 
-def pressure_solve(div, iters: int):
-    """``iters`` Jacobi sweeps from p = 0; ``ops.ref.pressure_solve``."""
-    if not on_card(div):
-        return ref.pressure_solve(div, iters)
+def pressure_solve(div, iters: int, init=None):
+    """``iters`` Jacobi sweeps from p = 0, or from the (H, W) iterate
+    ``init`` (the sharded rollout's later bursts); ``ops.ref.pressure_solve``."""
+    if not on_card(*[t for t in (div, init) if t is not None]):
+        return ref.pressure_solve(div, iters, init=init)
     h, w = div.shape
     check_f32("div", div, (h, w))
+    if init is not None:
+        check_f32("init", init, (h, w))
     plan = plan_bursts(h, w, iters, "solve")
     depths, depths_ptr, nbursts = _depths(plan)
     p = torch.empty_like(div)
@@ -387,7 +391,8 @@ def pressure_solve(div, iters: int):
         PRESSURE_SOLVE.launch(
             "fluid_pressure_solve", div.data_ptr(), p.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
-            h, w, *plan.tile, depths_ptr, nbursts, stream_of(div))
+            h, w, *plan.tile, depths_ptr, nbursts,
+            init.data_ptr() if init is not None else None, stream_of(div))
     return p
 
 

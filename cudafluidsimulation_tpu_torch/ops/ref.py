@@ -17,7 +17,7 @@ on the device.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -183,6 +183,105 @@ def advect_dye(dye: Tensor, u: Tensor, v: Tensor, dt, decay_rate, *,
     return _into(out, torch.fmin(torch.pow(c, 1.005) * decay, c.new_ones(())))
 
 
+class Window(NamedTuple):
+    """Where a shard's padded view lies in the global grid, for the window
+    advection of the sharded rollout (``parallel/``): ``y0``, ``x0`` are the
+    global row and column of the padded array's (0, 0), ``h_phys`` and
+    ``w_phys`` the global extents the taps clamp to (``w_phys`` 0: the
+    padded width), ``d`` and ``d_x`` the halo depths in rows and columns,
+    which bound a tap's offset from its cell (``d_x`` 0: columns
+    unbounded).  The cells advected are the padded array's interior, rows
+    [d, d + h) and columns [d_x, d_x + w) of an (h + 2d, w + 2d_x) view."""
+
+    y0: int
+    h_phys: int
+    d: int
+    x0: int = 0
+    w_phys: int = 0
+    d_x: int = 0
+
+
+def window_shape(window: Window, h: int, w: int) -> Tuple[int, int]:
+    """The padded extents (rows, columns) of an (h, w) interior."""
+    return h + 2 * window.d, w + 2 * window.d_x
+
+
+def window_bilerp(fields: Tensor, u: Tensor, v: Tensor, dt, window: Window) -> Tensor:
+    """The window advection's bilinear sample (the sharded JAX step's
+    ``_bilerp_padded`` and ``advect_pallas._tap_setup``): each interior cell
+    of the padded (C, h + 2d, w + 2d_x) ``fields`` backtraces from its
+    global coordinates through (u, v) (h, w), truncates the corner toward
+    zero, clamps it to the physical grid, bounds the tap's offset from the
+    cell to +-d rows (and +-d_x columns), then reads the padded array.
+    Returns (C, h, w)."""
+    h, w = u.shape
+    d, d_x = window.d, window.d_x
+    fh, fw = window_shape(window, h, w)
+    if tuple(fields.shape[-2:]) != (fh, fw):
+        raise ValueError(f"fields: expected padded (C, {fh}, {fw}), got {tuple(fields.shape)}")
+    dev = u.device
+    ly = torch.arange(h, device=dev)[:, None] + d
+    lx = torch.arange(w, device=dev)[None, :] + d_x
+    gy, gx = ly + window.y0, lx + window.x0
+    dt = float(f32(dt))
+    px = gx.to(torch.float32) - dt * u
+    py = gy.to(torch.float32) - dt * v
+    x1 = torch.trunc(px)
+    y1 = torch.trunc(py)
+    tx = px - x1
+    ty = py - y1
+    w_phys = window.w_phys or fw
+    cx1 = x1.clamp(0, w_phys - 1).long()
+    cx2 = (x1 + 1).clamp(0, w_phys - 1).long()
+    cy1 = y1.clamp(0, window.h_phys - 1).long()
+    cy2 = (y1 + 1).clamp(0, window.h_phys - 1).long()
+    ry1 = (cy1 - gy).clamp(-d, d) + ly
+    ry2 = (cy2 - gy).clamp(-d, d) + ly
+    if d_x:
+        rx1 = (cx1 - gx).clamp(-d_x, d_x) + lx
+        rx2 = (cx2 - gx).clamp(-d_x, d_x) + lx
+    else:
+        rx1, rx2 = cx1 - window.x0, cx2 - window.x0
+    flat = fields.reshape(fields.shape[:-2] + (fh * fw,))
+
+    def tap(ry, rx):
+        return flat.index_select(-1, (ry * fw + rx).reshape(-1)).reshape(
+            fields.shape[:-2] + (h, w))
+
+    top = tap(ry1, rx1) * (1.0 - tx) + tap(ry1, rx2) * tx
+    bot = tap(ry2, rx1) * (1.0 - tx) + tap(ry2, rx2) * tx
+    return top * (1.0 - ty) + bot * ty
+
+
+def finish_advect(s: Tensor, dt, decay_rate, mode: str) -> Tensor:
+    """The sample's decay ("field") or dye fade fmin(1, s^1.005 * decay)
+    ("dye"), as :func:`advect_velocity` and :func:`advect_dye` apply them."""
+    decay = decay_factor(dt, decay_rate)
+    if mode == "dye":
+        return torch.fmin(torch.pow(s, 1.005) * decay, s.new_ones(()))
+    if mode != "field":
+        raise ValueError(f"mode must be 'field' or 'dye', got {mode!r}")
+    return s * decay
+
+
+def advect_window(fields: Tensor, u: Tensor, v: Tensor, dt, decay_rate, mode: str,
+                  window: Window, *, vel_stats=None, return_stats: bool = False,
+                  out=None):
+    """Kernel H1's window entry, plain: :func:`window_bilerp` then the
+    decay or the dye fade.  ``mode`` "field" advects the (2, ...) velocity
+    and ``return_stats`` also returns :func:`vel_max` of the interior it
+    wrote; ``out`` (C, h, w) receives the result.  ``vel_stats`` is
+    accepted for signature parity and unused."""
+    del vel_stats
+    if return_stats and mode != "field":
+        raise ValueError("return_stats: the velocity bound is the 'field' mode's")
+    res = _into(out, finish_advect(window_bilerp(fields, u, v, dt, window), dt,
+                                   decay_rate, mode))
+    if return_stats:
+        return res, vel_max(res[0], res[1])
+    return res
+
+
 # ---------------------------------------------------------------------------
 # Vorticity confinement
 # ---------------------------------------------------------------------------
@@ -274,19 +373,33 @@ def diffuse_multi(fields: Tensor, dt, coeffs, iters: int) -> Tensor:
                    _per_channel(inv_beta, fields), iters)
 
 
-def _gaussian(like: Tensor, center, radius) -> Tensor:
-    """exp(-d2/radius) over ``like``'s (H, W) grid, d2 the squared distance
-    to ``center`` (x, y)."""
-    xs, ys = coord_grids(like.shape[-2], like.shape[-1], device=like.device)
+def _gaussian_at(xs: Tensor, ys: Tensor, center, radius) -> Tensor:
+    """exp(-d2/radius) over the coordinate grids (xs, ys), d2 the squared
+    distance to ``center`` (x, y)."""
     center = f32_vec(center)
     d2 = (xs - float(center[0])) ** 2 + (ys - float(center[1])) ** 2
     return torch.exp(-d2 / float(f32(radius)))
 
 
-def splat_tail(fields: Tensor, amps, last, radius) -> Tensor:
+def _gaussian(like: Tensor, center, radius) -> Tensor:
+    """:func:`_gaussian_at` over ``like``'s own (H, W) grid."""
+    return _gaussian_at(*_grids(like), center, radius)
+
+
+def _grids(like: Tensor, xs=None, ys=None):
+    """(xs, ys): the given coordinate grids, or ``like``'s own (H, W) cell
+    grids (:func:`coord_grids`) when they are None."""
+    if xs is None:
+        return coord_grids(like.shape[-2], like.shape[-1], device=like.device)
+    return xs, ys
+
+
+def splat_tail(fields: Tensor, amps, last, radius, xs=None, ys=None) -> Tensor:
     """fields[c] += amps[c] * exp(-d2(last)/radius): the gpu-variant splat
-    with the scalar products already folded into ``amps``."""
-    e = _gaussian(fields, last, radius)
+    with the scalar products already folded into ``amps``.  ``xs``, ``ys``:
+    the cells' coordinates (a shard's global ones, ``parallel/``), by
+    default ``fields``' own grid."""
+    e = _gaussian_at(*_grids(fields, xs, ys), last, radius)
     return fields + _per_channel(f32_vec(amps), fields) * e[None]
 
 
@@ -310,10 +423,12 @@ def divergence(u: Tensor, v: Tensor, half: bool) -> Tensor:
     return 0.5 * d if half else d
 
 
-def pressure_solve(div: Tensor, iters: int) -> Tensor:
+def pressure_solve(div: Tensor, iters: int, init=None) -> Tensor:
     """``iters`` Jacobi sweeps of p = 0.25*(pL + pR + pB + pT - div) from
-    p = 0 (both reference paths zero pressure every frame)."""
-    p = torch.zeros_like(div)
+    p = 0 (both reference paths zero pressure every frame), or from the
+    iterate ``init`` (the sharded rollout chains bursts across halo
+    exchanges, ``parallel/shardmap_step.py``)."""
+    p = torch.zeros_like(div) if init is None else init
     for _ in range(iters):
         l, r, b, t = neighbors(p)
         p = (l + r + b + t - div) * 0.25
@@ -358,8 +473,11 @@ def pressure_project(u: Tensor, v: Tensor, iters: int, half: bool, *,
 # ---------------------------------------------------------------------------
 
 
-def _splat(u, v, dye, cur, last, dt, force_scale, radius, color, kind: str):
-    """Splat numerics.
+def splat_core(u, v, dye, cur, last, dt, force_scale, radius, color, xs, ys,
+               kind: str):
+    """Splat numerics over explicit coordinate grids ``xs``, ``ys`` (the
+    cells' own, or a shard's global ones), for one device and the sharded
+    rollout alike.
 
     cpu kind (cpuFluidSim.cpp:299-324): force Gaussian at the previous
     position, dye Gaussian at the current one, force = (last - cur) * dt *
@@ -368,17 +486,22 @@ def _splat(u, v, dye, cur, last, dt, force_scale, radius, color, kind: str):
     float32 association order."""
     cur, last, color = f32_vec(cur), f32_vec(last), f32_vec(color)
     dt, fs = f32(dt), f32(force_scale)
-    eu = _gaussian(u, last, radius)
+    eu = _gaussian_at(xs, ys, last, radius)
     if kind == "cpu":
         u2 = u + float((last[0] - cur[0]) * dt * fs) * eu
         v2 = v + float((last[1] - cur[1]) * dt * fs) * eu
-        ec = _gaussian(u, cur, radius)
+        ec = _gaussian_at(xs, ys, cur, radius)
     else:
         u2 = u + float((last[0] - cur[0]) * fs * dt) * eu
         v2 = v + float((last[1] - cur[1]) * fs * dt) * eu
         ec = eu
     dye2 = dye + _per_channel(color, dye) * ec[None]
     return u2, v2, dye2
+
+
+def _splat(u, v, dye, cur, last, dt, force_scale, radius, color, kind: str):
+    return splat_core(u, v, dye, cur, last, dt, force_scale, radius, color,
+                      *_grids(u), kind)
 
 
 def splat_cpu(u, v, dye, cur, last, dt, force_scale, radius, color):
@@ -409,6 +532,13 @@ def cycle_color(palette, press_time) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
+def boundary_strip_core(u, v, dye, rows: int, ys_i):
+    """Zero global rows [0, rows) given integer row coordinates ``ys_i``
+    ((H, 1) on one device, a shard's global rows on a mesh)."""
+    mask = (ys_i >= rows).to(u.dtype)
+    return u * mask, v * mask, dye * mask[None]
+
+
 def boundary_strip(u, v, dye, rows: int):
     """Zero the bottom ``rows`` rows of velocity and dye — the CPU path's
     y = 0..10 strip (cpuFluidSim.cpp:387-394).  Leading (member) axes
@@ -416,9 +546,7 @@ def boundary_strip(u, v, dye, rows: int):
     if rows <= 0:
         return u, v, dye
     h = u.shape[-2]
-    ys = torch.arange(h, device=u.device)[:, None]
-    mask = (ys >= rows).to(u.dtype)
-    return u * mask, v * mask, dye * mask[None]
+    return boundary_strip_core(u, v, dye, rows, torch.arange(h, device=u.device)[:, None])
 
 
 def pack_rgba(dye: Tensor) -> Tensor:
@@ -430,38 +558,49 @@ def pack_rgba(dye: Tensor) -> Tensor:
     return torch.cat([c, alpha], dim=0)
 
 
-def _bloom_falloff(like: Tensor, pos, radius) -> Tensor:
+def _bloom_falloff(xs: Tensor, ys: Tensor, pos, radius) -> Tensor:
     """exp(-(r² + 1)/radius²) around ``pos`` (GPUFluidSim.cu:583)."""
-    xs, ys = coord_grids(like.shape[-2], like.shape[-1], device=like.device)
     pos = f32_vec(pos)
     radius = float(f32(radius))
     d2 = (xs - float(pos[0])) ** 2 + (ys - float(pos[1])) ** 2
     return torch.exp(-(d2 + 1.0) / (radius * radius))
 
 
-def apply_bloom(rgba: Tensor, pos, intense, radius) -> Tensor:
-    """Adds max(R,G,B) * intense * exp(-(r² + 1)/radius²) near ``pos``,
-    clamped to 255 (GPUFluidSim.cu:576-591)."""
-    e = float(f32(intense)) * _bloom_falloff(rgba, pos, radius)
+def bloom_core(rgba: Tensor, pos, intense, radius, xs, ys) -> Tensor:
+    """Bloom numerics over explicit coordinate grids (one device and the
+    sharded rollout): adds max(R,G,B) * intense * exp(-(r² + 1)/radius²)
+    near ``pos``, clamped to 255 (GPUFluidSim.cu:576-591)."""
+    e = float(f32(intense)) * _bloom_falloff(xs, ys, pos, radius)
     rgb = rgba[:3].to(torch.float32)
     mx = rgb.amax(dim=0)
     rgb = torch.clamp(rgb + mx[None] * e[None], max=255.0)
     return torch.cat([rgb.to(torch.uint8), rgba[3:]], dim=0)
 
 
-def render_frame(dye: Tensor, pos, intense, radius, active) -> Tensor:
-    """pack_rgba + gated bloom in one pass, equal to
-    ``apply_bloom(pack_rgba(dye))`` when ``active`` and ``pack_rgba(dye)``
-    otherwise: the uint8 quantisation is emulated in float32 (floor of the
-    clipped value), so the bloom reads the quantised values."""
+def apply_bloom(rgba: Tensor, pos, intense, radius) -> Tensor:
+    """:func:`bloom_core` over the frame's own grid."""
+    return bloom_core(rgba, pos, intense, radius, *_grids(rgba))
+
+
+def render_frame_core(dye: Tensor, pos, intense, radius, active, xs, ys) -> Tensor:
+    """pack_rgba + gated bloom in one pass over explicit coordinate grids,
+    equal to ``apply_bloom(pack_rgba(dye))`` when ``active`` and
+    ``pack_rgba(dye)`` otherwise: the uint8 quantisation is emulated in
+    float32 (floor of the clipped value), so the bloom reads the quantised
+    values."""
     cq = torch.floor(torch.clamp(255.0 * dye, 0.0, 255.0))
     gain = F(float(bool(active))) * f32(intense)
-    e = float(gain) * _bloom_falloff(dye, pos, radius)
+    e = float(gain) * _bloom_falloff(xs, ys, pos, radius)
     mx = cq.amax(dim=0)
     rgb = torch.clamp(cq + mx[None] * e[None], max=255.0).to(torch.uint8)
     h, w = dye.shape[-2], dye.shape[-1]
     alpha = torch.full((1, h, w), 255, dtype=torch.uint8, device=dye.device)
     return torch.cat([rgb, alpha], dim=0)
+
+
+def render_frame(dye: Tensor, pos, intense, radius, active) -> Tensor:
+    """:func:`render_frame_core` over the dye's own grid."""
+    return render_frame_core(dye, pos, intense, radius, active, *_grids(dye))
 
 
 # ---------------------------------------------------------------------------

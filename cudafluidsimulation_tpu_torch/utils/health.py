@@ -109,7 +109,7 @@ def clamp_axes(backend: str, mesh: str = "none") -> str:
     Every single-device backend of the port is exact: H1 and H8 backtrace
     without a bound, unlike the JAX package's Pallas kernel, which bounds
     vertical taps (its ``clamp_axes("pallas")`` is 'y').  The sharded
-    meshes, not yet ported, keep the JAX package's answers: both bound
+    meshes (``parallel/``) keep the JAX package's answers: both bound
     vertical taps by their halo depth, and the 2-D mesh horizontal ones
     too."""
     del backend

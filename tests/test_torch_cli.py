@@ -9,7 +9,8 @@
   bit for bit, however the rollout is segmented.
 - The parser has JAX's option strings and defaults; ``--backend`` takes
   ``auto | ref | cuda`` (``pallas`` is taken as ``cuda``).
-- ``--mesh`` exits, not yet ported (``--view``: tests/test_torch_view_cli.py);
+- ``--mesh`` runs the sharded rollout (against the JAX CLI's:
+  tests/test_torch_mesh_cli.py; ``--view``: tests/test_torch_view_cli.py);
   without ``--backend`` on a machine without a card the CLI exits and names
   ``--backend ref``.
 - The flags the JAX package's tests drive (tests/test_harness.py): impulse
@@ -117,12 +118,14 @@ def test_parser_matches_jax():
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--mesh", "rows"], "--mesh rows is not yet ported"),
-    (["--mesh", "2d"], "--mesh 2d is not yet ported"),
+    (["--mesh", "rows"], "mesh: 1 devices, rows-only decomposition"),
+    (["--mesh", "2d"], "mesh: 1 devices, 1x1 rows x cols"),
 ])
-def test_unported_flags_exit(argv, message):
-    with pytest.raises(SystemExit, match=message):
-        cli.main(BASE + argv)
+def test_unported_flags_exit(capsys, argv, message):
+    # --mesh is ported: it runs the sharded rollout, here over the one
+    # visible (CPU) device, and exits 0
+    assert cli.main(BASE + argv + ["--steps", "1"]) == 0
+    assert message in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("backend", [None, "auto", "cuda", "pallas"])

@@ -32,7 +32,8 @@ print(json.dumps({"modules": names, "bad": bad}))
 EXPECTED = {"cli", "config", "entry", "interop", "state", "models.app", "models.ensemble",
             "models.pipelines", "models.simulation", "utils.http_view", "utils.native_sink",
             "utils.term_input", "utils.term_view", "utils.png", "utils.video",
-            "ops.cuda_kernels", "ops.ref"}
+            "ops.cuda_kernels", "ops.ref", "parallel.mesh", "parallel.halo",
+            "parallel.shardmap_step", "parallel.shardmap2d"}
 
 
 @pytest.fixture(scope="module")
