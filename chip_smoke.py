@@ -165,8 +165,26 @@ caught:
    both; the fast flags and the quality preset on the rows mesh (3 steps,
    then one step against the plain versions); the CLI's ``--mesh 2d`` and
    ``--mesh rows`` 20-step runs, whose final states equal the rollouts';
-   ``entry.dryrun_multichip(4)`` and ``examples/multichip_2d_torch.py``;
-13. timing with CUDA events after a warm-up: driven and quiet steps/s of
+   ``entry.dryrun_multichip(4)`` (its (ens, x) part first) and
+   ``examples/multichip_2d_torch.py``;
+13. sharded ensembles (``parallel/sharded.py``'s (ens, x) mesh): H1's and
+   H8's window with its rows unbounded (``ref.Window.y_in``, the global
+   step's advection) against their plain versions on each half of 8192²
+   and of 2048² and a ragged middle, both modes, driven and quiet flows,
+   ``vel_stats`` given and absent; (a) BASELINE.json config 4, 64 x 512²
+   gpu parity with 40 pressure sweeps and jittered orbits, 200 steps on an
+   (ens 4, x 1) mesh whose groups share the card, bit-equal to
+   ``make_ensemble_run``'s 64-member run, each group's launches of batched
+   H1-H4, member-steps/s of both, and over the last 25 steps the host's
+   time to the call's return and the device's busy time and idle share
+   (``torch.profiler``); (b) 2 x 8192² with 100 sweeps on (ens 2, x 2): 20 one-device
+   orbit steps per member, one sharded step within 1e-5 of scale of each
+   member's ``Simulation.step`` with the realized displacement past
+   ``max_displacement``, 20 sharded steps against one device's
+   (information), ms a step beside the rows mesh's; (c) the fast and
+   quality presets, 3 steps on (2, 2) at 2048², then one step against the
+   same mesh's plain schedule (``kernels=shardmap_step.PLAIN``);
+14. timing with CUDA events after a warm-up: driven and quiet steps/s of
    the parity, quality and fast paths, the fixed-cycle path's ms/step, the
    plain versions' ms/step on the card, the device launches one H3, one H4
    and each H6 call of the quality path make (``torch.profiler``; one each
@@ -186,7 +204,10 @@ caught:
    ``H6 batched <end>`` (every end at the 64x512² fine level, the bottom at
    16²), ``H6 batched mean_square``, ``H7 batched`` and ``H8 batched``;
    and the sharded rows at the rows mesh's shard shapes: ``H1 window``,
-   ``H8 window``, ``H3 sharded``, ``H4 solve init``, ``H7 sharded``.
+   ``H8 window``, ``H3 sharded``, ``H4 solve init``, ``H7 sharded``; and
+   ``H1 window unbounded`` on a (2, 2) shard of (b)'s 8192² state and
+   ``H8 window unbounded`` on one of (c)'s fast 2048² state (bound: the
+   rows the realized displacement reaches).
 
 Every ``torch.profiler`` trace runs marker kernels before and after the
 work it counts, and is taken again when it lost device records.
@@ -242,6 +263,8 @@ RTOL = {"H1": 1e-6, "H2": 0.0, "H3": 1e-5, "H3 sweeps": 0.0, "H4": 0.0,
 # arithmetic on global coordinates; H4's solve from an iterate and H3 on a
 # padded shard (no splat) are blocked sweeps in the plain order: 0
 RTOL.update({"H1 window": 1e-6, "H8 window": 1e-6, "H4 solve init": 0.0, "H3 sharded": 0.0})
+# phase 13: the same entry with its rows unbounded (the global step)
+RTOL.update({"H1 window unbounded": 1e-6, "H8 window unbounded": 1e-6})
 # the batched kernels against their batched plain versions: the single
 # kernels' tolerances (and each member equals its B = 1 launch bit for bit)
 RTOL.update({f"{k} batched": RTOL[k] for k in ("H1", "H2", "H3", "H3 sweeps", "H4")})
@@ -558,7 +581,7 @@ def ensemble_phase(smi, gen, worst, reset_counts, read_counts, kernels):
     device operations of one batched step and runs one under
     ``set_sync_debug_mode("error")``; steps a cpu-variant ensemble and holds
     one step against the plain versions on the card.  Returns the timing
-    part, called in phase 13 (timing), which returns the batched rows of the kernels
+    part, called in phase 14 (timing), which returns the batched rows of the kernels
     line."""
     import dataclasses
 
@@ -1128,7 +1151,7 @@ def ensemble_rest_phase(smi, gen, worst, reset_counts, read_counts, kernels):
     multigrid steps from the sweep's state; the device operations of one
     batched fast step and one batched quality step, and the fast step under
     ``set_sync_debug_mode("error")``.  Returns the timing part, called in
-    phase 13 (timing): member-steps/s batched against one member at a time, and the
+    phase 14 (timing): member-steps/s batched against one member at a time, and the
     batched rows of the kernels line."""
     import dataclasses
 
@@ -2478,6 +2501,337 @@ def sharded_phase(smi, gen, worst, reset_counts, read_counts, kernels, dev):
     return launches, rows_fn
 
 
+# phase 13, sharded ensembles (``parallel/sharded.py``'s (ens, x) mesh):
+# (a) BASELINE.json config 4, 64 x 512² gpu parity with 40 pressure sweeps
+# over 4 ens groups on the card; (b) config 5's width, 2 x 8192² with 100
+# sweeps on (ens 2, x 2); (c) the fast and quality presets on (2, 2) at 2048²
+SE_GROUPS, SE_BIG_B, SE_BIG_STEPS, SE_PRESET_N = 4, 2, 20, 2048
+# the unbounded window's check views: (grid rows, cols, interior rows, y_in)
+SE_WINDOWS = {
+    "8192² half 0": (8192, 8192, 4096, 0),
+    "8192² half 1": (8192, 8192, 4096, 4096),
+    "2048² half 0": (2048, 2048, 1024, 0),
+    "2048² half 1": (2048, 2048, 1024, 1024),
+    "ragged middle": (400, 240, 135, 100),
+}
+
+
+def sharded_ensemble_phase(smi, gen, worst, reset_counts, read_counts, kernels, dev):
+    """Phase 13: the (ens, x) mesh (``parallel.sharded``) on the card.
+
+    H1/H8's rows-unbounded window against its plain version (first and
+    second half of 8192² and of 2048², a ragged middle; both modes, driven
+    and quiet flows, ``vel_stats`` given and absent).  (a) 64 x 512² gpu
+    parity, 40 pressure sweeps, each member's orbit jittered by up to 32
+    cells, on an (ens 4, x 1) mesh whose groups share the card: 200 steps
+    bit-equal to ``make_ensemble_run``'s 64-member run, each group's
+    launches of batched H1-H4, member-steps/s of both; over the last
+    ENS_WINDOW steps the host's time to the call's return and the device's
+    busy time a step (``torch.profiler``).  (b) 2 x 8192², 100 sweeps, on (2, 2):
+    20 one-device orbit steps per member, then one sharded step within 1e-5
+    of scale of each member's ``Simulation.step``, its realized
+    displacement past ``max_displacement``; then 20 sharded steps, their
+    distance from one device's (information), ms a step beside the rows
+    mesh's.  (c) the fast and quality presets, 3 steps on (2, 2) at 2048²,
+    then one step against the same mesh's plain schedule.  Returns a
+    function giving the unbounded window's kernel rows."""
+    import numpy as np
+
+    from cudafluidsimulation_tpu_torch import FluidConfig, Simulation
+    from cudafluidsimulation_tpu_torch.models.ensemble import (
+        batched_impulse, batched_state, make_ensemble_run)
+    from cudafluidsimulation_tpu_torch.ops import advect_cuda, advect_packed, ref
+    from cudafluidsimulation_tpu_torch.parallel import mesh as pmesh
+    from cudafluidsimulation_tpu_torch.parallel import sharded, shardmap_step
+    from cudafluidsimulation_tpu_torch.utils.impulse import Impulse, orbit_impulse
+    from cudafluidsimulation_tpu_torch.utils.timing import cuda_times_ms
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 13)
+    dt, decay_rate = 1.0 / 60.0, 1.2
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def by_shard(names, mesh):
+        return {k: {i: kernels[k][0].by_shard.get(i, 0) for i in range(mesh.size)}
+                for k in names}
+
+    # -- H1/H8's rows-unbounded window against its plain version ----------------
+    for label, (hg, wg, hl, y_in) in SE_WINDOWS.items():
+        win = ref.Window(y0=0, h_phys=hg, d=0, y_in=y_in)
+        for flow, speed in (("driven", 900.0), ("quiet", 30.0)):
+            pack = randn(5, hg, wg)
+            uv = pack[:2].mul_(speed)
+            pack[2:].abs_()
+            u, v = uv[0, y_in:y_in + hl], uv[1, y_in:y_in + hl]
+            bound = torch.stack([uv[0].abs().max(), uv[1].abs().max()])
+            for packed, name in ((False, "H1 window unbounded"), (True, "H8 window unbounded")):
+                for given in (True, False):
+                    vs = bound if given else None
+                    case = f"{label} {flow} vel_stats {'given' if given else 'absent'}"
+                    got = advect_cuda.advect_window(uv, u, v, dt, decay_rate, "field", win,
+                                                    vel_stats=vs, return_stats=True,
+                                                    packed=packed)
+                    exp = advect_packed.window_plain(uv, u, v, dt, decay_rate, "field", win,
+                                                     vel_stats=vs, return_stats=True,
+                                                     packed=packed)
+                    _check(worst, name, f"field {case}", [("uv", got[0], exp[0]),
+                                                         ("bound", got[1], exp[1])])
+                    u2, v2 = got[0][0], got[0][1]
+                    gd = advect_cuda.advect_window(pack[2:], u2, v2, dt, decay_rate, "dye", win,
+                                                   vel_stats=vs, packed=packed)
+                    ed = advect_packed.window_plain(pack[2:], u2, v2, dt, decay_rate, "dye",
+                                                    win, vel_stats=vs, packed=packed)
+                    _check(worst, name, f"dye {case}", [("dye", gd, ed)])
+            del pack, uv
+
+    # -- (a) 64 x 512² over 4 ens groups, against the one-device ensemble ------------
+    cfg = FluidConfig.gpu_reference(nx=ENS_N, ny=ENS_N, pressure_iters=40, backend="cuda")
+    jitter = rng.uniform(-ENS_JITTER, ENS_JITTER, (ENS_B, 2)).astype(np.float32)
+    c = ENS_N / 2
+    bimp = batched_impulse(orbit_impulse(ENS_STEPS, cfg.dt, center=(c, c), radius=64,
+                                         omega=3.0), ENS_B, jitter_pos=jitter)
+    mesh_a = sharded.make_mesh(SE_GROUPS, ens=SE_GROUPS)
+    run_a = sharded.sharded_rollout(cfg, mesh_a, batched=True)
+    ens_run = make_ensemble_run(cfg)
+    start = batched_state(cfg, ENS_B)
+    state_a = sharded.shard_state(start, mesh_a, batched=True)
+    batched_keys = ("H1 batched", "H2 batched", "H3 batched", "H4 batched")
+    reset_counts()
+    got = pmesh.gather_state(run_a(state_a, bimp))
+    torch.cuda.synchronize()
+    launches_a = {k: n for k, n in read_counts().items() if n}
+    groups = by_shard(batched_keys, mesh_a)
+    for k, per in groups.items():
+        if min(per.values()) < 1:
+            raise AssertionError(f"ens groups: {k} launched by groups {per}")
+    single = [k for k in ("H1", "H2", "H3", "H4") if launches_a.get(k)]
+    if single:
+        raise AssertionError(f"ens groups launched the single {single}: a loop over members")
+    exp = ens_run(start, bimp)
+    torch.cuda.synchronize()
+    for name in STATE_FIELDS + ("t", "press_time", "time_since_press", "mouse", "step"):
+        if not torch.equal(getattr(got, name).cpu(), getattr(exp, name).cpu()):
+            raise AssertionError(f"ens groups: {name} differs from the 64-member run")
+    _check_state("ens groups", got)
+    # where a step's time goes, over the last ENS_WINDOW steps from the
+    # state the rollout reached (the step's work does not depend on it)
+    end_a = sharded.shard_state(got, mesh_a, batched=True)
+    tail = Impulse(*(f[:, ENS_STEPS - ENS_WINDOW:] for f in bimp))
+    del got, exp
+    mesh_ms = statistics.median(cuda_times_ms(lambda: run_a(state_a, bimp), iters=2))
+    one_ms = statistics.median(cuda_times_ms(lambda: ens_run(start, bimp), iters=2))
+    host_s = []
+
+    def tail_run():
+        t_0 = time.perf_counter()
+        run_a(end_a, tail)
+        host_s.append(time.perf_counter() - t_0)
+
+    tail_ms = statistics.median(cuda_times_ms(tail_run, iters=3)) / ENS_WINDOW
+    host_ms = statistics.median(host_s[1:]) / ENS_WINDOW * 1e3  # [0]: the warm-up
+    busy_ms = _device_ms(lambda: run_a(end_a, tail), calls=1) / ENS_WINDOW
+    del end_a
+    member_steps = ENS_B * ENS_STEPS
+    report_a = {"members": ENS_B, "grid": f"{ENS_N}x{ENS_N}", "steps": ENS_STEPS,
+                "mesh": dict(mesh_a.shape), "devices": [str(d) for d in mesh_a.devices],
+                "bit_equal_to_one_device_ensemble": True,
+                "launches_by_group": groups,
+                "member_steps_per_s": member_steps / (mesh_ms / 1e3),
+                "one_device_member_steps_per_s": member_steps / (one_ms / 1e3),
+                "ms_per_step": mesh_ms / ENS_STEPS, "one_device_ms_per_step": one_ms / ENS_STEPS,
+                "window_steps": f"{ENS_STEPS - ENS_WINDOW}-{ENS_STEPS}",
+                "window_ms_per_step": tail_ms, "host_ms_per_step": host_ms,
+                "device_busy_ms_per_step": busy_ms,
+                "device_idle_share": 1.0 - busy_ms / tail_ms,
+                "smi": smi}
+    _json({"phase": "sharded_ensembles_groups", **report_a})
+    del state_a, start
+
+    # -- (b) 2 x 8192² on (ens 2, x 2) -----------------------------------------------
+    big = FluidConfig.gpu_reference(nx=SH_N, ny=SH_N, pressure_iters=100, backend="cuda")
+    b = SE_BIG_B
+    bjit = rng.uniform(-ENS_JITTER, ENS_JITTER, (b, 2)).astype(np.float32)
+    orbit = orbit_impulse(2 * SE_BIG_STEPS + 1, big.dt, center=(SH_N / 2, SH_N / 2),
+                          radius=SH_N / 8, omega=3.0)
+    bstream = batched_impulse(orbit, b, jitter_pos=bjit)
+
+    def window(stream, lo, hi):
+        return Impulse(*(f[:, lo:hi] for f in stream))
+
+    def member_stream(stream, i):
+        return Impulse(*(f[i] for f in stream))
+
+    sim = Simulation(big)
+    # a driven state: 20 one-device orbit steps per member
+    reached = [sim.run(sim.init(), member_stream(window(bstream, 0, SE_BIG_STEPS), i))
+               for i in range(b)]
+    reached = type(reached[0])(*(torch.stack(fs) for fs in zip(*reached)))
+    disp = (reached.vel_stats.amax(dim=0) * big.dt).tolist()
+    if not max(disp) > big.max_displacement:
+        raise AssertionError(f"(2, 2): realized displacement {disp} within max_displacement="
+                             f"{big.max_displacement}")
+    mesh_b = sharded.make_mesh(4, ens=2)
+    step_b = sharded.make_sharded_step(big, mesh_b, batched=True)
+    run_b = sharded.sharded_rollout(big, mesh_b, batched=True)
+    sh = sharded.shard_state(reached, mesh_b, batched=True)
+    x = Impulse(*(f[:, SE_BIG_STEPS] for f in bstream))
+    one = pmesh.gather_state(step_b(sh, x))
+    vs_one = {}
+    for i in range(b):
+        exp_i = sim.step(type(reached)(*(f[i] for f in reached)), member_stream(x, i))
+        for n in STATE_FIELDS:
+            vs_one[f"member {i} {n}"] = _max_err(getattr(one, n)[i], getattr(exp_i, n))[1]
+        del exp_i
+    if not max(vs_one.values()) <= STEP_RTOL:
+        raise AssertionError(f"(2, 2): one step against one device {vs_one}")
+    del one
+    rest = window(bstream, SE_BIG_STEPS, 2 * SE_BIG_STEPS)
+    reset_counts()
+    final = pmesh.gather_state(run_b(sh, rest))
+    torch.cuda.synchronize()
+    launches_b = {k: n for k, n in read_counts().items() if n}
+    shards_b = by_shard(("H1 window", "H3", "H4 solve"), mesh_b)
+    for k, per in shards_b.items():
+        if min(per.values()) < 1:
+            raise AssertionError(f"(2, 2): {k} launched by shards {per}")
+    _check_state("(2, 2) rollout", final)
+    vs_rollout = {}
+    for i in range(b):
+        exp_i = sim.run(type(reached)(*(f[i] for f in reached)), member_stream(rest, i))
+        vs_rollout[f"member {i}"] = {n: _max_err(getattr(final, n)[i], getattr(exp_i, n))[1]
+                                     for n in STATE_FIELDS}
+        del exp_i
+    del final
+    ms_b = statistics.median(cuda_times_ms(lambda: run_b(sh, rest), iters=2)) / SE_BIG_STEPS
+    counts_b = run_b.counts[0]
+    rows_mesh = pmesh.make_mesh(SH_SHARDS, devices=pmesh.place(SH_SHARDS))
+    rows_run = shardmap_step.make_shardmap_rollout(big, rows_mesh)
+    rows_state = pmesh.shard_state(type(reached)(*(f[0] for f in reached)), rows_mesh)
+    rows_ms = statistics.median(cuda_times_ms(
+        lambda: rows_run(rows_state, member_stream(rest, 0)), iters=2)) / SE_BIG_STEPS
+    del rows_state
+    _json({"phase": "sharded_ensembles_8192", "members": b, "grid": f"{SH_N}x{SH_N}",
+           "pressure_iters": 100, "mesh": dict(mesh_b.shape),
+           "devices": [str(d) for d in mesh_b.devices],
+           "realized_displacement_at_step": disp, "max_displacement": big.max_displacement,
+           "step_vs_one_device_max_rel_err": vs_one, "tol": STEP_RTOL,
+           "rollout_vs_one_device_max_rel_diff": vs_rollout,
+           "rollout_compared": "information: the flow is chaotic",
+           "launches": launches_b, "launches_by_shard": shards_b,
+           "collectives_per_shard": counts_b, "steps": SE_BIG_STEPS,
+           "ms_per_step": ms_b, "ms_per_member_step": ms_b / b,
+           "rows_mesh_ms_per_step_one_member": rows_ms, "smi": smi})
+
+    # -- (c) the fast and quality presets on (2, 2) at 2048² ----------------------------
+    n2 = SE_PRESET_N
+    preset_report, fast_launches, fast_reached = {}, {}, None
+    for what, pc in (("fast", FluidConfig.gpu_reference(nx=n2, ny=n2, pressure_iters=40,
+                                                         backend="cuda", **FAST)),
+                     ("quality", FluidConfig.quality(nx=n2, ny=n2, backend="cuda"))):
+        mesh_c = sharded.make_mesh(4, ens=2)
+        pstream = batched_impulse(orbit_impulse(SH_FEW + 1, pc.dt, center=(n2 / 2, n2 / 2),
+                                                radius=n2 / 8, omega=3.0), 2,
+                                  jitter_pos=bjit)
+        prun = sharded.sharded_rollout(pc, mesh_c, batched=True)
+        reset_counts()
+        preached = prun(sharded.shard_state(batched_state(pc, 2), mesh_c, batched=True),
+                        window(pstream, 0, SH_FEW))
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in read_counts().items() if n}
+        xc = Impulse(*(f[:, SH_FEW] for f in pstream))
+        kstep = sharded.make_sharded_step(pc, mesh_c, batched=True)
+        plain = sharded.make_sharded_step(pc, mesh_c, batched=True,
+                                          kernels=shardmap_step.PLAIN)
+        a_, b_ = (pmesh.gather_state(fn(preached, xc)) for fn in (kstep, plain))
+        err = {n: _max_err(getattr(a_, n), getattr(b_, n))[1] for n in STATE_FIELDS}
+        need = ("H8 window", "H7") if what == "fast" else ("H1 window", "H3")
+        if not all(counts.get(k, 0) > 0 for k in need):
+            raise AssertionError(f"(2, 2) {what}: launches {counts}")
+        if not max(err.values()) <= STEP_RTOL:
+            raise AssertionError(f"(2, 2) {what}: one step against the plain schedule {err}")
+        preset_report[what] = {"launches": counts, "steps": SH_FEW,
+                               "step_vs_plain_max_rel_err": err,
+                               "bit_equal": all(torch.equal(getattr(a_, n), getattr(b_, n))
+                                                for n in STATE_FIELDS),
+                               "stopping_tests_per_shard": [c_["psum"] for c_ in prun.counts]}
+        if what == "fast":
+            fast_launches, fast_reached = counts, pmesh.gather_state(preached)
+        del a_, b_, preached
+    _json({"phase": "sharded_ensembles_presets", "grid": f"{n2}x{n2}", "mesh": {"ens": 2, "x": 2},
+           **preset_report, "tol": STEP_RTOL,
+           "seconds": time.perf_counter() - t_phase, "smi": smi})
+
+    # the kernel rows: the unbounded window at shard 1 of x = 2 (the second
+    # half of the grid) on member 0 of the state its path reached: H1 on
+    # (b)'s 8192², H8 on (c)'s fast 2048²
+    def window_case(reached_, n, packed):
+        hl = lo = n // 2
+        u0, v0 = reached_.u[0], reached_.v[0]
+        fp = torch.cat([torch.stack([u0, v0]), reached_.dye[0]]).contiguous()
+        win = ref.Window(y0=0, h_phys=n, d=0, y_in=lo)
+        u, v = fp[0, lo:lo + hl], fp[1, lo:lo + hl]
+        st = reached_.vel_stats[0]
+        kw = dict(vel_stats=st) if packed else {}
+        u2, v2 = advect_cuda.advect_window(fp[:2], u, v, dt, decay_rate, "field", win,
+                                           packed=packed, **kw)
+        u2, v2 = u2.contiguous(), v2.contiguous()
+        # the rows the taps can reach: the interior and the realized displacement
+        reach = int(np.ceil(float(st.max()) * dt)) + 1
+        seen = fp[:, max(0, lo - reach):min(n, lo + hl + reach)]
+        plain = advect_packed.advect_window if packed else ref.advect_window
+
+        def kern_fn():
+            return (advect_cuda.advect_window(fp[:2], u, v, dt, decay_rate, "field", win,
+                                              return_stats=True, packed=packed, **kw),
+                    advect_cuda.advect_window(fp[2:], u2, v2, dt, decay_rate, "dye", win,
+                                              packed=packed, **kw))
+
+        def plain_fn():
+            return (plain(fp[:2], u, v, dt, decay_rate, "field", win, return_stats=True, **kw),
+                    plain(fp[2:], u2, v2, dt, decay_rate, "dye", win, **kw))
+
+        inputs = [seen, u2, v2] + ([st] if packed else [])
+        return kern_fn, plain_fn, inputs, hl * n * (82 if packed else 72)
+
+    del sh
+    cases = {
+        "H1 window unbounded": (*window_case(reached, SH_N, False), launches_b,
+                                f"sharded ensembles (2, 2) {SH_N}²"),
+        "H8 window unbounded": (*window_case(fast_reached, n2, True), fast_launches,
+                                f"sharded ensembles (2, 2) fast {n2}²"),
+    }
+    del reached, fast_reached
+    counter = {"H1 window unbounded": "H1 window", "H8 window unbounded": "H8 window"}
+
+    def rows_fn(per_call):
+        out = []
+        for name, (kern_fn, plain_fn, inputs, ops, path_launches, path) in cases.items():
+            nbytes = _nbytes(inputs) + _nbytes(kern_fn())
+            bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+            p1 = per_call(plain_fn, iters=2, warmup=1)
+            k1 = per_call(kern_fn, iters=3, warmup=1)
+            k2 = per_call(kern_fn, iters=3, warmup=0)
+            p2 = per_call(plain_fn, iters=2, warmup=0)
+            out.append({
+                "name": name, "route": "cuda",
+                "source": "cudafluidsimulation_tpu_torch/csrc/advect.cu",
+                "replaces": "cudafluidsimulation_tpu/ops/advect_pallas.py:"
+                            + ("413" if name.startswith("H1") else "195"),
+                "launches": path_launches.get(counter[name], 0),
+                "path": path,
+                "max_abs_err": worst[name],
+                "ms": statistics.median(k1 + k2), "device_ms": _device_ms(kern_fn),
+                "plain_ms": statistics.median(p1 + p2),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes, "operations": ops, "library_ms": None})
+        return out
+
+    return rows_fn
+
+
 def entry_phase(reset_counts, read_counts, dev):
     """The port's ``entry()`` (one 512² parity step, bit-equal to
     ``Simulation.step``) and ``examples/headless_run_torch.py`` (30 frames
@@ -3108,7 +3462,11 @@ def main() -> int:
     _, sharded_rows = sharded_phase(smi[0], gen, worst, reset_counts, read_counts, kernels,
                                     dev)
 
-    # -- 13. timing ------------------------------------------------------------
+    # -- 13. sharded ensembles: the (ens, x) mesh ----------------------------------
+    ens_x_rows = sharded_ensemble_phase(smi[0], gen, worst, reset_counts, read_counts,
+                                        kernels, dev)
+
+    # -- 14. timing ------------------------------------------------------------
     def rates(what, sim_, ref_sim_):
         driven_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), driven), iters=3))
         quiet_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), quiet), iters=3))
@@ -3319,6 +3677,7 @@ def main() -> int:
     rows += ens()
     rows += rest()
     rows += sharded_rows(per_call)
+    rows += ens_x_rows(per_call)
     _json({"phase": "profiler_sessions", **TRACES})
     print(smi[0], flush=True)
     _json({"kernels": rows})

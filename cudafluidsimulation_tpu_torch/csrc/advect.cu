@@ -41,11 +41,14 @@
 // which advects each shard on a halo-padded local view, as the JAX package's
 // sharded step calls advect_pallas.advect with y0, h_phys, x0, w_phys and
 // d_x (advect_pallas.py _tap_setup).  A thread takes one cell of the view's
-// interior (rows [d, d + h), columns [d_x, d_x + w)), backtraces from the
-// cell's global coordinates, truncates the corner toward zero, clamps it to
-// the physical grid [0, h_phys - 1] x [0, w_phys - 1], bounds the tap's
-// offset from the cell to +-d rows (and +-d_x columns when d_x > 0), and
-// reads the tap in the padded planes.  The halo rows are never written: the
+// interior (rows [yi, yi + h), columns [d_x, d_x + w); yi is d in a padded
+// view), backtraces from the cell's global coordinates, truncates the corner
+// toward zero, clamps it to the physical grid [0, h_phys - 1] x
+// [0, w_phys - 1], bounds the tap's offset from the cell to +-d rows (and
+// +-d_x columns when d_x > 0), and reads the tap in the padded planes.  The
+// global step of the port's parallel/sharded.py passes the whole grid's
+// rows as the view, the shard's first row as yi and d = h_phys, which no
+// clamped tap reaches: its rows are unbounded.  The halo rows are never written: the
 // TPU kernel advects the whole padded view and its caller slices the
 // interior, which gives the same cells.  The velocity bound covers the
 // interior alone, the cells the caller keeps.  The single-device entries
@@ -127,22 +130,23 @@ __device__ __forceinline__ void advect_cell(
 }
 
 // Where a shard's padded view lies in the global grid (ops/ref.py Window):
-// the global row and column of its (0, 0), the global extents, the halo
-// depths (d_x 0: columns unbounded), the padded width (the field planes'
-// row pitch) and the row pitch of u and v.
+// the global row and column of its (0, 0), the global extents, the bounds
+// on a tap's offset (d_x 0: columns unbounded), the interior's first row
+// in the view, the padded width (the field planes' row pitch) and the row
+// pitch of u and v.
 struct Window {
-  int y0, x0, h_phys, w_phys, d, d_x, fw, uw;
+  int y0, x0, h_phys, w_phys, d, d_x, yi, fw, uw;
 };
 
 // One interior cell (x, y) of the window: padded coordinates (x + d_x,
-// y + d), global (x0 + x + d_x, y0 + y + d); output index y * w + x.
+// y + yi), global (x0 + x + d_x, y0 + y + yi); output index y * w + x.
 template <bool DYE>
 __device__ __forceinline__ void advect_cell_window(
     const Planes& planes, int c, const float* __restrict__ u,
     const float* __restrict__ v, const Window& g, int w, int x, int y,
     float dt, float decay, unsigned round_mask, bool clamp, float& mu,
     float& mv) {
-  const int ly = y + g.d, lx = x + g.d_x;
+  const int ly = y + g.yi, lx = x + g.d_x;
   const int gy = g.y0 + ly, gx = g.x0 + lx;
   const int iu = y * g.uw + x;
   const float px = static_cast<float>(gx) - dt * u[iu];
@@ -422,10 +426,11 @@ __global__ void window_bound_kernel(const float* __restrict__ u,
   fluid_block_max2_atomic(a, b, out);
 }
 
-// The window entry.  fields: c <= 3 padded planes f0..f2 of (h + 2d) rows
-// by fw columns, fw >= w + 2 d_x; outputs o0..o2: (h, w); u, v: the (h, w)
-// cells' velocity at row pitch uw.  y0, x0, h_phys, w_phys, d, d_x: the
-// window (ops/ref.py Window; w_phys > 0).  With d_x = 0 the taps' columns
+// The window entry.  fields: c <= 3 padded planes f0..f2 of at least
+// yi + h + d rows (h + 2d when yi = d) by fw columns, fw >= w + 2 d_x;
+// outputs o0..o2: (h, w); u, v: the (h, w) cells' velocity at row pitch uw.
+// y0, x0, h_phys, w_phys, d, d_x, yi: the window (ops/ref.py Window and
+// window_rows; w_phys > 0).  With d_x = 0 the taps' columns
 // are global ones shifted by -x0, so [0, w_phys) must lie within the view.
 // packed selects H8 (fast_path, bound and scratch as fluid_advect_packed's);
 // stats (velocity mode, may be null) receives the interior's bound.
@@ -434,15 +439,15 @@ FLUID_API int fluid_advect_window(const float* f0, const float* f1, const float*
                                   const float* v, const float* bound, float* scratch,
                                   float* stats, int c, int h, int w, int dye, int packed,
                                   int fast_path, float dt, float decay, int y0, int x0,
-                                  int h_phys, int w_phys, int d, int d_x, int fw, int uw,
-                                  void* stream) {
+                                  int h_phys, int w_phys, int d, int d_x, int yi, int fw,
+                                  int uw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c < 1 || c > 3 || h < 1 || w < 1 || d < 0 || d_x < 0 || h_phys < 1 || w_phys < 1 ||
-      fw < w + 2 * d_x || uw < w)
+  if (c < 1 || c > 3 || h < 1 || w < 1 || d < 0 || d_x < 0 || yi < 0 || h_phys < 1 ||
+      w_phys < 1 || fw < w + 2 * d_x || uw < w)
     return cudaErrorInvalidValue;
   if (d_x == 0 && (x0 > 0 || w_phys - x0 > fw)) return cudaErrorInvalidValue;
   Planes planes = {{f0, f1, f2}, {o0, o1, o2}};
-  const Window g = {y0, x0, h_phys, w_phys, d, d_x, fw, uw};
+  const Window g = {y0, x0, h_phys, w_phys, d, d_x, yi, fw, uw};
   const dim3 block(FLUID_BX, FLUID_BY);
   const dim3 grid = fluid_grid2d(h, w);
   cudaError_t e;

@@ -31,6 +31,65 @@ def entry(backend: str = "auto", device=None):
     return step, (state, imp)
 
 
+def _ens_x_part(n_devices: int, devices, on_card: bool, out: dict) -> None:
+    """The JAX dry run's first part: the batched global step on an (ens, x)
+    mesh (ens = 2 for an even count), with the ``ref`` schedule and the
+    kernel schedule at the same shapes."""
+    import torch
+
+    from cudafluidsimulation_tpu_torch.models.ensemble import batched_state
+    from cudafluidsimulation_tpu_torch.ops import advect_cuda, jacobi_cuda
+    from cudafluidsimulation_tpu_torch.parallel import mesh as pmesh
+    from cudafluidsimulation_tpu_torch.parallel import sharded, shardmap_step
+    from cudafluidsimulation_tpu_torch.utils.impulse import Impulse
+
+    ens = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
+    x = n_devices // ens
+    batched = ens > 1
+    mesh = sharded.make_mesh(n_devices, ens=ens, devices=devices)
+    ny = max(32, 16 * x)
+    if x > 1:  # each shard's rows: the window, H3 on a padded shard, H4's solve
+        launched = (advect_cuda.WINDOW, jacobi_cuda.DIFFUSE, jacobi_cuda.PRESSURE_SOLVE)
+    elif batched:  # each group's members: batched H1-H4
+        launched = (advect_cuda.BATCHED, jacobi_cuda.VORTICITY_BATCHED,
+                    jacobi_cuda.DIFFUSE_BATCHED, jacobi_cuda.PRESSURE_BATCHED)
+    else:
+        launched = (advect_cuda.KERNEL, jacobi_cuda.VORTICITY, jacobi_cuda.DIFFUSE,
+                    jacobi_cuda.PRESSURE)
+    calls: dict = {}
+    before = [dict(k.by_shard) for k in launched]
+    for backend in ("ref", "cuda"):
+        cfg = FluidConfig.gpu_reference(nx=128, ny=ny, backend=backend, diffusion_iters=4,
+                                        pressure_iters=8)
+        kernels = None
+        if backend == "cuda":
+            kernels = (_counted(shardmap_step.KERNELS, calls) if x > 1
+                       else shardmap_step.KERNELS)
+        state = (batched_state(cfg, ens, devices[0]) if batched
+                 else init_state(cfg, device=devices[0]))
+        imp = single((64.0, ny / 2.0), (60.0, ny / 2.0 - 2.0), True, cfg.dt)
+        if batched:
+            imp = Impulse(*(torch.stack([f] * ens) for f in imp))
+        step = sharded.make_sharded_step(cfg, mesh, batched=batched, kernels=kernels)
+        res = pmesh.gather_state(step(sharded.shard_state(state, mesh, batched), imp))
+        if tuple(res.u.shape) != ((ens, ny, 128) if batched else (ny, 128)):
+            raise AssertionError(f"ens x {backend} step: velocity {tuple(res.u.shape)}")
+        if not bool(torch.isfinite(res.u).all()):
+            raise AssertionError(f"ens x {backend} step: non-finite velocity")
+        out[f"ens x {backend} collectives"] = step.counts[0]
+    out["ens x mesh"] = dict(mesh.shape)
+    if x > 1:
+        out["ens x wrapper calls"] = dict(calls)
+        if not {"advect", "diffuse_multi", "pressure_solve"} <= set(calls):
+            raise AssertionError(f"ens x kernel step called {sorted(calls)}")
+    if on_card:
+        by_shard = {f"{k.name} shard {i}": k.by_shard.get(i, 0) - b.get(i, 0)
+                    for k, b in zip(launched, before) for i in range(mesh.size)}
+        out["ens x launches by shard"] = by_shard
+        if min(by_shard.values()) < 1:
+            raise AssertionError(f"ens x kernel step: a shard launched no kernel of {by_shard}")
+
+
 def _counted(kernels, calls: dict):
     """``kernels`` (a sharded kernel table) with each call counted by name."""
     import threading
@@ -52,16 +111,20 @@ def _counted(kernels, calls: dict):
 def dryrun_multichip(n_devices: int, device=None) -> dict:
     """One sharded step of each schedule on each mesh, over ``n_devices``
     shards placed round-robin on the visible cards (``device`` names
-    another, "cpu" for CPU shards): the rows mesh and, for an even count of
-    at least 4, the 2 x n/2 mesh, each with the sweep-by-sweep ``ref``
-    schedule and the kernel schedule, at the JAX dry run's shapes.
+    another, "cpu" for CPU shards), in the JAX dry run's order: the
+    batched global step on the (ens, x) mesh (``parallel.sharded``; ens = 2
+    for an even count), the rows mesh and, for an even count of at least
+    4, the 2 x n/2 mesh, each with the sweep-by-sweep ``ref`` schedule and
+    the kernel schedule, at the JAX dry run's shapes.
 
     The kernel steps keep their fused exchange schedules, 5 pairs a step on
     the rows mesh and 10 on the 2-D one (the JAX dry run's pins of its
     ``ppermute`` count), and run their kernels: on a card every shard
     launches H1 (window), H3 and H4 (its solve); on the CPU every shard
-    calls their wrappers, which run the plain versions.  Returns what it
-    counted; raises where a check fails."""
+    calls their wrappers, which run the plain versions.  The (ens, x) step
+    launches the same on each shard where x > 1, batched H1-H4 on each
+    group where x = 1.  Returns what it counted; raises where a check
+    fails."""
     import torch
 
     from cudafluidsimulation_tpu_torch.ops import advect_cuda, jacobi_cuda
@@ -73,6 +136,8 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     else:
         devices = pmesh.place(n_devices, [device])
     on_card = devices[0].type == "cuda"
+    out = {}
+    _ens_x_part(n_devices, devices, on_card, out)
     meshes = {"rows": pmesh.make_mesh(n_devices, devices=devices)}
     if n_devices >= 4 and n_devices % 2 == 0:
         meshes["2d"] = pmesh.make_mesh2d(2, n_devices // 2, devices=devices)
@@ -85,7 +150,6 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     builders = {"rows": shardmap_step.make_shardmap_step,
                 "2d": shardmap2d.make_shardmap2d_step}
     launched = (advect_cuda.WINDOW, jacobi_cuda.DIFFUSE, jacobi_cuda.PRESSURE_SOLVE)
-    out = {}
     for kind, mesh in meshes.items():
         (nx, ny), (nxp, nyp) = shapes[kind]
         cfg = FluidConfig.gpu_reference(nx=nx, ny=ny, backend="ref", max_displacement=15,

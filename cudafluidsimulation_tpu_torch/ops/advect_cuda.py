@@ -44,7 +44,10 @@ view, as the JAX package's sharded step calls ``advect_pallas.advect`` with
 cell backtraces from the cell's global coordinates, clamps the corner to
 the physical grid, bounds the tap's offset from the cell by the halo depth
 (``ref.Window``) and reads the padded planes; only the interior, the rows
-the caller keeps, is computed and bounds the velocity.  Plain versions:
+the caller keeps, is computed and bounds the velocity.  In the
+rows-unbounded form (``Window.y_in``) the view is every row of the grid
+and the interior a shard's rows of it: the global step of
+``parallel.sharded``, whose taps reach any row.  Plain versions:
 ``ref.advect_window`` and ``advect_packed.advect_window``.
 
 The wrappers take the plain versions (``ops.ref``, ``ops.advect_packed``)
@@ -79,8 +82,8 @@ PACKED = Kernel("advect", _PACKED)
 PACKED_BATCHED = Kernel("advect", _PACKED)
 # fluid_advect_window(f0, f1, f2, o0, o1, o2, u, v, bound, scratch, stats,
 #                     c, h, w, dye, packed, fast_path, dt, decay, y0, x0,
-#                     h_phys, w_phys, d, d_x, fw, uw, stream)
-_WINDOW = {"fluid_advect_window": [_P] * 11 + [_I] * 6 + [_F, _F] + [_I] * 8 + [_P]}
+#                     h_phys, w_phys, d, d_x, yi, fw, uw, stream)
+_WINDOW = {"fluid_advect_window": [_P] * 11 + [_I] * 6 + [_F, _F] + [_I] * 9 + [_P]}
 # H1's window (the sharded rollout), and H8's (packed), each its own count
 WINDOW = Kernel("advect", _WINDOW)
 PACKED_WINDOW = Kernel("advect", _WINDOW)
@@ -306,7 +309,8 @@ def advect_window(fields, u, v, dt, decay_rate, mode: str, window: ref.Window, *
                   vel_stats=None, return_stats: bool = False, packed: bool = False,
                   fast_path: bool = True, out=None):
     """Advection of the interior of a shard's padded view (``ref.Window``):
-    ``fields`` (C <= 3, h + 2d, w + 2d_x), each plane contiguous; ``u``,
+    ``fields`` (C <= 3, h + 2d, w + 2d_x), or (C, h_phys, w + 2d_x) for a
+    rows-unbounded window, each plane contiguous; ``u``,
     ``v`` the (h, w) cells' velocity, rows of unit stride at one pitch (the
     interior of a padded plane may be passed as it lies).  ``mode``
     "field" (decay; ``return_stats`` also returns the interior's
@@ -326,6 +330,9 @@ def advect_window(fields, u, v, dt, decay_rate, mode: str, window: ref.Window, *
         raise ValueError("return_stats: the velocity bound is the 'field' mode's")
     h, w = u.shape
     fh, fw = ref.window_shape(window, h, w)
+    yi, d = ref.window_rows(window)
+    if yi + h > fh:
+        raise ValueError(f"window {window}: rows [{yi}, {yi + h}) lie outside the view")
     if fields.dim() != 3 or not 1 <= fields.shape[0] <= 3:
         raise ValueError(f"fields: expected (C<=3, H, W), got {tuple(fields.shape)}")
     check_planes("fields", fields, (fields.shape[0], fh, fw))
@@ -352,7 +359,7 @@ def advect_window(fields, u, v, dt, decay_rate, mode: str, window: ref.Window, *
             stats.data_ptr() if stats is not None else None,
             c, h, w, int(mode == "dye"), int(bool(packed)), int(bool(fast_path)),
             float(ref.f32(dt)), ref.decay_factor(dt, decay_rate), window.y0, window.x0,
-            window.h_phys, w_phys, window.d, window.d_x, fw, pitch, stream_of(u))
+            window.h_phys, w_phys, d, window.d_x, yi, fw, pitch, stream_of(u))
     if return_stats:
         return out, stats
     return out

@@ -57,11 +57,19 @@ def get_ops(config: FluidConfig) -> types.SimpleNamespace:
     """The op namespace for ``config``; raises for ``backend='cuda'``
     without a CUDA device.  ``ref`` ignores the ``fast_*`` flags, as the
     JAX package's ref backend does."""
-    backend = config.resolve_backend()
-    if backend == "ref":
+    if config.resolve_backend() == "ref":
         return _namespace()
+    return kernel_ops(config)
+
+
+def kernel_ops(config: FluidConfig, batched: bool = False) -> types.SimpleNamespace:
+    """The kernels' namespace whatever ``config.backend``: the Hopper
+    kernels' wrappers (``ops/cuda_kernels.py``), which run their plain
+    versions on CPU tensors; ``batched`` for B members."""
     from cudafluidsimulation_tpu_torch.ops import cuda_kernels
 
+    if batched:
+        return batched_namespace(cuda_kernels.batched_overrides(config))
     return _namespace(cuda_kernels.overrides(config))
 
 
@@ -97,6 +105,4 @@ def get_batched_ops(config: FluidConfig) -> types.SimpleNamespace:
     ``ref`` ignores the ``fast_*`` flags."""
     if config.resolve_backend() == "ref":
         return batched_namespace()
-    from cudafluidsimulation_tpu_torch.ops import cuda_kernels
-
-    return batched_namespace(cuda_kernels.batched_overrides(config))
+    return kernel_ops(config, batched=True)

@@ -191,7 +191,12 @@ class Window(NamedTuple):
     padded width), ``d`` and ``d_x`` the halo depths in rows and columns,
     which bound a tap's offset from its cell (``d_x`` 0: columns
     unbounded).  The cells advected are the padded array's interior, rows
-    [d, d + h) and columns [d_x, d_x + w) of an (h + 2d, w + 2d_x) view."""
+    [d, d + h) and columns [d_x, d_x + w) of an (h + 2d, w + 2d_x) view.
+
+    ``y_in`` >= 0 leaves rows unbounded, as ``d_x`` 0 does columns: the
+    view then holds every row of the grid (``y0`` 0, ``h_phys`` rows), the
+    interior is its rows [y_in, y_in + h), a tap reads its clamped global
+    row, and ``d`` is not used (the global step of ``parallel.sharded``)."""
 
     y0: int
     h_phys: int
@@ -199,11 +204,24 @@ class Window(NamedTuple):
     x0: int = 0
     w_phys: int = 0
     d_x: int = 0
+    y_in: int = -1
+
+
+def window_rows(window: Window) -> Tuple[int, int]:
+    """(the interior's first row in the view, the bound on a tap's row
+    offset from its cell): (d, d) for the padded view, (y_in, h_phys) for
+    the rows-unbounded one, where no clamped tap lies h_phys rows away."""
+    if window.y_in < 0:
+        return window.d, window.d
+    if window.y0 != 0:
+        raise ValueError(f"window {window}: a rows-unbounded view starts at row 0")
+    return window.y_in, window.h_phys
 
 
 def window_shape(window: Window, h: int, w: int) -> Tuple[int, int]:
     """The padded extents (rows, columns) of an (h, w) interior."""
-    return h + 2 * window.d, w + 2 * window.d_x
+    rows = h + 2 * window.d if window.y_in < 0 else window.h_phys
+    return rows, w + 2 * window.d_x
 
 
 def window_bilerp(fields: Tensor, u: Tensor, v: Tensor, dt, window: Window) -> Tensor:
@@ -213,14 +231,18 @@ def window_bilerp(fields: Tensor, u: Tensor, v: Tensor, dt, window: Window) -> T
     global coordinates through (u, v) (h, w), truncates the corner toward
     zero, clamps it to the physical grid, bounds the tap's offset from the
     cell to +-d rows (and +-d_x columns), then reads the padded array.
-    Returns (C, h, w)."""
+    With ``y_in`` the view is the grid's rows and the row offset is not
+    bounded (:func:`window_rows`).  Returns (C, h, w)."""
     h, w = u.shape
-    d, d_x = window.d, window.d_x
+    d_x = window.d_x
+    y_in, d = window_rows(window)
     fh, fw = window_shape(window, h, w)
     if tuple(fields.shape[-2:]) != (fh, fw):
         raise ValueError(f"fields: expected padded (C, {fh}, {fw}), got {tuple(fields.shape)}")
+    if y_in + h > fh:
+        raise ValueError(f"window {window}: rows [{y_in}, {y_in + h}) lie outside the view")
     dev = u.device
-    ly = torch.arange(h, device=dev)[:, None] + d
+    ly = torch.arange(h, device=dev)[:, None] + y_in
     lx = torch.arange(w, device=dev)[None, :] + d_x
     gy, gx = ly + window.y0, lx + window.x0
     dt = float(f32(dt))

@@ -5,11 +5,13 @@ controller runs the same per-shard program on every shard, and the
 program's collectives (the JAX package's ``ppermute``, ``pmax``, ``psum``,
 ``all_gather``) are the only contact between shards.
 
-- :class:`Mesh`: ``torch.device``s laid out as (n,) over the axis ``"x"``
-  (:func:`make_mesh`, the rows mesh) or as (rows, cols) over ``"rows"`` and
-  ``"cols"`` (:func:`make_mesh2d`).  A device may appear more than once, as
-  the JAX tests' virtual host devices do: several shards then share a card
-  (or the CPU), each with its own part of the grid.
+- :class:`Mesh`: ``torch.device``s laid out over named axes: (n,) over
+  ``"x"`` (:func:`make_mesh`, the rows mesh), (rows, cols) over ``"rows"``
+  and ``"cols"`` (:func:`make_mesh2d`), or (ens, x) over ``"ens"`` and
+  ``"x"`` (``parallel.sharded.make_mesh``: ensemble members over ``"ens"``,
+  rows over ``"x"``).  A device may appear more than once, as the JAX
+  tests' virtual host devices do: several shards then share a card (or
+  the CPU), each with its own part of the state.
 - :func:`run`: the lockstep runner.  It calls the per-shard function once
   for each shard, in one thread a shard, each with its device current and
   the caller's stream on it, and its own :class:`Communicator`.
@@ -18,16 +20,24 @@ program's collectives (the JAX package's ``ppermute``, ``pmax``, ``psum``,
   (:meth:`Communicator.neighbours`: a device-to-device copy from the neighbour's
   tensor, on its device or another), ``pmax``, ``psum`` (summed in shard
   order, so every shard gets the same bits) and ``all_gather``.  Each call
-  meets the other shards at a barrier; it counts exchange pairs, their
-  bytes and the other collectives, so a schedule can be pinned as the JAX
-  tests pin theirs by counting ``ppermute`` in the jaxpr.
-- :func:`shard_state`, :func:`shard_state_2d`, :func:`gather_state`: u, v,
-  dye and pressure split over the mesh, the scalars and ``vel_stats``
-  replicated (:class:`ShardedState`), and back into one state.
+  meets the other shards of its group (those that differ from it only
+  along the collective's axes) at that group's barrier; it counts exchange
+  pairs, their bytes and the other collectives, so a schedule can be
+  pinned as the JAX tests pin theirs by counting ``ppermute`` in the jaxpr.
+- :func:`shard_state`, :func:`shard_state_2d`, :func:`gather_state`: a
+  state split over the mesh by axis name (:func:`field_specs`, or the specs
+  given: ``parallel.sharded.state_sharding``): u, v, dye and pressure by
+  rows over ``"x"`` or ``"rows"`` and by columns over ``"cols"``, a
+  batched state's members over ``"ens"``; the rest replicated
+  (:class:`ShardedState`), and back into one state.
 
-Every shard runs the same program, so every shard makes the same
-collectives in the same order; a branch that decides on data takes
-replicated data (a ``psum``'d residual, a ``pmax``'d bound).
+Every shard of a group runs the same program, so the shards of a group
+make the same collectives in the same order; a branch that decides on
+data takes data replicated over the group (a ``psum``'d residual, a
+``pmax``'d bound).  Groups need not agree with each other: on an (ens, x)
+mesh one ens group may run more V-cycles than another.  A barrier gives up
+after :data:`BARRIER_TIMEOUT` seconds, so a shard that skips a collective
+makes the others raise ``BrokenBarrierError`` instead of hanging.
 
 The shards of one process share it by threads: NCCL cannot put two ranks
 on one card, and gloo's send and receive take host tensors, so neither
@@ -47,7 +57,8 @@ import torch
 from cudafluidsimulation_tpu_torch.ops import _build
 from cudafluidsimulation_tpu_torch.state import FluidState
 
-FIELDS = ("u", "v", "dye", "pressure")  # split over the mesh; the rest replicated
+# the fields on the shards' devices; the rest is host state
+DEVICE_FIELDS = ("u", "v", "dye", "pressure", "vel_stats")
 
 
 class Mesh:
@@ -134,15 +145,46 @@ def current() -> "Communicator":
     return comm
 
 
-class _Shared:
-    """What the shards of one :func:`run` share: the barrier and two sets of
-    slots, used in turn, so that a shard posts into one set while a slower
-    one may still read the other (a shard posts again into a set only after
-    every shard has passed the barrier of the collective in between)."""
+BARRIER_TIMEOUT = 600.0  # seconds a shard waits at a collective before it gives up
 
-    def __init__(self, n: int):
-        self.barrier = threading.Barrier(n)
-        self.slots = ([None] * n, [None] * n)
+
+class _Group:
+    """What the shards of one collective group share: the barrier and two
+    sets of slots, used in turn, so that a shard posts into one set while a
+    slower one may still read the other (a shard posts again into a set
+    only after every shard of the group has passed the barrier of the
+    group's collective in between)."""
+
+    def __init__(self, n_members: int, n_shards: int, timeout: float):
+        self.barrier = threading.Barrier(n_members, timeout=timeout)
+        self.slots = ([None] * n_shards, [None] * n_shards)
+
+
+class _Shared:
+    """What the shards of one :func:`run` share: a :class:`_Group` for each
+    set of shards that meets at a collective, made when first used."""
+
+    def __init__(self, n: int, timeout: float):
+        self.n, self.timeout = n, timeout
+        self._groups = {}
+        self._lock = threading.Lock()
+        self._aborted = False
+
+    def group(self, members: Tuple[int, ...]) -> _Group:
+        with self._lock:
+            g = self._groups.get(members)
+            if g is None:
+                g = self._groups[members] = _Group(len(members), self.n, self.timeout)
+                if self._aborted:
+                    g.barrier.abort()
+            return g
+
+    def abort(self) -> None:
+        """Break every barrier, those made later too: no shard waits on."""
+        with self._lock:
+            self._aborted = True
+            for g in self._groups.values():
+                g.barrier.abort()
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -160,7 +202,8 @@ class Communicator:
         self.coords = mesh.coords(index)
         self.device = mesh.devices[index]
         self._shared = shared
-        self._turn = 0
+        self._turns = {}
+        self._groups = {}
         self.counts = {"exchanges": 0, "bytes": 0, "pmax": 0, "psum": 0, "all_gather": 0}
 
     def axis_index(self, axis: str) -> int:
@@ -169,12 +212,15 @@ class Communicator:
     def axis_size(self, axis: str) -> int:
         return self.mesh.shape[axis]
 
-    def _post(self, value):
-        """Publish ``value``, wait for every shard, return every shard's."""
-        slots = self._shared.slots[self._turn % 2]
+    def _post(self, value, members: Tuple[int, ...]):
+        """Publish ``value`` to the group ``members``, wait for all of
+        them, return the slots (indexed by shard) they posted into."""
+        g = self._shared.group(members)
+        turn = self._turns.get(members, 0)
+        slots = g.slots[turn % 2]
         slots[self.index] = value
-        self._turn += 1
-        self._shared.barrier.wait()
+        self._turns[members] = turn + 1
+        g.barrier.wait()
         return slots
 
     def _peer(self, axis: str, offset: int) -> Optional[int]:
@@ -185,13 +231,17 @@ class Communicator:
             return None
         return self.mesh.index(c)
 
-    def _group(self, axes) -> List[int]:
+    def _group(self, axes) -> Tuple[int, ...]:
         """The shards that differ from this one only along ``axes``, in mesh
         order (the members of a collective over ``axes``)."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        keep = [k for k, name in enumerate(self.mesh.axis_names) if name not in axes]
-        return [i for i in range(self.mesh.size)
-                if all(self.mesh.coords(i)[k] == self.coords[k] for k in keep)]
+        out = self._groups.get(axes)
+        if out is None:
+            keep = [k for k, name in enumerate(self.mesh.axis_names) if name not in axes]
+            out = self._groups[axes] = tuple(
+                i for i in range(self.mesh.size)
+                if all(self.mesh.coords(i)[k] == self.coords[k] for k in keep))
+        return out
 
     def neighbours(self, to_lower: torch.Tensor, to_upper: torch.Tensor, axis: str):
         """One exchange pair along ``axis`` (two ``ppermute``s in the JAX
@@ -200,7 +250,7 @@ class Communicator:
         before sent up, what the shard after sent down), None past a
         physical edge.  The caller copies out of them before its next
         collective."""
-        slots = self._post((to_lower, to_upper))
+        slots = self._post((to_lower, to_upper), self._group(axis))
         lo, hi = self._peer(axis, -1), self._peer(axis, 1)
         self.counts["exchanges"] += 1
         self.counts["bytes"] += _nbytes(to_lower) + _nbytes(to_upper)
@@ -208,8 +258,9 @@ class Communicator:
                 None if hi is None else slots[hi][0])
 
     def _gathered(self, x, axes) -> List[torch.Tensor]:
-        slots = self._post(x)
-        return [slots[i].to(self.device) for i in self._group(axes)]
+        members = self._group(axes)
+        slots = self._post(x, members)
+        return [slots[i].to(self.device) for i in members]
 
     def pmax(self, x: torch.Tensor, axes) -> torch.Tensor:
         """Elementwise max of ``x`` over the shards along ``axes``."""
@@ -239,12 +290,14 @@ def run(mesh: Mesh, fn: Callable, args: Sequence[tuple]):
     own thread with its device current (and on a card the caller's current
     stream of that device), :func:`current` its communicator and its kernel
     launches counted for it (``Kernel.by_shard``).  Returns (the results,
-    the communicators).  A failing shard breaks the barrier the others wait
-    at; the first failure is raised."""
+    the communicators).  A failing shard breaks every barrier, so none of
+    the others waits on; a barrier left waiting :data:`BARRIER_TIMEOUT`
+    seconds breaks too.  The first failure is
+    raised, a shard's own before the broken barriers it caused."""
     n = mesh.size
     if len(args) != n:
         raise ValueError(f"{len(args)} argument sets for {n} shards")
-    shared = _Shared(n)
+    shared = _Shared(n, BARRIER_TIMEOUT)
     comms = [Communicator(mesh, i, shared) for i in range(n)]
     streams = {d: torch.cuda.current_stream(d) for d in set(mesh.devices) if d.type == "cuda"}
     results: List = [None] * n
@@ -262,7 +315,7 @@ def run(mesh: Mesh, fn: Callable, args: Sequence[tuple]):
                 results[i] = fn(*args[i])
         except BaseException as e:  # noqa: BLE001 - re-raised by the caller below
             errors[i] = e
-            shared.barrier.abort()
+            shared.abort()
         finally:
             _CURRENT.comm = None
             _build.set_shard(None)
@@ -285,72 +338,116 @@ def run(mesh: Mesh, fn: Callable, args: Sequence[tuple]):
 
 
 class ShardedState(NamedTuple):
-    """A state split over ``mesh``: ``shards[i]`` is shard i's local state
-    (its part of u, v, dye and pressure; the scalars and ``vel_stats``
-    replicated)."""
+    """A state split over ``mesh``: ``shards[i]`` is shard i's local state,
+    its block of each field as ``specs`` lays the fields out
+    (:func:`field_specs`; None: the unbatched layout of ``mesh``)."""
 
     mesh: Mesh
     shards: Tuple[FluidState, ...]
+    specs: Optional[FluidState] = None
 
 
-def _split(shape_hw, mesh: Mesh):
-    """Per shard, the (row slice, column slice) of an (H, W) grid."""
-    h, w = shape_hw
-    nr = mesh.dims[0]
-    nc = mesh.dims[1] if len(mesh.dims) > 1 else 1
-    if h % nr or w % nc:
-        raise ValueError(f"grid {w}x{h} not divisible by mesh {nr}x{nc}")
-    hl, wl = h // nr, w // nc
-    out = []
-    for i in range(mesh.size):
-        c = mesh.coords(i)
-        r, k = c[0], (c[1] if len(c) > 1 else 0)
-        out.append((slice(r * hl, (r + 1) * hl), slice(k * wl, (k + 1) * wl)))
-    return out
+ROW_AXES = ("x", "rows")  # the axis names that split grid rows
 
 
-def _local(t: torch.Tensor, rows: slice, cols: slice, device) -> torch.Tensor:
-    part = t[..., rows, cols]
-    out = torch.empty(part.shape, dtype=t.dtype, device=device)
+def field_specs(mesh: Mesh) -> FluidState:
+    """Each field's layout over ``mesh``, a ``PartitionSpec``-like tuple
+    per field (an axis name or None per dimension): rows over ``"x"`` or
+    ``"rows"``, columns over ``"cols"`` where the mesh has them.  What no
+    axis splits is replicated (a batched layout:
+    ``parallel.sharded.state_sharding``)."""
+    rows = next((a for a in ROW_AXES if a in mesh.shape), None)
+    cols = "cols" if "cols" in mesh.shape else None
+    plane = (rows, cols)
+    return FluidState(u=plane, v=plane, dye=(None, rows, cols), pressure=plane, t=(),
+                      press_time=(), time_since_press=(), mouse=(None,), step=(),
+                      vel_stats=(None,))
+
+
+def _block(t: torch.Tensor, spec, mesh: Mesh, coords) -> torch.Tensor:
+    """The block of ``t`` that the shard at ``coords`` holds under ``spec``."""
+    if len(spec) != t.dim():
+        raise ValueError(f"spec {spec} for a tensor of shape {tuple(t.shape)}")
+    index = []
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            index.append(slice(None))
+            continue
+        if axis not in mesh.shape:
+            raise ValueError(f"spec {spec} names an axis {axis!r} that {mesh} lacks")
+        n = mesh.shape[axis]
+        if t.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(t.shape)} not divisible by mesh "
+                             f"axis {axis!r} of {n}")
+        b = t.shape[dim] // n
+        c = coords[mesh.axis_names.index(axis)]
+        index.append(slice(c * b, (c + 1) * b))
+    return t[tuple(index)]
+
+
+def _local(part: torch.Tensor, device) -> torch.Tensor:
+    out = torch.empty(part.shape, dtype=part.dtype, device=device)
     return out.copy_(part)
 
 
-def shard_state(state: FluidState, mesh: Mesh) -> ShardedState:
-    """Split ``state`` over ``mesh``: rows over its first axis, columns over
-    its second (a 2-D mesh); each shard's fields are contiguous copies on
-    its device, the scalars are shared and ``vel_stats`` is copied to
-    every shard's device."""
-    parts = _split(tuple(state.u.shape), mesh)
+def shard_state(state: FluidState, mesh: Mesh,
+                specs: Optional[FluidState] = None) -> ShardedState:
+    """Split ``state`` over ``mesh`` as ``specs`` (default
+    :func:`field_specs`) lays it out.  Each shard's u, v, dye, pressure
+    and ``vel_stats`` are contiguous copies on its device; its host fields
+    are views of the state's (the state's own where nothing splits them)."""
+    specs = field_specs(mesh) if specs is None else specs
     shards = []
-    for i, (rows, cols) in enumerate(parts):
-        dev = mesh.devices[i]
-        local = {name: _local(getattr(state, name), rows, cols, dev) for name in FIELDS}
-        local["vel_stats"] = state.vel_stats.to(dev, copy=True)
-        shards.append(state._replace(**local))
-    return ShardedState(mesh, tuple(shards))
+    for i in range(mesh.size):
+        coords, dev = mesh.coords(i), mesh.devices[i]
+        local = {}
+        for name in FluidState._fields:
+            t, spec = getattr(state, name), getattr(specs, name)
+            part = _block(t, spec, mesh, coords) if any(spec) else t
+            local[name] = _local(part, dev) if name in DEVICE_FIELDS else part
+        shards.append(FluidState(**local))
+    return ShardedState(mesh, tuple(shards), specs)
 
 
 def shard_state_2d(state: FluidState, mesh: Mesh) -> ShardedState:
     """:func:`shard_state` over a (rows, cols) mesh."""
-    if len(mesh.dims) != 2:
+    if mesh.axis_names != ("rows", "cols"):
         raise ValueError(f"expected a (rows, cols) mesh, got {mesh}")
     return shard_state(state, mesh)
 
 
+def _assemble(get, spec, mesh: Mesh, device) -> torch.Tensor:
+    """One whole tensor from the shards' blocks (``get(i)``: shard i's):
+    the dimensions ``spec`` splits concatenated in axis order, the axes it
+    does not name read at index 0; on ``device`` unless None."""
+
+    def build(coords, dim):
+        while dim < len(spec) and spec[dim] is None:
+            dim += 1
+        if dim == len(spec):
+            t = get(mesh.index(coords))
+            return t if device is None else t.to(device)
+        k = mesh.axis_names.index(spec[dim])
+        parts = []
+        for c in range(mesh.dims[k]):
+            coords = list(coords)
+            coords[k] = c
+            parts.append(build(coords, dim + 1))
+        return torch.cat(parts, dim=dim)
+
+    return build([0] * len(mesh.dims), 0)
+
+
 def gather_state(sharded: ShardedState, device=None) -> FluidState:
-    """The whole state of ``sharded`` on ``device`` (default shard 0's):
-    its fields put back together, its scalars and ``vel_stats`` shard 0's
-    (replicated)."""
-    mesh, shards = sharded
+    """The whole state of ``sharded``: its device fields put back together
+    on ``device`` (default shard 0's), its host fields on the host; what
+    the layout replicates is read from the first shard that holds it."""
+    mesh, shards = sharded.mesh, sharded.shards
+    specs = sharded.specs if sharded.specs is not None else field_specs(mesh)
     device = torch.device(device) if device is not None else mesh.devices[0]
-    nr = mesh.dims[0]
-    nc = mesh.dims[1] if len(mesh.dims) > 1 else 1
     whole = {}
-    for name in FIELDS:
-        rows = []
-        for r in range(nr):
-            cols = [getattr(shards[r * nc + k], name).to(device) for k in range(nc)]
-            rows.append(torch.cat(cols, dim=-1))
-        whole[name] = torch.cat(rows, dim=-2)
-    whole["vel_stats"] = shards[0].vel_stats.to(device)
-    return shards[0]._replace(**whole)
+    for name in FluidState._fields:
+        spec = getattr(specs, name)
+        whole[name] = _assemble(lambda i: getattr(shards[i], name), spec, mesh,
+                                device if name in DEVICE_FIELDS else None)
+    return FluidState(**whole)

@@ -36,8 +36,10 @@ ones read the whole row, as ``utils.health.clamp_axes("cuda", "rows")``
 says (the JAX package's column-tiled advection also bounds them on wide
 shards, a plan of its TPU memory).
 
-The auto-SPMD step of the JAX package (``parallel/sharded.py``) has no
-counterpart: PyTorch has no partitioner for a plain program.
+With ``unbounded`` the namespace advects as the global step of
+``parallel/sharded.py`` (the JAX package's auto-SPMD step) does: each
+shard gathers every row over the axis and advects its own rows through
+H1/H8's rows-unbounded window, so no tap is bounded.
 """
 
 from __future__ import annotations
@@ -94,7 +96,7 @@ def _stencil_sweeps(x, alpha, inv_beta, iters, pad):
 def sharded_ops(axis_name: str, h_global: int, d: int, use_kernels: bool = False,
                 burst: int = 8, packed_vel: bool = False, packed_dye: bool = False,
                 fast_path: bool = True, sep_diffuse=None,
-                kernels=None) -> types.SimpleNamespace:
+                kernels=None, unbounded: bool = False) -> types.SimpleNamespace:
     """The shard-local op namespace that ``make_step`` runs on a rows mesh.
 
     With ``use_kernels`` the advection, the Jacobi stages and the fast
@@ -103,7 +105,9 @@ def sharded_ops(axis_name: str, h_global: int, d: int, use_kernels: bool = False
     a sweep.  ``packed_vel``/``packed_dye``/``fast_path`` thread the config's
     ``fast_velocity``/``fast_dye``/``advect_fast_path`` into the advection
     (H8); ``sep_diffuse`` = (the fast diffusion's ops, halo radius) threads
-    ``fast_diffuse`` (``ops.fastdiffuse.sharded_sep``)."""
+    ``fast_diffuse`` (``ops.fastdiffuse.sharded_sep``).  ``unbounded``
+    advects from every row of the grid, gathered over the axis, instead of
+    a ``d``-deep exchange (``d`` unused)."""
     kern = kernels or KERNELS
     ns = types.SimpleNamespace()
 
@@ -112,8 +116,18 @@ def sharded_ops(axis_name: str, h_global: int, d: int, use_kernels: bool = False
         return _comm().pmax(ref.vel_max(u2, v2), axis_name)
 
     def _window(hl):
+        first = _comm().axis_index(axis_name) * hl  # the shard's first global row
+        if unbounded:
+            return ref.Window(y0=0, h_phys=h_global, d=0, y_in=first)
         # the global row of padded row 0
-        return ref.Window(y0=_comm().axis_index(axis_name) * hl - d, h_phys=h_global, d=d)
+        return ref.Window(y0=first - d, h_phys=h_global, d=d)
+
+    def _view(x):
+        """What the advection reads of ``x``: its d-deep clamp exchange,
+        or every row of the grid."""
+        if unbounded:
+            return _comm().all_gather(x, axis_name, dim=x.dim() - 2)
+        return exchange_rows(x, d, axis_name)
 
     def _advect(fp, u, v, dt, decay_rate, mode, vel_stats, packed, out=None):
         """The window advection of the interior of the d-padded ``fp``
@@ -129,14 +143,14 @@ def sharded_ops(axis_name: str, h_global: int, d: int, use_kernels: bool = False
                                  out=out)
 
     def advect_velocity(u, v, dt, decay_rate, vel_stats=None, return_stats=False):
-        fp = exchange_rows(torch.stack([u, v]), d, axis_name)
+        fp = _view(torch.stack([u, v]))
         uv, st = _advect(fp, u, v, dt, decay_rate, "field", vel_stats, packed_vel)
         if return_stats:
             return uv[0], uv[1], _comm().pmax(st, axis_name)
         return uv[0], uv[1]
 
     def advect_dye(dye, u, v, dt, decay_rate, vel_stats=None, out=None):
-        fp = exchange_rows(dye, d, axis_name)
+        fp = _view(dye)
         return _advect(fp, u, v, dt, decay_rate, "dye", vel_stats, packed_dye, out=out)
 
     def advect_both(u, v, dye, dt, decay_rate, vel_stats=None, return_stats=False,
@@ -147,7 +161,7 @@ def sharded_ops(axis_name: str, h_global: int, d: int, use_kernels: bool = False
         dye's halo rides the velocity's exchange although its backtrace uses
         the new velocity, which only the interior cells need.  ``out``
         receives the dye."""
-        allp = exchange_rows(torch.cat([torch.stack([u, v]), dye]), d, axis_name)
+        allp = _view(torch.cat([torch.stack([u, v]), dye]))
         uv, st = _advect(allp[:2], u, v, dt, decay_rate, "field", vel_stats, packed_vel)
         u2, v2 = uv[0], uv[1]
         st = _comm().pmax(st, axis_name) if return_stats else None
@@ -482,13 +496,16 @@ def _schedule(config: FluidConfig, kernels):
     return config.resolve_backend() == "cuda", KERNELS
 
 
-def _local_ops(config: FluidConfig, mesh: _mesh.Mesh, axis_name: str = "x", kernels=None):
-    """Check the sharding geometry and build the shard-local op set."""
+def _local_ops(config: FluidConfig, mesh: _mesh.Mesh, axis_name: str = "x", kernels=None,
+               unbounded: bool = False):
+    """Check the sharding geometry and build the shard-local op set
+    (``unbounded``: the global step's advection, which no shard height
+    bounds)."""
     n = mesh.shape[axis_name]
     if config.ny % n != 0:
         raise ValueError(f"ny={config.ny} not divisible by mesh axis {n}")
     hl = config.ny // n
-    if hl < config.max_displacement:
+    if hl < config.max_displacement and not unbounded:
         # silently tightening the advection bound would make the same config
         # produce different physics depending on device count
         raise ValueError(
@@ -501,7 +518,8 @@ def _local_ops(config: FluidConfig, mesh: _mesh.Mesh, axis_name: str = "x", kern
     return sharded_ops(axis_name, config.ny, config.max_displacement,
                        use_kernels=use_kernels, burst=min(config.jacobi_burst, hl),
                        packed_vel=config.fast_velocity, packed_dye=config.fast_dye,
-                       fast_path=config.advect_fast_path, sep_diffuse=sep, kernels=kernels)
+                       fast_path=config.advect_fast_path, sep_diffuse=sep, kernels=kernels,
+                       unbounded=unbounded)
 
 
 def _sharded(mesh: _mesh.Mesh, per_shard):

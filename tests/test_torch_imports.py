@@ -33,7 +33,7 @@ EXPECTED = {"cli", "config", "entry", "interop", "state", "models.app", "models.
             "models.pipelines", "models.simulation", "utils.http_view", "utils.native_sink",
             "utils.term_input", "utils.term_view", "utils.png", "utils.video",
             "ops.cuda_kernels", "ops.ref", "parallel.mesh", "parallel.halo",
-            "parallel.shardmap_step", "parallel.shardmap2d"}
+            "parallel.shardmap_step", "parallel.shardmap2d", "parallel.sharded"}
 
 
 @pytest.fixture(scope="module")
