@@ -17,7 +17,13 @@ caught:
    and unaligned planes take its scalar path), into a fresh (2, H, W)
    tensor and into channels 0-1 of a (5, H, W) pack whose other channels
    it must leave alone; H1 advect in both modes (its dye also into
-   channels 2-4 of a pack, equal to the fresh call), H3 diffusion with
+   channels 2-4 of a pack, equal to the fresh call) and in its one launch
+   of both (``advect_both``, the step's call), which must equal the two
+   passes bit for bit (into the pack too, at H2's shapes, from unaligned
+   planes, through the dye's NaN saturation) and the plain versions
+   within RTOL, its bound ``vel_max`` of its output (a NaN velocity
+   giving a NaN bound, as H1's and H8's velocity passes), every design of
+   ADVECT_DESIGNS bit-equal to the shipped one; H3 diffusion with
    the splat, H4 pressure with its velocity bound, H5 divergence and
    projection at 2048x2048 and 540x960; H6 (the multigrid smoother ends) also at 135x240
    and 16x16, the coarse levels' shapes, and its ends with the grid
@@ -44,16 +50,19 @@ caught:
    that run — then one driven step held against ``backend="ref"`` on the
    card, and bit for bit against the same step with the 5-channel pack
    built by ``torch.cat`` (:func:`cat_form`), and the device operations
-   of one step (13, none a ``cat``);
+   of one step (11, none a ``cat``); H1's one launch a step and neither of
+   its passes, and both rollouts bit for bit against the same rollouts
+   through H1's two passes (a namespace without ``advect_both``);
 5. the quality path: ``FluidConfig.quality`` at 2048² (multigrid pressure,
    V-cycles until rms(A p + div) < 0.05) on ``backend="cuda"``, the same
    rollouts and frame, launch counts read around them (H5, H6's fused
    ends and its stopping test's mean of squares launched, H4's
    ``pressure_project`` not), the V-cycles each step
    took (from the H6 entries' counts), the device operations of one step
-   (``torch.profiler``: 49 at its 2 V-cycles, none a ``cat``), one driven
-   step against ``backend="ref"`` and against the ``torch.cat`` pack, and
-   the tolerance met by one projection of the driven state;
+   (``torch.profiler``: 47 at its 2 V-cycles, none a ``cat``), one driven
+   step against ``backend="ref"`` and against the ``torch.cat`` pack, the
+   tolerance met by one projection of the driven state, and H1's one
+   launch against its two passes as on the parity path;
 6. the fixed-cycle multigrid path (``mg_cycles=2``, ``mg_tol=0``) at 2048²
    for a few steps: its last cycle ends in ``prolong_smooth_project``; one
    step against ``backend="ref"``;
@@ -63,7 +72,7 @@ caught:
    launch counts read around them (H7 and H8 launched, H1 and H3 not), one
    driven step against the same step on the plain versions of every
    kernel on the card and against the ``torch.cat`` pack, the device
-   operations of one step (11, none a ``cat``), that step's distance from the exact parity step
+   operations of one step (10, none a ``cat``), that step's distance from the exact parity step
    and of its advected velocity from the exact one (information), and one
    step under ``torch.cuda.set_sync_debug_mode("error")``, which shows
    that the step reads nothing back;
@@ -80,8 +89,10 @@ caught:
    batched launch counts read around it (no single-member launch), and
    members 0, 31, 63 and the one at the config's viscosity bit for bit
    against their single-member rollouts; the device operations of one
-   batched step (14: the members' parameter copy and the parity step's
-   13), one batched step under ``set_sync_debug_mode("error")``; a
+   batched step (12: the members' parameter copy and the parity step's
+   11); batched H1's one launch of both into ``pack[:, 2:5]`` bit for bit
+   against its two passes, each member against its B = 1 launch; one
+   batched step under ``set_sync_debug_mode("error")``; a
    cpu-variant ensemble (8 x 512², 10 steps) and one of its steps against
    the plain versions on the card;
 9. the fast and multigrid ensembles on batched H5-H8: H5 (divergence and
@@ -105,8 +116,8 @@ caught:
    checked member and for the batch (its host reads: cycles + 1); 8
    fixed-cycle multigrid steps from the sweep's state (H6
    ``prolong_smooth_project`` batched); the device operations of one
-   batched fast step (12) and of one batched quality step whose members
-   stop together (14 + 14k at k V-cycles), the host reads of the sweep's
+   batched fast step (11) and of one batched quality step whose members
+   stop together (12 + 14k at k V-cycles), the host reads of the sweep's
    last step, and one batched fast step under
    ``set_sync_debug_mode("error")``;
 10. the headless CLI (``cudafluidsimulation_tpu_torch.cli.main``, in
@@ -121,7 +132,7 @@ caught:
    from that checkpoint, bit-equal to ``Simulation.run`` from
    ``load_state``, with ``--profile-dir`` (one trace written, whose
    kernel events, its pad of spin kernels left out by name, must equal the
-   rollout's entry calls times each entry's device launches: 110);
+   rollout's entry calls times each entry's device launches: 100);
    ``--preset quality`` and ``--preset fast``, 50 steps
    each with ``--report``, bit-equal to ``Simulation.run`` with their
    report rows; ``--report-mode decomposed``, 20 steps, launching H4's
@@ -131,7 +142,7 @@ caught:
    steps/s, stage ms and seconds;
 11. the live views at 2048² on the parity configuration with a fixed dt
    (``models.app.FluidApp``, 64 frames a loop, launches read around every
-   loop: H1 128, H2-H4 64, nothing else): the loop's final state bit-equal
+   loop: H1-H4 64, nothing else): the loop's final state bit-equal
    to ``Simulation.run`` over the impulses its orbit source gave; plain and
    pipelined frames equal by their SHA-1, the last one
    ``Simulation.frame_image``'s bytes; frames/s and Min/Max/avg frame ms
@@ -194,7 +205,11 @@ caught:
    differ where a kernel is shorter than its wrapper's host cost) beside
    its plain version's and its bound: the larger of its bytes (each input
    read once, each output written once) at 3.35 TB/s and its float32
-   operations at 67 TFLOP/s; the ensemble's member-steps/s batched and
+   operations at 67 TFLOP/s (``H1`` is the step's one launch, against 10
+   planes; ``H1 velocity pass`` and ``H1 dye pass`` its passes apart, 4
+   and 8; ``H8`` its two passes, 12, with each pass's device ms); every
+   design of ADVECT_DESIGNS (``advect_designs`` lines, single and
+   batched); the ensemble's member-steps/s batched and
    with the same members run one after another as single-member steps,
    and the batched kernels' rows (``H1 batched`` ... ``H4 batched``, each
    asserted to make one device launch a stage or a burst for all members);
@@ -259,6 +274,10 @@ MG_PAIRS = ((2048, 2048), (540, 960), (32, 32), (2050, 2046))
 RTOL = {"H1": 1e-6, "H2": 0.0, "H3": 1e-5, "H3 sweeps": 0.0, "H4": 0.0,
         "H4 solve": 0.0, "H5": 1e-6, "H6": 0.0, "H7": 1e-5, "H7 sweeps": 0.0,
         "H8": 1e-6}
+# H1's velocity and dye in one launch against its two passes: the same
+# floats (the dye backtraces through the u', v' the two-pass form writes
+# and reads back), so 0; each design against the shipped one, 0
+RTOL.update({"H1 fused": 0.0, "H1 fused batched": 0.0, "H1 design": 0.0})
 # phase 12, the sharded rollout's entries: H1/H8's window is H1's/H8's
 # arithmetic on global coordinates; H4's solve from an iterate and H3 on a
 # padded shard (no splat) are blocked sweeps in the plain order: 0
@@ -282,9 +301,11 @@ VORT_SHAPES = CHECK_SHAPES + ((2049, 2047), (2050, 2046), (135, 240), (16, 16), 
                               (3, 5), (1, 1))
 # device operations of one driven 2048² step: the kernels' launches and
 # the memsets of their velocity bounds, no copy into the 5-channel pack
-# (quality at its 2 V-cycles: each of its 3 stopping tests is the two
-# passes of H6 mean_square and a read)
-STEP_DEVICE_OPS = {"parity": 13, "fast": 11, "quality": 49}
+# (parity: H1's one launch, H2, H3's 3 bursts, H4's memset and 5 bursts;
+# fast: H8's two passes, H2, H7, H4's 6; quality at its 2 V-cycles: each of
+# its 3 stopping tests is the two passes of H6 mean_square and a read).
+# H1 and H8 bound the velocity without a memset since their redesign
+STEP_DEVICE_OPS = {"parity": 11, "fast": 10, "quality": 47}
 QUALITY_STEP_VCYCLES = 2  # the V-cycles of the quality step counted
 # the most device launches one entry call may make at 2048²
 MAX_DEVICE_LAUNCHES = {"H3": 5, "H4": 8, "H4 solve": 8,
@@ -317,13 +338,14 @@ ENS_B, ENS_N, ENS_STEPS = 64, 512, 200
 ENS_SHAPES = ((ENS_B, ENS_N, ENS_N), (3, 540, 960), (5, 135, 240), (7, 4, 8))
 ENS_JITTER = 32.0  # each member's orbit centre moves by up to this many cells
 # device operations of one batched step: one copy of the members'
-# parameters, then the parity step's 13 (H1 velocity with its bound's
-# memset, H1 dye, H2, H3's 3 bursts, H4's memset and 5 bursts)
-ENS_STEP_DEVICE_OPS = 14
+# parameters, then the parity step's 11 (H1's one launch, H2, H3's 3
+# bursts, H4's memset and 5 bursts)
+ENS_STEP_DEVICE_OPS = 12
 # device launches one call of each batched entry makes at 64 x 512²: one a
-# stage (a burst for H3 and H4) for all 64 members, with the memsets of
-# the velocity bounds
-ENS_CALL_LAUNCHES = {"H1 batched": 3, "H2 batched": 1, "H3 batched": 3, "H4 batched": 6}
+# stage (a burst for H3 and H4) for all 64 members, with H4's memset of
+# its velocity bound
+ENS_CALL_LAUNCHES = {"H1 batched": 1, "H1 batched velocity pass": 1, "H1 batched dye pass": 1,
+                     "H2 batched": 1, "H3 batched": 3, "H4 batched": 6}
 ENS_CPU_B, ENS_CPU_STEPS = 8, 10
 # phase 9, the fast and multigrid ensembles on batched H5-H8: H6's ends with
 # the grid transfers at these level pairs (even extents: 64 x 512² -> 256²,
@@ -333,24 +355,24 @@ ENS_MG_PAIRS = ((ENS_B, ENS_N, ENS_N), (3, 540, 960), (5, 32, 32), (2, 2050, 204
 # inputs repeat a 7-member batch, whose outputs the walk must repeat
 ZWALK_B = 65537
 # device operations of one batched fast step: the parameter copy, H8's
-# velocity (its bound's memset and the kernel) and dye, H2, H7 (one launch
-# for every member's 5 planes), H4's memset and 5 bursts
-ENS_FAST_STEP_DEVICE_OPS = 12
+# velocity and dye passes, H2, H7 (one launch for every member's 5
+# planes), H4's memset and 5 bursts
+ENS_FAST_STEP_DEVICE_OPS = 11
 
 
 def ens_quality_step_ops(k, levels):
     """Device operations of one batched quality step whose members all
-    complete k V-cycles on ``levels`` levels: the parameter copy, H1's
-    velocity with its memset and dye, H2, H3's 3 bursts, H6's first end,
-    2 levels - 1 H6 ends a cycle, the k + 1 stopping tests' two passes and
-    read each, H5's projection with its memset."""
-    return 1 + 3 + 1 + 3 + 1 + k * (2 * levels - 1) + 3 * (k + 1) + 2
+    complete k V-cycles on ``levels`` levels: the parameter copy, H1's one
+    launch, H2, H3's 3 bursts, H6's first end, 2 levels - 1 H6 ends a
+    cycle, the k + 1 stopping tests' two passes and read each, H5's
+    projection with its memset."""
+    return 1 + 1 + 1 + 3 + 1 + k * (2 * levels - 1) + 3 * (k + 1) + 2
 
 
 # device launches one call of each batched row makes at 64 x 512² (the
 # smooth_res row calls the end twice: from p and from zero)
 ENS_REST_CALL_LAUNCHES = {
-    "H5 batched": 3, "H7 batched": 1, "H8 batched": 3, "H6 batched mean_square": 2,
+    "H5 batched": 3, "H7 batched": 1, "H8 batched": 2, "H6 batched mean_square": 2,
     "H6 batched smooth_damped": 1, "H6 batched smooth_res": 2,
     "H6 batched first_smooth_res": 1, "H6 batched last_smooth_project": 2,
     "H6 batched smooth_res_restrict": 1, "H6 batched first_smooth_res_restrict": 1,
@@ -359,6 +381,20 @@ ENS_REST_CALL_LAUNCHES = {
 # ENS_WINDOW steps, from the state their rollouts reached before them, timed
 # batched and one member at a time and traced whole
 ENS_WINDOW = 25
+# float32 operations of a cell of H1's passes, counted from their formulas:
+# the backtrace and its clamped taps 18; a bilinear blend 12; the velocity
+# two blends, two decays and the bound's two abs and maxes, the dye three
+# blends, each with its pow, scale and min
+H1_OPS = {"velocity": 18 + 2 * 13 + 4, "dye": 18 + 3 * 15}
+# H1's and H8's designs timed against the shipped one (advect_cuda.DESIGN):
+# (cells a thread along a row, rows of 32 threads a block, tiles of rows a
+# block walks, the dye's L1 prefetch: 0 none, 1 the tile's own lines, 2 a
+# tile ahead); (1, 8, 1, 0) keeps the cells and
+# blocks of the kernels before their redesign, a cell a thread in 32 x 8
+ADVECT_DESIGNS = ((1, 8, 1, 0), (2, 8, 1, 0), (4, 8, 1, 0), (4, 4, 1, 0), (4, 16, 1, 0),
+                  (2, 16, 1, 0), (1, 16, 1, 0), (4, 8, 1, 1), (4, 4, 1, 1), (2, 16, 1, 1),
+                  (4, 8, 4, 0), (4, 8, 4, 1), (4, 8, 8, 1), (2, 16, 4, 1), (4, 8, 4, 2),
+                  (4, 8, 8, 2), (4, 4, 4, 1))
 
 
 def _json(obj) -> None:
@@ -392,6 +428,22 @@ def _check_bound(name, stats, u, v):
     true = torch.stack([u.abs().max(), v.abs().max()])
     if not bool((stats >= true).all()):
         raise AssertionError(f"{name} vel_stats {stats.tolist()} below {true.tolist()}")
+
+
+def _check_vel_max(name, stats, u, v):
+    """Fail unless a kernel-emitted bound is ``ref.vel_max`` of its own
+    output, member by member, a NaN where the max is NaN."""
+    true = torch.stack([u.abs().amax(dim=(-2, -1)), v.abs().amax(dim=(-2, -1))], dim=-1)
+    same = (stats == true) | (stats.isnan() & true.isnan())
+    if stats.shape != true.shape or not bool(same.all()):
+        raise AssertionError(f"{name} vel_stats {stats.tolist()} is not the max {true.tolist()}")
+
+
+def _without_both(ops):
+    """``ops`` with H1's two passes in place of its one launch."""
+    ns = types.SimpleNamespace(**vars(ops))
+    del ns.advect_both
+    return ns
 
 
 def _check_state(what, *states):
@@ -522,6 +574,12 @@ def cat_form(ops):
         return call
 
     ns.advect_dye = fresh("dye", ops.advect_dye)
+    if hasattr(ops, "advect_both"):
+        def both(*args, out=None, **kw):
+            res = ops.advect_both(*args, **kw)
+            made["dye"] = res[2]
+            return res
+        ns.advect_both = both
     ns.vorticity_confinement_gpu = fresh("uv", ops.vorticity_confinement_gpu)
     ns.vorticity_confinement_cpu = fresh("uv", ops.vorticity_confinement_cpu)
     ns.diffuse_multi = from_cat(ops.diffuse_multi)
@@ -540,6 +598,31 @@ def _step_vs_cat(what, sim, state, imp):
         if not torch.equal(getattr(got, name), getattr(exp, name)):
             raise AssertionError(f"{what}: the in-place pack changed {name}: max abs diff "
                                  f"{_max_err(getattr(got, name), getattr(exp, name))[0]}")
+
+
+def _one_advect_launch(what, launches):
+    """H1's one launch a step on ``what``'s driven and quiet rollouts, and
+    neither of its passes apart."""
+    if (launches["H1"] != 2 * STEPS or launches["H1 velocity pass"]
+            or launches["H1 dye pass"]):
+        raise AssertionError(f"{what}: H1 {launches['H1']} launches in {2 * STEPS} steps, its "
+                             f"passes {launches['H1 velocity pass']}, {launches['H1 dye pass']}")
+
+
+def _same_as_two_passes(what, cfg, ops, driven, quiet, *states):
+    """The driven and quiet rollouts bit for bit against the same rollouts
+    through H1's two passes (``ops`` without ``advect_both``)."""
+    from cudafluidsimulation_tpu_torch import Simulation
+
+    two = Simulation(cfg, ops=_without_both(ops))
+    for imp, got in zip((driven, quiet), states):
+        exp = two.run(two.init(), imp)
+        for name in STATE_FIELDS:
+            if not torch.equal(getattr(got, name), getattr(exp, name)):
+                raise AssertionError(f"{what}: the rollout on H1's one launch differs from the "
+                                     f"two passes' in {name}")
+    _json({"phase": "advect_one_launch_rollouts", "path": what, "steps": STEPS,
+           "bit_equal_to_two_passes": True})
 
 
 def _step_device_ops(what, fn):
@@ -623,7 +706,7 @@ def ensemble_phase(smi, gen, worst, reset_counts, read_counts, kernels):
         got = advect_cuda.advect_velocity_batched(u, v, dts, rate, return_stats=True)
         _check(worst, "H1 batched", f"velocity {tag}", zip(
             "uv", got[:2], ref.advect_velocity_batched(u, v, dts, rate)))
-        _check_bound_batched("H1 batched", got[2], got[0], got[1])
+        _check_vel_max("H1 batched", got[2], got[0], got[1])
         u2, v2 = got[:2]
         pack = torch.full((b, 5, h, w), float("nan"), device=dev)
         dye2 = advect_cuda.advect_dye_batched(dye, u2, v2, dts, rate, out=pack[:, 2:])
@@ -631,6 +714,21 @@ def ensemble_phase(smi, gen, worst, reset_counts, read_counts, kernels):
             "dye", dye2, ref.advect_dye_batched(dye, u2, v2, dts, rate))])
         if not bool(pack[:, :2].isnan().all()):
             raise AssertionError(f"H1 batched {tag}: the dye wrote outside pack[:, 2:5]")
+        # the step's call: both in one launch into the pack's dye planes,
+        # the two passes' floats bit for bit
+        fpack = torch.full((b, 5, h, w), float("nan"), device=dev)
+        fused = advect_cuda.advect_both_batched(u, v, dye, dts, rate, return_stats=True,
+                                                out=fpack[:, 2:])
+        _check(worst, "H1 fused batched", f"two passes into pack {tag}", zip(
+            ("u", "v", "dye", "stats"), fused, (u2, v2, dye2, got[2])))
+        if not bool(fpack[:, :2].isnan().all()):
+            raise AssertionError(f"H1 fused batched {tag}: the dye wrote outside pack[:, 2:5]")
+        _check_vel_max("H1 fused batched", fused[3], fused[0], fused[1])
+        if (b, h, w) in (ENS_SHAPES[0], ENS_SHAPES[1]):
+            for design in ADVECT_DESIGNS:
+                _check(worst, "H1 design", f"fused batched {design} {tag}", zip(
+                    ("u", "v", "dye", "stats"), advect_cuda.advect_both_batched(
+                        u, v, dye, dts, rate, return_stats=True, design=design), fused))
         vorts = {"gpu": 50.0, "cpu": 0.35}
         uvs = {}
         for variant, vort in vorts.items():
@@ -665,6 +763,8 @@ def ensemble_phase(smi, gen, worst, reset_counts, read_counts, kernels):
                 u[i], v[i], dts[i], rate, return_stats=True), i)
             _members_equal(f"H1 batched dye {tag}", [dye2], [advect_cuda.advect_dye(
                 dye[i], u2[i], v2[i], dts[i], rate)], i)
+            _members_equal(f"H1 fused batched {tag}", fused, advect_cuda.advect_both(
+                u[i], v[i], dye[i], dts[i], rate, return_stats=True), i)
             for variant, vort in vorts.items():
                 _members_equal(f"H2 batched {variant} {tag}", uvs[variant].unbind(1),
                                jacobi_cuda.vorticity_confinement(u2[i], v2[i], dts[i], vort,
@@ -679,7 +779,7 @@ def ensemble_phase(smi, gen, worst, reset_counts, read_counts, kernels):
                 pu[i].contiguous(), pv[i].contiguous(), 40, True, return_stats=True), i)
         _json({"phase": "ensemble_kernel_members", "shape": tag, "members": b,
                "bit_equal_to_single_launch": True})
-    del u, v, dye, got, u2, v2, pack, dye2, uv, uvs, h3, h3s, h3v, h4, pu, pv
+    del u, v, dye, got, u2, v2, pack, dye2, uv, uvs, h3, h3s, h3v, h4, pu, pv, fpack, fused
     # a single call of more than the 8 planes H3 takes by value: one member
     # of device parameter rows
     f11 = randn(11, 135, 240)
@@ -832,11 +932,17 @@ def ensemble_phase(smi, gen, worst, reset_counts, read_counts, kernels):
         all5 = torch.cat([torch.stack([u, v], dim=1), dye], dim=1).contiguous()
         cases = {
             "H1 batched": (
-                lambda: (advect_cuda.advect_velocity_batched(u, v, dts, rate, return_stats=True,
-                                                             params=adv_p),
-                         advect_cuda.advect_dye_batched(dye, u2, v2, dts, rate, params=adv_p)),
+                lambda: advect_cuda.advect_both_batched(u, v, dye, dts, rate, return_stats=True,
+                                                        params=adv_p),
                 lambda: (ref.advect_velocity_batched(u, v, dts, rate, return_stats=True),
                          ref.advect_dye_batched(dye, u2, v2, dts, rate))),
+            "H1 batched velocity pass": (
+                lambda: advect_cuda.advect_velocity_batched(u, v, dts, rate, return_stats=True,
+                                                            params=adv_p),
+                lambda: ref.advect_velocity_batched(u, v, dts, rate, return_stats=True)),
+            "H1 batched dye pass": (
+                lambda: advect_cuda.advect_dye_batched(dye, u2, v2, dts, rate, params=adv_p),
+                lambda: ref.advect_dye_batched(dye, u2, v2, dts, rate)),
             "H2 batched": (
                 lambda: jacobi_cuda.vorticity_confinement_batched(u, v, dts, 50.0, "gpu",
                                                                   params=adv_p),
@@ -851,10 +957,22 @@ def ensemble_phase(smi, gen, worst, reset_counts, read_counts, kernels):
                 lambda: ref.pressure_project_batched(u, v, 40, True, return_stats=True)),
         }
         cells = b * ENS_N * ENS_N
-        io = {"H1 batched": ([u, v, dye, u2, v2, adv_p], cells * 72),
+        io = {"H1 batched": ([u, v, dye, adv_p], cells * (H1_OPS["velocity"] + H1_OPS["dye"])),
+              "H1 batched velocity pass": ([u, v, adv_p], cells * H1_OPS["velocity"]),
+              "H1 batched dye pass": ([dye, u2, v2, adv_p], cells * H1_OPS["dye"]),
               "H2 batched": ([u, v, adv_p], cells * 25),
               "H3 batched": ([all5, dif_p], 5 * cells * (6 * 20 + 10)),
               "H4 batched": ([u, v], cells * (4 + 5 * 40 + 8))}
+        # every design of ADVECT_DESIGNS at the sweep's shapes (information)
+        design_ms = {str(d): {
+            "H1 batched": _device_ms(lambda: advect_cuda.advect_both_batched(
+                u, v, dye, dts, rate, return_stats=True, params=adv_p, design=d)),
+            "H1 batched velocity pass": _device_ms(lambda: advect_cuda.advect_velocity_batched(
+                u, v, dts, rate, return_stats=True, params=adv_p, design=d)),
+            "H1 batched dye pass": _device_ms(lambda: advect_cuda.advect_dye_batched(
+                dye, u2, v2, dts, rate, params=adv_p, design=d))} for d in ADVECT_DESIGNS}
+        _json({"phase": "advect_designs", "members": b, "grid": f"{ENS_N}x{ENS_N}",
+               "shipped": list(advect_cuda.DESIGN), "device_ms": design_ms, "smi": smi})
         rows = []
         for k, (kern_fn, plain_fn) in cases.items():
             calls = _device_kernels(kern_fn)
@@ -874,9 +992,9 @@ def ensemble_phase(smi, gen, worst, reset_counts, read_counts, kernels):
                 "name": f"{k} {src[:-3]}", "route": "cuda",
                 "source": f"cudafluidsimulation_tpu_torch/csrc/{src}",
                 "replaces": f"cudafluidsimulation_tpu/ops/{replaces}",
-                "launches": launches[k], "path": "ensemble sweep",
+                "launches": launches[k], "path": None if "pass" in k else "ensemble sweep",
                 "members": b, "grid": f"{ENS_N}x{ENS_N}",
-                "max_abs_err": worst[k],
+                "max_abs_err": worst["H1 batched" if k.startswith("H1") else k],
                 **({"max_abs_err_without_splat": worst["H3 sweeps batched"]}
                    if k == "H3 batched" else {}),
                 "launches_per_call": sum(calls.values()),
@@ -964,7 +1082,7 @@ def rest_kernel_checks(gen, worst):
                                                           packed=True, **kw)
                 _check(worst, "H8 batched", f"velocity {case}", zip(
                     "uv", got[:2], advect_packed.advect_velocity_batched(u, v, dts, rate, **kw)))
-                _check_bound_batched("H8 batched", got[2], got[0], got[1])
+                _check_vel_max("H8 batched", got[2], got[0], got[1])
                 kd = dict(vel_stats=got[2] if given else None, fast_path=fast_path)
                 pack = torch.full((b, 5, h, w), float("nan"), device=dev)
                 dye2 = advect_cuda.advect_dye_batched(dye, got[0], got[1], dts, rate, packed=True,
@@ -1098,6 +1216,8 @@ def rest_kernel_checks(gen, worst):
                 pk[:, :2].contiguous(), taps2, radii, (amps, last, radius)),),
             "H8 batched": tuple(adv) + (advect_cuda.advect_dye_batched(
                 pk[:, 2:], adv[0], adv[1], dts, rate, vel_stats=adv[2], packed=True),),
+            "H1 fused batched": tuple(advect_cuda.advect_both_batched(
+                u, v, pk[:, 2:], dts, rate, return_stats=True)),
         }
 
     small = walk_cases(pack7, p7, rhs7, e7, dts7, bound7, amps7, last7)
@@ -1497,6 +1617,24 @@ def ensemble_rest_phase(smi, gen, worst, reset_counts, read_counts, kernels):
         }
         path_launches = {"fast ensemble": flaunch, "quality sweep": qlaunch,
                          "fixed-cycle ensemble": xlaunch}
+
+        def h8_velocity(design=None):
+            return advect_cuda.advect_velocity_batched(fu, fv, dts, rate, vel_stats=fst,
+                                                       return_stats=True, packed=True,
+                                                       params=adv_p, design=design)
+
+        def h8_dye(design=None):
+            return advect_cuda.advect_dye_batched(fdye, fu2, fv2, dts, rate, vel_stats=fst2,
+                                                  packed=True, params=adv_p, design=design)
+
+        # H8's two passes apart, and every design (information)
+        extra = {"H8 batched": {"velocity_device_ms": _device_ms(h8_velocity),
+                                "dye_device_ms": _device_ms(h8_dye)}}
+        _json({"phase": "advect_designs", "members": b, "grid": f"{ENS_N}x{ENS_N}",
+               "shipped": list(advect_cuda.DESIGN), "device_ms": {str(d): {
+                   "H8 batched velocity": _device_ms(lambda: h8_velocity(d)),
+                   "H8 batched dye": _device_ms(lambda: h8_dye(d))} for d in ADVECT_DESIGNS},
+               "smi": smi})
         for k, (kern_fn, plain_fn, inputs, n_ops, path) in cases.items():
             calls = _device_kernels(kern_fn)
             if sum(calls.values()) != ENS_REST_CALL_LAUNCHES[k]:
@@ -1520,6 +1658,7 @@ def ensemble_rest_phase(smi, gen, worst, reset_counts, read_counts, kernels):
                 "members": b, "grid": f"{ENS_N}x{ENS_N}", "max_abs_err": worst[worst_key],
                 **({"max_abs_err_without_splat": worst["H7 sweeps batched"]}
                    if k == "H7 batched" else {}),
+                **extra.get(k, {}),
                 "launches_per_call": sum(calls.values()),
                 "ms": statistics.median(k1 + k2), "device_ms": _device_ms(kern_fn),
                 "plain_ms": statistics.median(p1 + p2),
@@ -1895,7 +2034,7 @@ def views_phase(smi, reset_counts, read_counts, dev):
     n = VIEW_FRAMES
     cfg = FluidConfig.gpu_reference(nx=N, ny=N, dt=dt, pressure_iters=40, max_displacement=31)
     expect = {k: 0 for k in read_counts()}
-    expect.update({"H1": 2 * n, "H2": n, "H3": n, "H4": n})
+    expect.update({"H1": n, "H2": n, "H3": n, "H4": n})
     if not (native_sink.native_available() and http_view.native_available()):
         raise AssertionError("views: the native frame sink or HTTP server did not build")
 
@@ -2088,7 +2227,7 @@ def views_phase(smi, reset_counts, read_counts, dev):
             raise AssertionError(f"views cli http: rc {rc}, client {client}, {steps} frames, "
                                  f"dye max {dye_max}")
         want = {k: 0 for k in counts}
-        want.update({"H1": 2 * (steps + 1), "H2": steps + 1, "H3": steps + 1, "H4": steps + 1})
+        want.update({"H1": steps + 1, "H2": steps + 1, "H3": steps + 1, "H4": steps + 1})
         if counts != want:
             raise AssertionError(f"views cli http: launches {counts} for {steps} frames "
                                  "and the warm-up step")
@@ -2856,7 +2995,7 @@ def entry_phase(reset_counts, read_counts, dev):
     for k in STATE_FIELDS:
         if not torch.equal(getattr(got, k), getattr(exp, k)):
             raise AssertionError(f"entry: {k} differs from Simulation.step")
-    if counts != {"H1": 2, "H2": 1, "H3": 1, "H4": 1}:
+    if counts != {"H1": 1, "H2": 1, "H3": 1, "H4": 1}:
         raise AssertionError(f"entry: launches {counts}")
 
     path = Path(__file__).resolve().parent / "examples" / "headless_run_torch.py"
@@ -2897,8 +3036,16 @@ def main() -> int:
     jp = "jacobi_pallas.py"
     # name: (launch counter, source, the TPU kernel it replaces)
     kernels = {
+        # H1 as the paths launch it (velocity and dye in one launch), and
+        # its two passes apart (the decomposed report's)
         "H1": (advect_cuda.KERNEL, "advect.cu", "advect_pallas.py:413"),
         "H1 batched": (advect_cuda.BATCHED, "advect.cu", "advect_pallas.py:413"),
+        "H1 velocity pass": (advect_cuda.VELOCITY_PASS, "advect.cu", "advect_pallas.py:413"),
+        "H1 dye pass": (advect_cuda.DYE_PASS, "advect.cu", "advect_pallas.py:413"),
+        "H1 batched velocity pass": (advect_cuda.VELOCITY_PASS_BATCHED, "advect.cu",
+                                     "advect_pallas.py:413"),
+        "H1 batched dye pass": (advect_cuda.DYE_PASS_BATCHED, "advect.cu",
+                                "advect_pallas.py:413"),
         "H2 batched": (jacobi_cuda.VORTICITY_BATCHED, "vorticity.cu", f"{jp}:1411"),
         "H3 batched": (jacobi_cuda.DIFFUSE_BATCHED, "diffuse.cu", f"{jp}:492"),
         "H4 batched": (jacobi_cuda.PRESSURE_BATCHED, "pressure.cu", f"{jp}:1120"),
@@ -2972,7 +3119,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or (name == "advect" and "Function properties" in line)):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
             if (name in ("vorticity", "diffuse", "pressure", "multigrid", "sepdiffuse")
                     and "spill" in line
@@ -3025,6 +3173,65 @@ def main() -> int:
                     plain(uo, vo, dt, vort)))
     del buf, uo, vo
 
+    # H1 fused and its passes at every shape class of H2 (odd widths and
+    # ragged blocks take the scalar path), from planes one float off 16
+    # bytes too; at 2048² and 2049x2047 every design of ADVECT_DESIGNS
+    # (H1 fused and both of H8's passes) bit-equal to the shipped one
+    for h, w in VORT_SHAPES:
+        tag = f"{h}x{w}"
+        u, v = randn(h, w, scale=200.0), randn(h, w, scale=200.0)
+        dye = torch.rand((3, h, w), generator=gen, device=dev)
+        cases = [("aligned", u, v, dye)]
+        if h * w > 1:
+            buf = torch.empty(5 * h * w + 1, device=dev)[1:]
+            cases.append(("unaligned", buf[:h * w].view(h, w).copy_(u),
+                          buf[h * w:2 * h * w].view(h, w).copy_(v),
+                          buf[2 * h * w:].view(3, h, w).copy_(dye)))
+        for label, uu, vv, dd in cases:
+            two = advect_cuda.advect_velocity(uu, vv, dt, decay_rate, return_stats=True)
+            two_dye = advect_cuda.advect_dye(dd, two[0], two[1], dt, decay_rate)
+            fused = advect_cuda.advect_both(uu, vv, dd, dt, decay_rate, return_stats=True)
+            _check(worst, "H1 fused", f"two passes {label} {tag}", zip(
+                ("u", "v", "dye", "stats"), fused, (two[0], two[1], two_dye, two[2])))
+            _check_vel_max("H1", fused[3], fused[0], fused[1])
+            exp = ref.advect_velocity(uu, vv, dt, decay_rate)
+            _check(worst, "H1", f"fused {label} {tag}", zip(("u", "v", "dye"), fused[:3], (
+                exp[0], exp[1], ref.advect_dye(dd, exp[0], exp[1], dt, decay_rate))))
+        if (h, w) in ((2048, 2048), (2049, 2047)):
+            bound = ref.vel_max(u, v)
+            h8 = advect_cuda.advect_velocity(u, v, dt, decay_rate, vel_stats=bound,
+                                             return_stats=True, packed=True)
+            h8_dye = advect_cuda.advect_dye(dye, h8[0], h8[1], dt, decay_rate,
+                                            vel_stats=h8[2], packed=True)
+            for design in ADVECT_DESIGNS:
+                _check(worst, "H1 design", f"fused {design} {tag}", zip(
+                    ("u", "v", "dye", "stats"), advect_cuda.advect_both(
+                        u, v, dye, dt, decay_rate, return_stats=True, design=design), fused))
+                g8 = advect_cuda.advect_velocity(u, v, dt, decay_rate, vel_stats=bound,
+                                                 return_stats=True, packed=True, design=design)
+                g8_dye = advect_cuda.advect_dye(dye, h8[0], h8[1], dt, decay_rate,
+                                                vel_stats=h8[2], packed=True, design=design)
+                _check(worst, "H1 design", f"H8 {design} {tag}", zip(
+                    ("u", "v", "stats", "dye"), tuple(g8) + (g8_dye,), tuple(h8) + (h8_dye,)))
+    del buf, cases, two, two_dye, fused, h8, h8_dye, g8, g8_dye
+    # a NaN velocity cell (its backtrace and every cell that taps it turn
+    # NaN; the plain version cannot index a NaN backtrace): each bound is
+    # the max of its own output, NaN
+    u, v = randn(540, 960, scale=200.0), randn(540, 960, scale=200.0)
+    u[100, 200] = float("nan")
+    dye = torch.rand((3, 540, 960), generator=gen, device=dev)
+    nan_bounds = {}
+    for what, res in (
+            ("H1", advect_cuda.advect_velocity(u, v, dt, decay_rate, return_stats=True)),
+            ("H1 fused", advect_cuda.advect_both(u, v, dye, dt, decay_rate, return_stats=True)),
+            ("H8", advect_cuda.advect_velocity(u, v, dt, decay_rate, vel_stats=ref.vel_max(u, v),
+                                               return_stats=True, packed=True))):
+        _check_vel_max(what, res[-1], res[0], res[1])
+        if not bool(res[-1][0].isnan()):
+            raise AssertionError(f"{what}: the bound of a NaN velocity is {res[-1].tolist()}")
+        nan_bounds[what] = res[-1].tolist()
+    _json({"phase": "advect_nan_bound", "grid": "540x960", "bounds": nan_bounds})
+
     for h, w in CHECK_SHAPES:
         tag = f"{h}x{w}"
         # velocities of ~200 cells/s (a few cells a step) with a tail that
@@ -3034,12 +3241,21 @@ def main() -> int:
         got = advect_cuda.advect_velocity(u, v, dt, decay_rate, return_stats=True)
         exp = ref.advect_velocity(u, v, dt, decay_rate, return_stats=True)
         _check(worst, "H1", f"velocity {tag}", zip("uv", got[:2], exp[:2]))
-        _check_bound("H1", got[2], got[0], got[1])
+        _check_vel_max("H1", got[2], got[0], got[1])
         h1_dye = advect_cuda.advect_dye(dye, got[0], got[1], dt, decay_rate)
         _check(worst, "H1", f"dye {tag}", [(
             "dye", h1_dye, ref.advect_dye(dye, got[0], got[1], dt, decay_rate))])
         _pack_out(f"H1 dye {tag}", lambda out: advect_cuda.advect_dye(
             dye, got[0], got[1], dt, decay_rate, out=out), h1_dye, 2)
+        # the step's call: velocity and dye in one launch, its two passes'
+        # floats bit for bit, and the plain versions within RTOL
+        fused = advect_cuda.advect_both(u, v, dye, dt, decay_rate, return_stats=True)
+        _check(worst, "H1 fused", f"two passes {tag}", zip(
+            ("u", "v", "dye", "stats"), fused, (got[0], got[1], h1_dye, got[2])))
+        _check(worst, "H1", f"fused {tag}", zip(("u", "v", "dye"), fused[:3], (
+            exp[0], exp[1], ref.advect_dye(dye, exp[0], exp[1], dt, decay_rate))))
+        _pack_out(f"H1 fused dye {tag}", lambda out: advect_cuda.advect_both(
+            u, v, dye, dt, decay_rate, out=out)[2], h1_dye, 2)
         fields = torch.cat([torch.stack([u, v]), dye])
         last = (w * 0.4, h * 0.6)
         _check(worst, "H3", f"splat {tag}", [(
@@ -3136,6 +3352,15 @@ def main() -> int:
     if not bool((got[:, :, 0] == 1.0).all()) or bool(torch.isnan(got).any()):
         raise AssertionError("H1 dye: NaN saturation to 1 failed")
     _check(worst, "H1", "dye saturation", [("dye", got, ref.advect_dye(sat, push, v, dt, decay_rate))])
+    # the same through H1's one launch, whose dye backtraces through u'
+    # (29.4 cells/s: column 0 still extrapolates below zero)
+    u2, v2 = advect_cuda.advect_velocity(push, v, dt, decay_rate)
+    fused = advect_cuda.advect_both(push, v, sat, dt, decay_rate)
+    if not bool((fused[2][:, :, 0] == 1.0).all()) or bool(torch.isnan(fused[2]).any()):
+        raise AssertionError("H1 fused dye: NaN saturation to 1 failed")
+    _check(worst, "H1 fused", "dye saturation", zip(("u", "v", "dye"), fused, (
+        u2, v2, advect_cuda.advect_dye(sat, u2, v2, dt, decay_rate))))
+    del u2, v2, fused
     for iters in (0, 1, 2):
         _check(worst, "H3", f"splat iters={iters}", [(
             "fields", jacobi_cuda.diffuse_multi_splat(fields, dt, coeffs, iters, amps, last, 400.0),
@@ -3230,7 +3455,7 @@ def main() -> int:
                                                       packed=True, **kw)
                     exp = advect_packed.advect_velocity(u, v, dt, decay_rate, return_stats=True, **kw)
                     _check(worst, "H8", f"velocity {case}", zip("uv", got[:2], exp[:2]))
-                    _check_bound("H8", got[2], got[0], got[1])
+                    _check_vel_max("H8", got[2], got[0], got[1])
                     kw["vel_stats"] = got[2] if given else None
                     got_dye = advect_cuda.advect_dye(dye, got[0], got[1], dt, decay_rate,
                                                      packed=True, **kw)
@@ -3290,6 +3515,8 @@ def main() -> int:
     for k in ("H1", "H2", "H3", "H4"):
         if parity_launches[k] == 0:
             raise AssertionError(f"{k} was not launched on the parity path")
+    _one_advect_launch("parity", parity_launches)
+    _same_as_two_passes("parity", cfg, sim.ops, driven, quiet, state, quiet_state)
     ref_sim = Simulation(FluidConfig.gpu_reference(
         nx=N, ny=N, pressure_iters=40, max_displacement=31, backend="ref"), device=dev)
     step_err, frames_equal = _step_vs_ref("parity", sim, ref_sim, state,
@@ -3335,6 +3562,8 @@ def main() -> int:
               "H6 first_smooth_res_restrict", "H6 prolong_smooth", "H6 mean_square"):
         if quality_launches[k] == 0:
             raise AssertionError(f"{k} was not launched on the quality path")
+    _one_advect_launch("quality", quality_launches)
+    _same_as_two_passes("quality", qcfg, qsim.ops, driven, quiet, qstate, qquiet)
     if quality_launches["H4"] != 0:
         raise AssertionError("H4 pressure_project ran on the multigrid path")
     qref = Simulation(FluidConfig.quality(nx=N, ny=N, backend="ref"), device=dev)
@@ -3404,7 +3633,7 @@ def main() -> int:
     for k in ("H2", "H4", "H7", "H8"):
         if fast_launches[k] == 0:
             raise AssertionError(f"{k} was not launched on the fast path")
-    for k in ("H1", "H3"):
+    for k in ("H1", "H3", "H1 velocity pass", "H1 dye pass"):
         if fast_launches[k] != 0:
             raise AssertionError(f"{k} ran on the fast path")
     # the same step on the plain version of every kernel, on the card
@@ -3503,10 +3732,14 @@ def main() -> int:
     for _ in range(levels - 1):
         rhs16 = 4.0 * multigrid._restrict(rhs16)
     cases = {
-        "H1": (lambda: (advect_cuda.advect_velocity(u, v, dt, decay_rate, return_stats=True),
-                        advect_cuda.advect_dye(dye, u2, v2, dt, decay_rate)),
+        "H1": (lambda: advect_cuda.advect_both(u, v, dye, dt, decay_rate, return_stats=True),
                lambda: (ref.advect_velocity(u, v, dt, decay_rate, return_stats=True),
                         ref.advect_dye(dye, u2, v2, dt, decay_rate))),
+        "H1 velocity pass": (
+            lambda: advect_cuda.advect_velocity(u, v, dt, decay_rate, return_stats=True),
+            lambda: ref.advect_velocity(u, v, dt, decay_rate, return_stats=True)),
+        "H1 dye pass": (lambda: advect_cuda.advect_dye(dye, u2, v2, dt, decay_rate),
+                        lambda: ref.advect_dye(dye, u2, v2, dt, decay_rate)),
         "H2": (lambda: jacobi_cuda.vorticity_confinement(u, v, dt, 50.0, variant="gpu"),
                lambda: ref.vorticity_confinement_gpu(u, v, dt, 50.0)),
         "H3": (lambda: jacobi_cuda.diffuse_multi_splat(all5, dt, [0.8] * 5, 20, amps, last, 400.0),
@@ -3578,7 +3811,11 @@ def main() -> int:
     cells, mg_cells = N * N, qu.numel()
     sep_taps = sum(2 * (2 * r + 1) for r in radii)
     io = {
-        "H1": ([u, v, dye, u2, v2], cells * 72),
+        # H1's one launch reads u, v and the dye and writes u', v' and the
+        # dye: 10 planes (its dye pass alone reads u', v' back: 8)
+        "H1": ([u, v, dye], cells * (H1_OPS["velocity"] + H1_OPS["dye"])),
+        "H1 velocity pass": ([u, v], cells * H1_OPS["velocity"]),
+        "H1 dye pass": ([dye, u2, v2], cells * H1_OPS["dye"]),
         "H2": ([u, v], cells * 25),
         "H3": ([all5], 5 * cells * (6 * 20 + 10)),
         "H4": ([u, v], cells * (4 + 5 * 40 + 8)),
@@ -3634,7 +3871,8 @@ def main() -> int:
     _json({"phase": "burst_plans", "grid": f"{N}x{N}", "plans": plan_rows, "smi": smi[0]})
 
     # each row's launches come from the path that runs it
-    paths = {"H1": "parity", "H2": "parity", "H3": "parity", "H4": "parity",
+    paths = {"H1": "parity", "H1 velocity pass": "cli decomposed",
+             "H1 dye pass": "cli decomposed", "H2": "parity", "H3": "parity", "H4": "parity",
              "H4 solve": "cli decomposed", "H5": "quality", "H6 smooth_damped": "quality",
              "H6 smooth_res": None, "H6 first_smooth_res": None,
              "H6 last_smooth_project": None, "H6 smooth_res_restrict": "quality",
@@ -3644,6 +3882,29 @@ def main() -> int:
     path_launches = {"parity": parity_launches, "quality": quality_launches,
                      "fixed-cycle": fixed_launches, "fast": fast_launches,
                      "cli decomposed": cli_decomposed}
+    # H8's two passes apart; every design of H1 and H8 at the path's shapes
+    # (information)
+    def h8_velocity(design=None):
+        return advect_cuda.advect_velocity(ku, kv, dt, decay_rate, vel_stats=kst,
+                                           return_stats=True, packed=True, design=design)
+
+    def h8_dye(design=None):
+        return advect_cuda.advect_dye(kstate.dye, ku2, kv2, dt, decay_rate, vel_stats=kst2,
+                                      packed=True, design=design)
+
+    extra = {"H8": {"velocity_device_ms": _device_ms(h8_velocity),
+                    "dye_device_ms": _device_ms(h8_dye)}}
+    _json({"phase": "advect_designs", "grid": f"{N}x{N}", "shipped": list(advect_cuda.DESIGN),
+           "device_ms": {str(d): {
+               "H1": _device_ms(lambda: advect_cuda.advect_both(
+                   u, v, dye, dt, decay_rate, return_stats=True, design=d)),
+               "H1 velocity pass": _device_ms(lambda: advect_cuda.advect_velocity(
+                   u, v, dt, decay_rate, return_stats=True, design=d)),
+               "H1 dye pass": _device_ms(lambda: advect_cuda.advect_dye(
+                   dye, u2, v2, dt, decay_rate, design=d)),
+               "H8 velocity": _device_ms(lambda: h8_velocity(d)),
+               "H8 dye": _device_ms(lambda: h8_dye(d))} for d in ADVECT_DESIGNS},
+           "smi": smi[0]})
     rows = []
     for k, (kern_fn, plain_fn) in cases.items():
         inputs, ops = io[k]
@@ -3662,9 +3923,10 @@ def main() -> int:
             "replaces": f"cudafluidsimulation_tpu/ops/{replaces}",
             "launches": path_launches[path][k] if path else 0, "path": path,
             "max_abs_err": worst[k if k == "H6 mean_square" else
-                                 k.split()[0] if k.startswith("H6") else k],
+                                 k.split()[0] if k.startswith(("H6", "H1")) else k],
             **({"max_abs_err_without_splat": worst[f"{k} sweeps"]} if k in ("H3", "H7") else {}),
             **({"variant": fastdiffuse_cuda.plan(5, N, N, radii).variant} if k == "H7" else {}),
+            **extra.get(k, {}),
             "ms": statistics.median(k1 + k2), "device_ms": _device_ms(kern_fn),
             "plain_ms": statistics.median(p1 + p2),
             "bound_ms": max(bytes_ms, ops_ms),

@@ -1,40 +1,75 @@
-// H1 and H8: semi-Lagrangian advection, one thread per cell.
+// H1 and H8: semi-Lagrangian advection, a run of cells of one row a thread.
 //
 // H1 replaces cudafluidsimulation_tpu/ops/advect_pallas.py _advect_kernel
 // and _advect_kernel_tiled (cores _advect_core, _advect_core_static, and
 // _emit_stats).  The TPU kernel rewrites the gather as a shift-accumulation
 // over a bounded displacement window because the TPU has no fast gather;
-// here each thread backtraces its cell, truncates the corner toward zero
+// here each thread backtraces its cells, truncates the corner toward zero
 // (so negative coordinates extrapolate), clamps four taps to the domain and
 // blends them, as ops/ref.py bilerp does.  The backtrace is unbounded.
 //
-// H8 (fluid_advect_packed) replaces the bf16-tap cores
-// _advect_core_packed (dye) and _advect_core_packed_vel (velocity) and the
-// dispatch around them (_fast_path_ok, the lax.cond in _advect_flat and
-// _advect_tiled).  The TPU kernels pack the tap planes into bf16 to halve
-// the volume of their rolls; the card gathers, so H8 keeps H1's gather and
-// rounds each tap value as it is loaded, as bits(x) + 0x8000 masked to the
-// top 16 bits (round half up in magnitude, not to nearest even).  Velocity
-// rounds u and v; dye rounds channels 0 and 1, keeps channel 2 in f32, and
-// clamps the blend to >= 0 before the pow (acc < 0 ? 0 : acc, which lets a
-// NaN through to fminf's saturation, as jnp.maximum does).  A step whose
-// bound [max|u|, max|v|] times dt is under one cell on both axes takes the
-// exact branch, which is H1's arithmetic bit for bit; the bound is read on
-// the device, so the branch costs no host read.
+// H8 (packed != 0) replaces the bf16-tap cores _advect_core_packed (dye)
+// and _advect_core_packed_vel (velocity) and the dispatch around them
+// (_fast_path_ok, the lax.cond in _advect_flat and _advect_tiled).  The
+// TPU kernels pack the tap planes into bf16 to halve the volume of their
+// rolls; the card gathers, so H8 keeps H1's gather and rounds each tap
+// value as it is loaded, as bits(x) + 0x8000 masked to the top 16 bits
+// (round half up in magnitude, not to nearest even).  Velocity rounds u and
+// v; dye rounds channels 0 and 1, keeps channel 2 in f32, and clamps the
+// blend to >= 0 before the pow (acc < 0 ? 0 : acc, which lets a NaN through
+// to fminf's saturation, as jnp.maximum does).  A step whose bound
+// [max|u|, max|v|] times dt is under one cell on both axes takes the exact
+// branch, which is H1's arithmetic bit for bit; the bound is read on the
+// device, so the branch costs no host read.
 //
-// Bound by bytes: u, v and C field planes in, C planes out; the taps sit
-// near the cell and hit L1/L2.  The velocity mode also emits
-// [max|u'|, max|v'|] into stats[0..1] (zeroed here on the stream first).
+// The entry fluid_advect_rows runs one of three modes:
+//   velocity (1): u, v -> u', v', and [max|u'|, max|v'|] into stats;
+//   dye (2):      C dye planes through the advected u', v' -> C planes;
+//   both (3):     H1's velocity and dye in one launch, the step's call.
+// Bound by bytes: each input read once, each output written once; the taps
+// sit near the cell and hit L1/L2.  Velocity moves 4 planes (u, v in, u',
+// v' out), dye 2 + 2C (u', v' and the dye in, the dye out), both 4 + 2C:
+// the dye's backtrace reads u', v' only at its own cell, which the thread
+// has just computed, so the fused launch reads neither back and writes
+// them once (10 planes for 3 dye channels, against 12 for the two passes).
+// H8's dye stays a pass of its own: its quiet branch reads the grid-wide
+// max of u', v' (vel_stats, the lax.cond of the JAX package), which no
+// block knows before every block of the velocity pass has finished.
 //
-// H1 and H8 also take a batch of independent members (ensembles, the
-// analog of the JAX package's vmap): member b = blockIdx.z (and every
-// gridDim.z after it) reads its planes at b times each array's member
-// stride, its dt and decay from row b of a device array when one is given,
-// and reduces into stats[2b..2b+1].  H8 decides each member's quiet branch
-// from that member's own bound bound[2b..2b+1] and dt, as the vmapped
-// lax.cond of the JAX package becomes a per-member select.  A single call
-// is the case B = 1 with the scalars by value; it compiles without the
-// member loop (the BATCH template flag).
+// The design against that bound:
+// - Each thread takes `cells` (1, 2 or 4) consecutive cells of a row, a
+//   block 32 threads by `rows`; where every plane's rows start on 16 (8)
+//   bytes and the width is a multiple of the cells, u, v, u', v' and the
+//   dye move as one 16- (8-) byte access a plane, else a scalar access a
+//   cell (the ragged edge, odd widths, unaligned planes).  The gathers of
+//   all the thread's cells are independent, so more bytes are in flight.
+// - A block walks `tiles` tiles of rows (gridDim.y tiles apart), and each
+//   thread loads the next tile's u, v before it computes this one's, so
+//   the stream's latency hides behind the gathers; the dye's lines at the
+//   thread's cells are prefetched into L1 before the velocity is
+//   computed, so the dye's gathers, which wait on u', v', mostly hit L1.
+//   The shipped design (ops/advect_cuda.py DESIGN) is 4 cells, 8 rows, 4
+//   tiles and the prefetch; chip_smoke.py times the others (PERF.md).
+// - The velocity bound without same-address atomics: each block reduces
+//   its cells' [max|u'|, max|v'|] (NaN kept: fluid_nanmax) by warp
+//   shuffles into its own slot of `slots`, then bumps its member's arrival
+//   count; the last block of the member to arrive reduces the member's
+//   slots into stats[2b..2b+1] and resets the count to 0.  So no memset
+//   precedes a launch, and the bound is the exact max.  The counts are the
+//   caller's: zero before the launch, one int a member, and not shared with
+//   a launch that may overlap this one (the wrapper keeps them per stream).
+//
+// Members: a batch of independent members (ensembles, the analog of the
+// JAX package's vmap): member b = blockIdx.z (and every gridDim.z after it)
+// reads its planes at b times each array's member stride, its dt and decay
+// from row b of a device array when one is given, reduces into stats[2b..
+// 2b+1] and decides H8's quiet branch from bound[2b..2b+1] and its own dt.
+// A single call is the case B = 1 with the scalars by value; it compiles
+// without the member loop (the BATCH template flag).
+//
+// The two passes apart (modes 1 and 2) serve the fast modes (H8), the
+// decomposed stage report and the checks that hold the fused launch to
+// them bit for bit.
 //
 // The window entry (fluid_advect_window, H1, or H8 with packed) serves the
 // sharded rollout (the port's parallel/shardmap_step.py and shardmap2d.py),
@@ -51,9 +86,11 @@
 // clamped tap reaches: its rows are unbounded.  The halo rows are never written: the
 // TPU kernel advects the whole padded view and its caller slices the
 // interior, which gives the same cells.  The velocity bound covers the
-// interior alone, the cells the caller keeps.  The single-device entries
-// above are compiled apart and keep their bits.
+// interior alone, the cells the caller keeps (a block max and an atomic
+// max a block, its stats zeroed first).
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "fluid_common.cuh"
 
@@ -65,6 +102,30 @@ struct Planes {
 // bits(x) + 0x8000, & 0xFFFF0000, in unsigned arithmetic (wraps)
 __device__ __forceinline__ float bf16_tap(float x) {
   return __uint_as_float((__float_as_uint(x) + 0x8000u) & 0xFFFF0000u);
+}
+
+// The bilinear blend of plane f at four flat indices by the fractions tx,
+// ty, each tap rounded first when round.
+__device__ __forceinline__ float tap_blend(const float* f, int i00, int i01, int i10,
+                                           int i11, float tx, float ty, bool round) {
+  float f00 = __ldg(f + i00), f01 = __ldg(f + i01);
+  float f10 = __ldg(f + i10), f11 = __ldg(f + i11);
+  if (round) {
+    f00 = bf16_tap(f00);
+    f01 = bf16_tap(f01);
+    f10 = bf16_tap(f10);
+    f11 = bf16_tap(f11);
+  }
+  const float top = f00 * (1.f - tx) + f01 * tx;
+  const float bot = f10 * (1.f - tx) + f11 * tx;
+  return top * (1.f - ty) + bot * ty;
+}
+
+// The dye's fade of a blend, clamped to >= 0 first when clamp.
+__device__ __forceinline__ float dye_fade(float s, float decay, bool clamp) {
+  if (clamp) s = s < 0.f ? 0.f : s;
+  // fminf(1, NaN) == 1: a negative extrapolated sample saturates
+  return fminf(1.f, powf(s, 1.005f) * decay);
 }
 
 // The blend of one cell's four taps (flat indices i00..i11 into the field
@@ -79,23 +140,11 @@ __device__ __forceinline__ void advect_blend(
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
     if (ch >= c) break;
-    const float* f = planes.in[ch];
-    float f00 = __ldg(f + i00), f01 = __ldg(f + i01);
-    float f10 = __ldg(f + i10), f11 = __ldg(f + i11);
-    if ((round_mask >> ch) & 1u) {
-      f00 = bf16_tap(f00);
-      f01 = bf16_tap(f01);
-      f10 = bf16_tap(f10);
-      f11 = bf16_tap(f11);
-    }
-    const float top = f00 * (1.f - tx) + f01 * tx;
-    const float bot = f10 * (1.f - tx) + f11 * tx;
-    float s = top * (1.f - ty) + bot * ty;
+    const float s = tap_blend(planes.in[ch], i00, i01, i10, i11, tx, ty,
+                              (round_mask >> ch) & 1u);
     float r;
     if (DYE) {
-      if (clamp) s = s < 0.f ? 0.f : s;
-      // fminf(1, NaN) == 1: a negative extrapolated sample saturates
-      r = fminf(1.f, powf(s, 1.005f) * decay);
+      r = dye_fade(s, decay, clamp);
     } else {
       r = s * decay;
       if (ch == 0) mu = fabsf(r);
@@ -105,28 +154,450 @@ __device__ __forceinline__ void advect_blend(
   }
 }
 
-// One cell of the single-device kernels.
-template <bool DYE>
-__device__ __forceinline__ void advect_cell(
-    const Planes& planes, int c, const float* __restrict__ u,
-    const float* __restrict__ v, int h, int w, int x, int y, float dt,
-    float decay, unsigned round_mask, bool clamp, float& mu, float& mv) {
-  const int i = y * w + x;
+// The four clamped taps of cell (x, y) with velocity (uc, vc): flat
+// indices into an (h, w) plane and the corner's fractions.
+struct Taps {
+  int i00, i01, i10, i11;
+  float tx, ty;
+};
+
+__device__ __forceinline__ Taps cell_taps(int x, int y, float uc, float vc, float dt,
+                                          int h, int w) {
   // departure point pos - dt*vel (GPUFluidSim.cu:267)
-  const float px = static_cast<float>(x) - dt * u[i];
-  const float py = static_cast<float>(y) - dt * v[i];
+  const float px = static_cast<float>(x) - dt * uc;
+  const float py = static_cast<float>(y) - dt * vc;
   const float x1 = truncf(px);
   const float y1 = truncf(py);
-  const float tx = px - x1;
-  const float ty = py - y1;
   const float wm = static_cast<float>(w - 1);
   const float hm = static_cast<float>(h - 1);
   const int xi1 = static_cast<int>(fminf(fmaxf(x1, 0.f), wm));
   const int xi2 = static_cast<int>(fminf(fmaxf(x1 + 1.f, 0.f), wm));
   const int yi1 = static_cast<int>(fminf(fmaxf(y1, 0.f), hm));
   const int yi2 = static_cast<int>(fminf(fmaxf(y1 + 1.f, 0.f), hm));
-  advect_blend<DYE>(planes, c, yi1 * w + xi1, yi1 * w + xi2, yi2 * w + xi1,
-                    yi2 * w + xi2, tx, ty, i, decay, round_mask, clamp, mu, mv);
+  return {yi1 * w + xi1, yi1 * w + xi2, yi2 * w + xi1, yi2 * w + xi2, px - x1, py - y1};
+}
+
+__device__ __forceinline__ float blend_at(const float* f, const Taps& t, bool round) {
+  return tap_blend(f, t.i00, t.i01, t.i10, t.i11, t.tx, t.ty, round);
+}
+
+// K floats of a row from column x0 < w: one 16- or 8-byte access when VEC
+// (the row starts aligned and w % K == 0), else K scalar ones, cells at or
+// past w left 0.
+template <int K, bool VEC>
+__device__ __forceinline__ void load_row(float (&r)[K], const float* p, int x0, int w) {
+  if constexpr (VEC && K == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p + x0));
+    r[0] = q.x;
+    r[1] = q.y;
+    r[2] = q.z;
+    r[3] = q.w;
+  } else if constexpr (VEC && K == 2) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p + x0));
+    r[0] = q.x;
+    r[1] = q.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) r[k] = x0 + k < w ? __ldg(p + x0 + k) : 0.f;
+  }
+}
+
+template <int K, bool VEC>
+__device__ __forceinline__ void store_row(float* p, const float (&r)[K], int x0, int w) {
+  if constexpr (VEC && K == 4) {
+    *reinterpret_cast<float4*>(p + x0) = make_float4(r[0], r[1], r[2], r[3]);
+  } else if constexpr (VEC && K == 2) {
+    *reinterpret_cast<float2*>(p + x0) = make_float2(r[0], r[1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (x0 + k < w) p[x0 + k] = r[k];
+  }
+}
+
+// Bring the line of p into L1 ahead of the gathers that will read it.
+__device__ __forceinline__ void prefetch_l1(const float* p) {
+#ifdef __CUDA_ARCH__
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+#endif
+}
+
+enum : int { MODE_VELOCITY = 1, MODE_DYE = 2, MODE_BOTH = 3 };
+
+// What one launch reads and writes, member 0's planes: the velocity the
+// cells backtrace through (u, v), the advected velocity (ou, ov: written
+// by the velocity and both modes), and c dye planes in and out.
+struct Rows {
+  const float* u;
+  const float* v;
+  float* ou;
+  float* ov;
+  const float* din[3];
+  float* dout[3];
+  int c;
+};
+
+// Member strides (floats) of u, v, u' and v' (one stride), the dye in and
+// out; prm: row b holds member b's [dt, decay] (row stride prm_stride), or
+// null for the dt and decay given by value.
+struct Members {
+  int nb;
+  long long u, v, ouv, din, dout;
+  const float* prm;
+  int prm_stride;
+};
+
+// The velocity bound: stats (2 floats a member, null: none), a slot a
+// block a member, an arrival count a member.
+struct Bound {
+  float* stats;
+  float2* slots;
+  unsigned* counts;
+};
+
+__device__ __forceinline__ void warp_max2(float& a, float& b) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a = fluid_nanmax(a, __shfl_xor_sync(0xffffffffu, a, off));
+    b = fluid_nanmax(b, __shfl_xor_sync(0xffffffffu, b, off));
+  }
+}
+
+// Member b's bound: the block's max of (a, c) over its threads into its own
+// slot; the member's last block to arrive reduces every slot of the member
+// into stats[2b..2b+1] and resets the member's count.  Every thread of the
+// block calls it; blockDim.x is 32.
+__device__ __forceinline__ void block_bound(float a, float c, const Bound& bd, int b) {
+  __shared__ float sa[32], sc[32];
+  __shared__ bool last;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  const int nblk = gridDim.x * gridDim.y;
+  warp_max2(a, c);
+  if ((tid & 31) == 0) {
+    sa[tid >> 5] = a;
+    sc[tid >> 5] = c;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 1; i < nthreads / 32; ++i) {
+      a = fluid_nanmax(a, sa[i]);
+      c = fluid_nanmax(c, sc[i]);
+    }
+    bd.slots[static_cast<size_t>(b) * nblk + blockIdx.y * gridDim.x + blockIdx.x] =
+        make_float2(a, c);
+    __threadfence();  // the slot, before the count that publishes it
+    last = atomicAdd(bd.counts + b, 1u) == static_cast<unsigned>(nblk - 1);
+  }
+  __syncthreads();
+  if (last) {  // uniform across the block
+    __threadfence();
+    const float2* s = bd.slots + static_cast<size_t>(b) * nblk;
+    a = 0.f;
+    c = 0.f;
+    for (int i = tid; i < nblk; i += nthreads) {
+      const float2 q = __ldcg(s + i);  // from L2: other blocks wrote them
+      a = fluid_nanmax(a, q.x);
+      c = fluid_nanmax(c, q.y);
+    }
+    warp_max2(a, c);
+    if ((tid & 31) == 0) {
+      sa[tid >> 5] = a;
+      sc[tid >> 5] = c;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int i = 1; i < nthreads / 32; ++i) {
+        a = fluid_nanmax(a, sa[i]);
+        c = fluid_nanmax(c, sc[i]);
+      }
+      bd.stats[2 * b] = a;
+      bd.stats[2 * b + 1] = c;
+      bd.counts[b] = 0u;  // for the next launch on the stream
+    }
+  }
+  __syncthreads();  // sa, sc and last, before the next member's
+}
+
+// MODE (velocity, dye or both) over K cells a thread; VEC: the 16/8-byte
+// row accesses; BATCH false (a single call) compiles the member loop away;
+// WALK: a block walks the tiles gridDim.y apart, each thread loading the
+// next tile's u, v before it computes this one's.  prefetch 1 brings the
+// dye's lines at the thread's cells into L1 before the gathers, 2 a tile
+// ahead.
+// bound: the device [max|u|, max|v|] of each member that decides H8's
+// quiet branch (read when packed and fast_path).
+template <int MODE, int K, bool VEC, bool BATCH, bool WALK>
+__global__ void __launch_bounds__(512)
+    advect_rows_kernel(Rows r, Members m, Bound bd, const float* __restrict__ bound, int h,
+                       int w, float dt, float decay, int packed, int fast_path, int prefetch) {
+  const int x0 = (blockIdx.x * blockDim.x + threadIdx.x) * K;
+  const int y0 = blockIdx.y * blockDim.y + threadIdx.y;
+  const int ystep = WALK ? gridDim.y * blockDim.y : h;
+  const int nb = BATCH ? m.nb : 1;
+  // one member at a time
+#pragma unroll 1
+  for (int b = BATCH ? blockIdx.z : 0; b < nb; b += BATCH ? gridDim.z : 1) {
+    float bdt = dt, bdecay = decay;
+    if (BATCH && m.prm != nullptr) {
+      bdt = m.prm[static_cast<size_t>(b) * m.prm_stride];
+      bdecay = m.prm[static_cast<size_t>(b) * m.prm_stride + 1];
+    }
+    unsigned mask = 0u;
+    bool clamp = false;
+    if (packed) {
+      // uniform across the member's blocks: realized displacement under one cell
+      const bool quiet =
+          fast_path && bound[2 * b] * bdt < 1.f && bound[2 * b + 1] * bdt < 1.f;
+      mask = quiet ? 0u : 3u;
+      clamp = MODE == MODE_DYE && !quiet;
+    }
+    float mu = 0.f, mv = 0.f;
+    if (x0 < w && y0 < h) {
+      const float* u = r.u + b * m.u;
+      const float* v = r.v + b * m.v;
+      float uu[K], vv[K];
+      load_row<K, VEC>(uu, u + static_cast<size_t>(y0) * w, x0, w);
+      load_row<K, VEC>(vv, v + static_cast<size_t>(y0) * w, x0, w);
+#pragma unroll 1
+      for (int y = y0; y < h; y += ystep) {
+        const size_t row = static_cast<size_t>(y) * w;
+        float nu[K], nv[K];
+        if (WALK && y + ystep < h) {
+          load_row<K, VEC>(nu, u + row + static_cast<size_t>(ystep) * w, x0, w);
+          load_row<K, VEC>(nv, v + row + static_cast<size_t>(ystep) * w, x0, w);
+        }
+        if ((MODE & MODE_DYE) && prefetch) {
+          // this tile's lines (2: the first tile's, then a tile ahead)
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) {
+            if (ch >= r.c) break;
+            const float* d = r.din[ch] + b * m.din + row + x0;
+            if (prefetch == 1 || y == y0) prefetch_l1(d);
+            if (WALK && prefetch == 2 && y + ystep < h)
+              prefetch_l1(d + static_cast<size_t>(ystep) * w);
+          }
+        }
+        if (MODE & MODE_VELOCITY) {
+          float ou[K], ov[K];
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            ou[k] = 0.f;
+            ov[k] = 0.f;
+            if (VEC || x0 + k < w) {
+              const Taps t = cell_taps(x0 + k, y, uu[k], vv[k], bdt, h, w);
+              ou[k] = blend_at(u, t, mask & 1u) * bdecay;
+              ov[k] = blend_at(v, t, (mask >> 1) & 1u) * bdecay;
+              mu = fluid_nanmax(mu, fabsf(ou[k]));
+              mv = fluid_nanmax(mv, fabsf(ov[k]));
+            }
+          }
+          store_row<K, VEC>(r.ou + b * m.ouv + row, ou, x0, w);
+          store_row<K, VEC>(r.ov + b * m.ouv + row, ov, x0, w);
+          if (MODE == MODE_BOTH) {
+            // the dye backtraces through the advected velocity: these very
+            // floats, which the two-pass form writes and reads back
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              uu[k] = ou[k];
+              vv[k] = ov[k];
+            }
+          }
+        }
+        if (MODE & MODE_DYE) {
+          float od[3][K];
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch) od[ch][k] = 0.f;
+            if (VEC || x0 + k < w) {
+              const Taps t = cell_taps(x0 + k, y, uu[k], vv[k], bdt, h, w);
+#pragma unroll
+              for (int ch = 0; ch < 3; ++ch)
+                if (ch < r.c)
+                  od[ch][k] = dye_fade(blend_at(r.din[ch] + b * m.din, t, (mask >> ch) & 1u),
+                                       bdecay, clamp);
+            }
+          }
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch)
+            if (ch < r.c) store_row<K, VEC>(r.dout[ch] + b * m.dout + row, od[ch], x0, w);
+        }
+        if (WALK) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            uu[k] = nu[k];
+            vv[k] = nv[k];
+          }
+        }
+      }
+    }
+    if ((MODE & MODE_VELOCITY) && bd.stats != nullptr) block_bound(mu, mv, bd, b);
+  }
+}
+
+// [max|u|, max|v|] of each member into out[2b..2b+1] (zeroed first): H8's
+// bound when the caller has none
+template <bool BATCH>
+__global__ void vel_bound_kernel(const float* __restrict__ u,
+                                 const float* __restrict__ v,
+                                 float* __restrict__ out, int h, int w, Members m) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int nb = BATCH ? m.nb : 1;
+#pragma unroll 1
+  for (int b = BATCH ? blockIdx.z : 0; b < nb; b += BATCH ? gridDim.z : 1) {
+    float a = 0.f, c = 0.f;
+    if (x < w && y < h) {
+      a = fabsf(u[b * m.u + y * w + x]);
+      c = fabsf(v[b * m.v + y * w + x]);
+    }
+    fluid_block_max2_atomic(a, c, out + 2 * b);
+    if (BATCH) __syncthreads();
+  }
+}
+
+// A launch's design and scalars, past the template choices.
+struct Launch {
+  dim3 grid, block;
+  cudaStream_t s;
+  int h, w;
+  float dt, decay;
+  int packed, fast_path, prefetch;
+};
+
+template <int MODE, int K, bool VEC, bool BATCH>
+static void launch_rows(bool walk, const Launch& l, const Rows& r, const Members& m,
+                        const Bound& bd, const float* bound) {
+  if (walk)
+    advect_rows_kernel<MODE, K, VEC, BATCH, true><<<l.grid, l.block, 0, l.s>>>(
+        r, m, bd, bound, l.h, l.w, l.dt, l.decay, l.packed, l.fast_path, l.prefetch);
+  else
+    advect_rows_kernel<MODE, K, VEC, BATCH, false><<<l.grid, l.block, 0, l.s>>>(
+        r, m, bd, bound, l.h, l.w, l.dt, l.decay, l.packed, l.fast_path, l.prefetch);
+}
+
+template <int MODE, int K>
+static void launch_rows(bool vec, bool batch, bool walk, const Launch& l, const Rows& r,
+                        const Members& m, const Bound& bd, const float* bound) {
+  if constexpr (K > 1) {
+    if (vec) {
+      if (batch)
+        launch_rows<MODE, K, true, true>(walk, l, r, m, bd, bound);
+      else
+        launch_rows<MODE, K, true, false>(walk, l, r, m, bd, bound);
+      return;
+    }
+  }
+  if (batch)
+    launch_rows<MODE, K, false, true>(walk, l, r, m, bd, bound);
+  else
+    launch_rows<MODE, K, false, false>(walk, l, r, m, bd, bound);
+}
+
+template <int MODE>
+static void launch_rows(int cells, bool vec, bool batch, bool walk, const Launch& l,
+                        const Rows& r, const Members& m, const Bound& bd, const float* bound) {
+  if (cells == 4)
+    launch_rows<MODE, 4>(vec, batch, walk, l, r, m, bd, bound);
+  else if (cells == 2)
+    launch_rows<MODE, 2>(vec, batch, walk, l, r, m, bd, bound);
+  else
+    launch_rows<MODE, 1>(vec, batch, walk, l, r, m, bd, bound);
+}
+
+static bool aligned_to(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The grid of a launch over (h, w) at `cells` a thread, `rows` a block and
+// `tiles` tiles of rows a block walks: a bound needs grid.x * grid.y slots
+// a member.
+static dim3 rows_grid(int h, int w, int cells, int rows, int tiles, int nb) {
+  const int tiles_y = (h + rows - 1) / rows;
+  return dim3((w + 32 * cells - 1) / (32 * cells), (tiles_y + tiles - 1) / tiles,
+              fluid_grid_z(nb));
+}
+
+// mode 1 velocity: u, v -> ou, ov; stats (may be null) receives each
+// member's [max|ou|, max|ov|], with slots (slot_count >= the launch's
+// blocks times nb pairs of floats) and counts (nb ints, zero; left zero).
+// mode 2 dye: c <= 3 planes d0..d2 -> o0..o2 through u, v (the advected
+// velocity).  mode 3 both: u, v -> ou, ov as mode 1, then the dye through
+// ou, ov as mode 2.  packed selects H8 (modes 1 and 2): fast_path != 0
+// enables the quiet branch, decided from bound (device [max|u|, max|v|], 2
+// floats a member) or, when bound is null, from the maxima of each member's
+// u and v, reduced into scratch (2 floats a member) first.  nb members;
+// u_ms, v_ms, ouv_ms, din_ms, dout_ms: member strides (floats) of u, v, ou
+// and ov, d*, o*; prm: nb rows of [dt, decay] in device memory, prm_stride
+// floats apart, or null for dt and decay (the only member when nb = 1).
+// The design: cells (1, 2, 4) a thread along a row, rows a block of 32
+// columns of threads (32 * rows <= 512), tiles of rows a block walks (1:
+// one tile, a block a tile), prefetch the dye's lines into L1 ahead of
+// its gathers (0 no, 1 the tile's own, 2 a tile ahead).
+FLUID_API int fluid_advect_rows(const float* u, const float* v, float* ou, float* ov,
+                                const float* d0, const float* d1, const float* d2, float* o0,
+                                float* o1, float* o2, const float* bound, float* scratch,
+                                float* stats, float* slots, int* counts, int c, int h, int w,
+                                int mode, int packed, int fast_path, float dt, float decay,
+                                int nb, long long u_ms, long long v_ms, long long ouv_ms,
+                                long long din_ms, long long dout_ms, const float* prm,
+                                int prm_stride, int cells, int rows, int tiles, int prefetch,
+                                long long slot_count, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode < MODE_VELOCITY || mode > MODE_BOTH || h < 1 || w < 1 || nb < 1)
+    return cudaErrorInvalidValue;
+  if ((mode & MODE_DYE) && (c < 1 || c > 3)) return cudaErrorInvalidValue;
+  if ((mode & MODE_VELOCITY) && (ou == nullptr || ov == nullptr)) return cudaErrorInvalidValue;
+  if (mode == MODE_BOTH && packed) return cudaErrorInvalidValue;
+  if (prm != nullptr && prm_stride < 2) return cudaErrorInvalidValue;
+  if ((cells != 1 && cells != 2 && cells != 4) || rows < 1 || 32 * rows > 512 || tiles < 1)
+    return cudaErrorInvalidValue;
+  const dim3 grid = rows_grid(h, w, cells, rows, tiles, nb);
+  const bool want_bound = (mode & MODE_VELOCITY) && stats != nullptr;
+  if (want_bound && (slots == nullptr || counts == nullptr || !aligned_to(slots, 8) ||
+                     slot_count < static_cast<long long>(grid.x) * grid.y * nb))
+    return cudaErrorInvalidValue;
+  const bool batch = nb > 1 || prm != nullptr;
+  const Members m = {nb, u_ms, v_ms, ouv_ms, din_ms, dout_ms, prm, prm_stride};
+  cudaError_t e;
+  if (!packed || !fast_path) {
+    bound = nullptr;
+  } else if (bound == nullptr) {
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    e = cudaMemsetAsync(scratch, 0, 2 * sizeof(float) * nb, s);
+    if (e != cudaSuccess) return e;
+    const dim3 g2 = fluid_grid2d(h, w, fluid_grid_z(nb));
+    const dim3 b2(FLUID_BX, FLUID_BY);
+    if (batch)
+      vel_bound_kernel<true><<<g2, b2, 0, s>>>(u, v, scratch, h, w, m);
+    else
+      vel_bound_kernel<false><<<g2, b2, 0, s>>>(u, v, scratch, h, w, m);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    bound = scratch;
+  }
+  const Rows r = {u, v, ou, ov, {d0, d1, d2}, {o0, o1, o2}, c};
+  const Bound bd = {want_bound ? stats : nullptr, reinterpret_cast<float2*>(slots),
+                    reinterpret_cast<unsigned*>(counts)};
+  // every plane's rows start on cells * 4 bytes (unused planes are null)
+  bool vec = w % cells == 0;
+  for (const void* p : {static_cast<const void*>(u), static_cast<const void*>(v),
+                        static_cast<const void*>(ou), static_cast<const void*>(ov),
+                        static_cast<const void*>(d0), static_cast<const void*>(d1),
+                        static_cast<const void*>(d2), static_cast<const void*>(o0),
+                        static_cast<const void*>(o1), static_cast<const void*>(o2)})
+    vec = vec && aligned_to(p, 4 * cells);
+  for (long long st : {u_ms, v_ms, ouv_ms, din_ms, dout_ms}) vec = vec && st % cells == 0;
+  const Launch l = {grid, dim3(32, rows), s, h, w, dt, decay, packed, fast_path, prefetch};
+  const bool walk = grid.y * rows < h;  // a block takes more than one tile
+  if (mode == MODE_VELOCITY)
+    launch_rows<MODE_VELOCITY>(cells, vec, batch, walk, l, r, m, bd, bound);
+  else if (mode == MODE_DYE)
+    launch_rows<MODE_DYE>(cells, vec, batch, walk, l, r, m, bd, bound);
+  else
+    launch_rows<MODE_BOTH>(cells, vec, batch, walk, l, r, m, bd, bound);
+  return cudaGetLastError();
 }
 
 // Where a shard's padded view lies in the global grid (ops/ref.py Window):
@@ -174,214 +645,6 @@ __device__ __forceinline__ void advect_cell_window(
   advect_blend<DYE>(planes, c, ry1 * g.fw + rx1, ry1 * g.fw + rx2,
                     ry2 * g.fw + rx1, ry2 * g.fw + rx2, tx, ty, y * w + x,
                     decay, round_mask, clamp, mu, mv);
-}
-
-// Member strides (floats) of the field planes in and out and of u and v;
-// prm: row b holds member b's [dt, decay] (row stride prm_stride), or null
-// for the dt and decay given by value.
-struct Members {
-  int nb;
-  long long in, out, u, v;
-  const float* prm;
-  int prm_stride;
-};
-
-// BATCH false (a single call) compiles the member loop away: member 0 once,
-// the scalars by value.
-template <bool DYE, bool BATCH>
-__global__ void advect_kernel(Planes planes, int c, const float* __restrict__ u,
-                              const float* __restrict__ v,
-                              float* __restrict__ stats, int h, int w,
-                              float dt, float decay, Members m) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  const int nb = BATCH ? m.nb : 1;
-  // one member at a time
-#pragma unroll 1
-  for (int b = BATCH ? blockIdx.z : 0; b < nb; b += BATCH ? gridDim.z : 1) {
-    Planes p = planes;
-    if (BATCH) {
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) {
-        if (ch < c) {
-          p.in[ch] += b * m.in;
-          p.out[ch] += b * m.out;
-        }
-      }
-    }
-    float bdt = dt, bdecay = decay;
-    if (BATCH && m.prm != nullptr) {
-      bdt = m.prm[static_cast<size_t>(b) * m.prm_stride];
-      bdecay = m.prm[static_cast<size_t>(b) * m.prm_stride + 1];
-    }
-    float mu = 0.f, mv = 0.f;
-    if (x < w && y < h)
-      advect_cell<DYE>(p, c, u + b * m.u, v + b * m.v, h, w, x, y, bdt, bdecay, 0u,
-                       false, mu, mv);
-    if (!DYE && stats != nullptr) {
-      fluid_block_max2_atomic(mu, mv, stats + 2 * b);
-      if (BATCH) __syncthreads();  // the block max's slots, before the next member
-    }
-  }
-}
-
-// bound: the device-side [max|u|, max|v|] of each member, 2 floats a member
-// (null when fast_path is 0).
-template <bool DYE, bool BATCH>
-__global__ void advect_packed_kernel(Planes planes, int c,
-                                     const float* __restrict__ u,
-                                     const float* __restrict__ v,
-                                     const float* __restrict__ bound,
-                                     float* __restrict__ stats, int h, int w,
-                                     float dt, float decay, int fast_path,
-                                     Members m) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  const int nb = BATCH ? m.nb : 1;
-  // one member at a time
-#pragma unroll 1
-  for (int b = BATCH ? blockIdx.z : 0; b < nb; b += BATCH ? gridDim.z : 1) {
-    Planes p = planes;
-    if (BATCH) {
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) {
-        if (ch < c) {
-          p.in[ch] += b * m.in;
-          p.out[ch] += b * m.out;
-        }
-      }
-    }
-    float bdt = dt, bdecay = decay;
-    if (BATCH && m.prm != nullptr) {
-      bdt = m.prm[static_cast<size_t>(b) * m.prm_stride];
-      bdecay = m.prm[static_cast<size_t>(b) * m.prm_stride + 1];
-    }
-    // uniform across the member's blocks: realized displacement under one cell
-    const bool quiet =
-        fast_path && bound[2 * b] * bdt < 1.f && bound[2 * b + 1] * bdt < 1.f;
-    float mu = 0.f, mv = 0.f;
-    if (x < w && y < h)
-      advect_cell<DYE>(p, c, u + b * m.u, v + b * m.v, h, w, x, y, bdt, bdecay,
-                       quiet ? 0u : 3u, DYE && !quiet, mu, mv);
-    if (!DYE && stats != nullptr) {
-      fluid_block_max2_atomic(mu, mv, stats + 2 * b);
-      if (BATCH) __syncthreads();  // the block max's slots, before the next member
-    }
-  }
-}
-
-// [max|u|, max|v|] of each member into out[2b..2b+1] (zeroed first)
-template <bool BATCH>
-__global__ void vel_bound_kernel(const float* __restrict__ u,
-                                 const float* __restrict__ v,
-                                 float* __restrict__ out, int h, int w, Members m) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  const int nb = BATCH ? m.nb : 1;
-#pragma unroll 1
-  for (int b = BATCH ? blockIdx.z : 0; b < nb; b += BATCH ? gridDim.z : 1) {
-    float a = 0.f, c = 0.f;
-    if (x < w && y < h) {
-      a = fabsf(u[b * m.u + y * w + x]);
-      c = fabsf(v[b * m.v + y * w + x]);
-    }
-    fluid_block_max2_atomic(a, c, out + 2 * b);
-    if (BATCH) __syncthreads();
-  }
-}
-
-// fields: c <= 3 planes (f0..f2, outputs o0..o2) of member 0.  dye != 0
-// selects the dye fade; otherwise stats (may be null) receives
-// [max|o0|, max|o1|] of each member, 2 floats a member.  nb members; in_ms,
-// out_ms, u_ms, v_ms: member strides (floats) of f*, o*, u and v; prm: nb
-// rows of [dt, decay] in device memory, prm_stride floats apart, or null
-// for dt and decay (the only member when nb = 1).
-FLUID_API int fluid_advect(const float* f0, const float* f1, const float* f2,
-                           float* o0, float* o1, float* o2, const float* u,
-                           const float* v, float* stats, int c, int h, int w,
-                           int dye, float dt, float decay, int nb, long long in_ms,
-                           long long out_ms, long long u_ms, long long v_ms,
-                           const float* prm, int prm_stride, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c < 1 || c > 3 || h < 1 || w < 1 || nb < 1) return cudaErrorInvalidValue;
-  if (prm != nullptr && prm_stride < 2) return cudaErrorInvalidValue;
-  Planes planes = {{f0, f1, f2}, {o0, o1, o2}};
-  const Members m = {nb, in_ms, out_ms, u_ms, v_ms, prm, prm_stride};
-  const dim3 block(FLUID_BX, FLUID_BY);
-  const dim3 grid = fluid_grid2d(h, w, fluid_grid_z(nb));
-  const bool batch = nb > 1 || prm != nullptr;
-  if (!dye && stats != nullptr) {
-    cudaError_t e = cudaMemsetAsync(stats, 0, 2 * sizeof(float) * nb, s);
-    if (e != cudaSuccess) return e;
-  }
-  float* st = dye ? nullptr : stats;
-  if (dye && batch)
-    advect_kernel<true, true><<<grid, block, 0, s>>>(planes, c, u, v, st, h, w, dt, decay, m);
-  else if (dye)
-    advect_kernel<true, false><<<grid, block, 0, s>>>(planes, c, u, v, st, h, w, dt, decay, m);
-  else if (batch)
-    advect_kernel<false, true><<<grid, block, 0, s>>>(planes, c, u, v, st, h, w, dt, decay, m);
-  else
-    advect_kernel<false, false><<<grid, block, 0, s>>>(planes, c, u, v, st, h, w, dt, decay, m);
-  return cudaGetLastError();
-}
-
-// As fluid_advect, over bf16-rounded taps (channels 0 and 1) unless the
-// member's step is quiet.  fast_path != 0 enables the quiet branch, decided
-// from bound (device [max|u|, max|v|], 2 floats a member) or, when bound is
-// null, from the maxima of each member's u and v, reduced into scratch (2
-// floats a member) first.  nb, in_ms, out_ms, u_ms, v_ms, prm, prm_stride:
-// the members, as fluid_advect's.
-FLUID_API int fluid_advect_packed(const float* f0, const float* f1,
-                                  const float* f2, float* o0, float* o1,
-                                  float* o2, const float* u, const float* v,
-                                  const float* bound, float* scratch,
-                                  float* stats, int c, int h, int w, int dye,
-                                  int fast_path, float dt, float decay, int nb,
-                                  long long in_ms, long long out_ms, long long u_ms,
-                                  long long v_ms, const float* prm, int prm_stride,
-                                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c < 1 || c > 3 || h < 1 || w < 1 || nb < 1) return cudaErrorInvalidValue;
-  if (prm != nullptr && prm_stride < 2) return cudaErrorInvalidValue;
-  Planes planes = {{f0, f1, f2}, {o0, o1, o2}};
-  const Members m = {nb, in_ms, out_ms, u_ms, v_ms, prm, prm_stride};
-  const dim3 block(FLUID_BX, FLUID_BY);
-  const dim3 grid = fluid_grid2d(h, w, fluid_grid_z(nb));
-  const bool batch = nb > 1 || prm != nullptr;
-  cudaError_t e;
-  if (!fast_path) {
-    bound = nullptr;
-  } else if (bound == nullptr) {
-    if (scratch == nullptr) return cudaErrorInvalidValue;
-    e = cudaMemsetAsync(scratch, 0, 2 * sizeof(float) * nb, s);
-    if (e != cudaSuccess) return e;
-    if (batch)
-      vel_bound_kernel<true><<<grid, block, 0, s>>>(u, v, scratch, h, w, m);
-    else
-      vel_bound_kernel<false><<<grid, block, 0, s>>>(u, v, scratch, h, w, m);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    bound = scratch;
-  }
-  float* st = dye ? nullptr : stats;
-  if (st != nullptr) {
-    e = cudaMemsetAsync(st, 0, 2 * sizeof(float) * nb, s);
-    if (e != cudaSuccess) return e;
-  }
-  if (dye && batch)
-    advect_packed_kernel<true, true><<<grid, block, 0, s>>>(
-        planes, c, u, v, bound, st, h, w, dt, decay, fast_path, m);
-  else if (dye)
-    advect_packed_kernel<true, false><<<grid, block, 0, s>>>(
-        planes, c, u, v, bound, st, h, w, dt, decay, fast_path, m);
-  else if (batch)
-    advect_packed_kernel<false, true><<<grid, block, 0, s>>>(
-        planes, c, u, v, bound, st, h, w, dt, decay, fast_path, m);
-  else
-    advect_packed_kernel<false, false><<<grid, block, 0, s>>>(
-        planes, c, u, v, bound, st, h, w, dt, decay, fast_path, m);
-  return cudaGetLastError();
 }
 
 // H1 (PACKED false) or H8 on the interior of a window; bound: the device

@@ -64,12 +64,12 @@ static inline dim3 burst_grid(int h, int w, int tile_h, int tile_w, int z = 1) {
   return dim3((w + tile_w - 1) / tile_w, (h + tile_h - 1) / tile_h, z);
 }
 
-// Allow `bytes` of dynamic shared memory (above 48 KB only on request) and
-// prefer the largest shared carveout, so several blocks fit on an SM.
+// Allow `bytes` of dynamic shared memory (above 48 KB only on request: the
+// device's cap, fluid_allow_smem) and prefer the largest shared carveout,
+// so several blocks fit on an SM.
 template <class K>
 static inline cudaError_t burst_allow_smem(K kernel, size_t bytes) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t e = fluid_allow_smem(kernel, bytes);
   if (e != cudaSuccess) return e;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,

@@ -58,6 +58,29 @@ __device__ __forceinline__ void fluid_block_max2_atomic(float a, float b,
   }
 }
 
+// Let `kernel` take the most dynamic shared memory a block may have on the
+// current device beside its static arrays; `bytes`, what this launch
+// takes, is refused above it.
+// Every caller sets the same cap: the shard threads of a mesh launch one
+// kernel at once with plans of different sizes (two ens groups drift a
+// burst apart), and a cap set to one plan's bytes could refuse another
+// thread's larger launch between that thread's own set and its launch
+// (cudaErrorInvalidValue).
+template <class K>
+static inline cudaError_t fluid_allow_smem(K kernel, size_t bytes) {
+  int dev = 0, cap = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return e;
+  const int dynamic = cap - static_cast<int>(a.sharedSizeBytes);
+  if (bytes > static_cast<size_t>(dynamic)) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic);
+}
+
 static inline dim3 fluid_grid2d(int h, int w, int z = 1) {
   return dim3((w + FLUID_BX - 1) / FLUID_BX, (h + FLUID_BY - 1) / FLUID_BY, z);
 }

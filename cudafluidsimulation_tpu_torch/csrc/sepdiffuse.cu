@@ -383,8 +383,7 @@ sep_kernel_generic(const float* __restrict__ in, float* __restrict__ out, int h,
 template <class K>
 static cudaError_t sep_allow_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+  return fluid_allow_smem(kernel, smem);
 }
 
 // in, out: n (h, w) planes, plane z of member z / chans and channel

@@ -67,9 +67,9 @@ def make_step(config: FluidConfig, ops=None) -> StepFn:
 
         # -- advection: velocity first; dye through the advected velocity
         #    (cpuFluidSim.cpp:340-341 / GPUFluidSim.cu:620-622).  A namespace
-        #    may give the optional ``advect_both`` (the sharded rollout's:
-        #    one halo exchange carries velocity and dye, since both tap
-        #    pre-advection data)
+        #    may give the optional ``advect_both``: H1's one launch for both
+        #    on the card, the sharded rollout's one halo exchange for both
+        #    (both tap pre-advection data)
         dye_out = None if pack is None else pack[2:]
         advect_both = getattr(ops, "advect_both", None)
         if advect_both is not None:
@@ -235,12 +235,20 @@ def make_batched_step(config: FluidConfig, ops=None, diffusions=None) -> StepFn:
                             device=u.device) if five else None)
 
         # -- advection (each member's quiet branch of the fast modes from
-        #    its own bound, as make_step's), then vorticity confinement
-        u, v, vstats = ops.advect_velocity(u, v, dt, config.decay_rate,
-                                           vel_stats=state.vel_stats, return_stats=True,
-                                           params=adv_p)
-        dye = ops.advect_dye(dye, u, v, dt, config.decay_rate, vel_stats=vstats,
-                             params=adv_p, out=None if pack is None else pack[:, 2:])
+        #    its own bound; the optional ``advect_both`` as make_step's),
+        #    then vorticity confinement
+        dye_out = None if pack is None else pack[:, 2:]
+        advect_both = getattr(ops, "advect_both", None)
+        if advect_both is not None:
+            u, v, dye, vstats = advect_both(u, v, dye, dt, config.decay_rate,
+                                            vel_stats=state.vel_stats, return_stats=True,
+                                            params=adv_p, out=dye_out)
+        else:
+            u, v, vstats = ops.advect_velocity(u, v, dt, config.decay_rate,
+                                               vel_stats=state.vel_stats, return_stats=True,
+                                               params=adv_p)
+            dye = ops.advect_dye(dye, u, v, dt, config.decay_rate, vel_stats=vstats,
+                                 params=adv_p, out=dye_out)
         confine = ops.vorticity_confinement_cpu if cpu_variant else ops.vorticity_confinement_gpu
         u, v = confine(u, v, dt, config.vorticity, params=adv_p,
                        out=None if pack is None else pack[:, :2])

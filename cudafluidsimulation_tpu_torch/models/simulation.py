@@ -183,8 +183,13 @@ class Simulation:
         coeffs = np.asarray([cfg.velocity_diffusion] * 2 + [cfg.color_diffusion] * 3,
                             np.float32)
 
+        advect_both = getattr(ops, "advect_both", None)
+
         def advect_body(c):
             u, v, dye, st = c
+            if advect_both is not None:  # the step's one launch
+                return advect_both(u, v, dye, dt, cfg.decay_rate, vel_stats=st,
+                                   return_stats=True)
             u2, v2, st2 = ops.advect_velocity(u, v, dt, cfg.decay_rate, vel_stats=st,
                                               return_stats=True)
             return u2, v2, ops.advect_dye(dye, u2, v2, dt, cfg.decay_rate,

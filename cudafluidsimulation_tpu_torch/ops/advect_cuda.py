@@ -5,10 +5,10 @@
 ``_advect_tiled``), their cores ``_advect_core`` and
 ``_advect_core_static``, and ``_emit_stats``.  The TPU has no fast gather,
 so the Pallas kernel turns the bilinear gather into a shift-accumulation
-over a bounded displacement window.  The card gathers natively: one thread
-per cell backtraces, truncates the corner, clamps four taps and blends
-them, as ``ops/ref.py`` does.  The backtrace is unbounded, like the ref
-backend; the Pallas kernel's ``max_displacement`` clamp is not copied.
+over a bounded displacement window.  The card gathers natively: a thread
+backtraces each of its cells, truncates the corner, clamps four taps and
+blends them, as ``ops/ref.py`` does.  The backtrace is unbounded, like the
+ref backend; the Pallas kernel's ``max_displacement`` clamp is not copied.
 
 **H8** (``packed=True``, the ``fast_velocity`` and ``fast_dye`` modes)
 replaces the bf16-tap cores ``_advect_core_packed`` and
@@ -19,23 +19,42 @@ device from ``vel_stats`` (or from max|u|, max|v| reduced first when it is
 None), so the step reads nothing back.  Plain version:
 ``ops/advect_packed.py``.
 
-What bounds both: bytes.  At 2048² the velocity pass reads u, v and writes
-u', v' (4 planes, 64 MiB); the dye pass reads u', v' and 3 dye planes and
-writes 3 (8 planes, 128 MiB).  The taps are near the cell, so they hit L1
-and L2.  The velocity pass also emits [max|u'|, max|v'|] (a block
-reduction and one atomic per block), so no later pass re-reads the
-velocity to bound it.
+**What bounds them: bytes**, each input read once and each output
+written once (the taps are near the cell and hit L1 and L2):
 
-**H1 batched** (``advect_velocity_batched``, ``advect_dye_batched``): B
-independent members (ensembles, the analog of vmap over the JAX step) in
-one launch of the same kernel, member b on grid z; each member's dt and
-decay come from its row of the step's device parameters
+- :func:`advect_both`, H1 as the step runs it (``make_step`` and
+  ``make_batched_step`` take a namespace's ``advect_both``): velocity and
+  dye in one launch.  The dye backtraces through u', v' at its own cell,
+  which the thread has just computed, so u', v' are written once and
+  never read back: u, v and the 3 dye planes in, u', v' and 3 dye planes
+  out, 10 planes (168 MB at 2048², 0.050 ms at 3.35 TB/s).
+- :func:`advect_velocity` reads u, v and writes u', v' (4 planes);
+  :func:`advect_dye` reads u', v' and the dye and writes the dye (8
+  planes).  H8 runs as these two passes, because its dye's quiet branch
+  reads the grid-wide max of u', v', which is known only when every block
+  of the velocity pass has finished (12 planes together).  H1's two
+  passes serve the decomposed stage report (``utils/instrument.py``),
+  and the checks hold the fused launch to them bit for bit.
+
+The design (``DESIGN``: cells a thread, rows a block, tiles a block walks,
+the dye's L1 prefetch): each thread takes 4 cells of a row with one
+16-byte access a plane where every plane's rows start on 16 bytes (a
+scalar access a cell elsewhere); a block of 32 x 8 threads walks 4 tiles
+of rows, loading the next tile's u, v while it gathers this one's, and
+prefetches the dye's lines into L1 before the dye's gathers wait on u',
+v'.  The velocity bound [max|u'|, max|v'|] needs no memset and no atomic
+on a shared address: a block writes its max into its own slot, and the
+member's last block to arrive reduces the slots (its arrival count kept
+per stream by :class:`_Arrivals`).
+
+**Batched** (``*_batched``): B independent members (ensembles, the analog
+of vmap over the JAX step) in one launch, member b on grid z; each
+member's dt and decay come from its row of the step's device parameters
 (``ops/member_params.py``) and its bound goes to row b of ``stats``
-(B, 2).  The single entries are the case B = 1, with dt and decay by value.
-**H8 batched** (the same functions with ``packed=True``): the same over
-bf16-rounded taps, each member's quiet branch decided on the device from
-its own row of ``vel_stats`` (B, 2) and its own dt, so a batch may mix
-quiet and driven members and the step still reads nothing back.
+(B, 2).  H8's quiet branch is each member's, from its own row of
+``vel_stats`` (B, 2) and its own dt, so a batch may mix quiet and driven
+members and the step still reads nothing back.  The single entries are
+the case B = 1, with dt and decay by value.
 
 **H1 window and H8 window** (:func:`advect_window`, ``WINDOW``): the
 sharded rollout (``parallel/``) advects each shard on a halo-padded local
@@ -57,6 +76,7 @@ for CPU tensors and launch the kernel or raise for CUDA tensors.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -66,20 +86,30 @@ from cudafluidsimulation_tpu_torch.ops._build import (
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
-# fluid_advect(f0, f1, f2, o0, o1, o2, u, v, stats, c, h, w, dye, dt, decay,
-#              nb, in_ms, out_ms, u_ms, v_ms, prm, prm_stride, stream)
-_ADVECT = {"fluid_advect": [_P] * 9 + [_I] * 4 + [_F, _F, _I] + [_L] * 4 + [_P, _I, _P]}
-KERNEL = Kernel("advect", _ADVECT)
-# the same entry, B members a launch (its own launch count)
-BATCHED = Kernel("advect", _ADVECT)
-# fluid_advect_packed(f0, f1, f2, o0, o1, o2, u, v, bound, scratch, stats,
-#                     c, h, w, dye, fast_path, dt, decay, nb, in_ms, out_ms,
-#                     u_ms, v_ms, prm, prm_stride, stream)
-_PACKED = {"fluid_advect_packed": [_P] * 11 + [_I] * 5 + [_F, _F, _I] + [_L] * 4
-           + [_P, _I, _P]}
-PACKED = Kernel("advect", _PACKED)
-# the same entry, B members a launch (its own launch count)
-PACKED_BATCHED = Kernel("advect", _PACKED)
+# fluid_advect_rows(u, v, ou, ov, d0, d1, d2, o0, o1, o2, bound, scratch, stats,
+#                   slots, counts, c, h, w, mode, packed, fast_path, dt, decay, nb,
+#                   u_ms, v_ms, ouv_ms, din_ms, dout_ms, prm, prm_stride, cells, rows,
+#                   tiles, prefetch, slot_count, stream)
+_ROWS = {"fluid_advect_rows": [_P] * 15 + [_I] * 6 + [_F, _F, _I] + [_L] * 5
+         + [_P] + [_I] * 5 + [_L, _P]}
+_VELOCITY, _DYE, _BOTH = 1, 2, 3
+# the row kernels' design: cells a thread along a row, rows of 32 threads a
+# block, tiles of rows a block walks (loading the next tile's u, v ahead),
+# and whether the dye's lines are prefetched into L1 ahead of its gathers
+# (chip_smoke.py times the others: PERF.md)
+DESIGN = (4, 8, 4, 1)
+# H1 as the step launches it, velocity and dye in one launch; single and
+# B members a launch, each its own launch count
+KERNEL = Kernel("advect", _ROWS)
+BATCHED = Kernel("advect", _ROWS)
+# H1's velocity and dye passes apart
+VELOCITY_PASS = Kernel("advect", _ROWS)
+DYE_PASS = Kernel("advect", _ROWS)
+VELOCITY_PASS_BATCHED = Kernel("advect", _ROWS)
+DYE_PASS_BATCHED = Kernel("advect", _ROWS)
+# H8's two passes, single and batched
+PACKED = Kernel("advect", _ROWS)
+PACKED_BATCHED = Kernel("advect", _ROWS)
 # fluid_advect_window(f0, f1, f2, o0, o1, o2, u, v, bound, scratch, stats,
 #                     c, h, w, dye, packed, fast_path, dt, decay, y0, x0,
 #                     h_phys, w_phys, d, d_x, yi, fw, uw, stream)
@@ -89,85 +119,109 @@ WINDOW = Kernel("advect", _WINDOW)
 PACKED_WINDOW = Kernel("advect", _WINDOW)
 
 
+class _Arrivals:
+    """The velocity bound's arrival counts: one int32 a member, zero, kept
+    for each (device, stream).  Launches on one stream run one after
+    another and each launch's last block resets its members' counts, so
+    the next launch finds zeros; launches that may overlap (other streams,
+    as the shard threads of ``parallel/mesh.py`` could use) get other
+    counts.  Made on the stream at its first use."""
+
+    def __init__(self):
+        self._by_stream = {}
+        self._lock = threading.Lock()
+
+    def get(self, device: torch.device, stream: int, n: int) -> torch.Tensor:
+        key = (device.index, stream)
+        with self._lock:
+            counts = self._by_stream.get(key)
+            if counts is None or counts.numel() < n:
+                counts = torch.zeros((max(n, 256),), dtype=torch.int32, device=device)
+                self._by_stream[key] = counts
+            return counts
+
+
+_ARRIVALS = _Arrivals()
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
 def _ptrs(tensors):
     return [t.data_ptr() for t in tensors] + [None] * (3 - len(tensors))
 
 
-def _launch(planes, outs, u, v, stats, dt, decay_rate, dye: bool):
-    h, w = u.shape
-    with torch.cuda.device(u.device):
-        KERNEL.launch(
-            "fluid_advect", *_ptrs(planes), *_ptrs(outs), u.data_ptr(),
-            v.data_ptr(), stats.data_ptr() if stats is not None else None,
-            len(planes), h, w, int(dye), float(ref.f32(dt)),
-            ref.decay_factor(dt, decay_rate), 1, 0, 0, 0, 0, None, 0, stream_of(u))
-
-
-def _launch_batched(planes, outs, in_ms, out_ms, u, v, stats, params, dye: bool):
-    """One launch over the B members: ``planes``/``outs`` member 0's
-    planes, each array ``*_ms`` floats from one member to the next."""
-    n, h, w = u.shape
-    member_params.check(params, n, member_params.ADVECT_COLS, u.device)
-    with torch.cuda.device(u.device):
-        BATCHED.launch(
-            "fluid_advect", *_ptrs(planes), *_ptrs(outs), u.data_ptr(), v.data_ptr(),
-            stats.data_ptr() if stats is not None else None, len(planes), h, w,
-            int(dye), 0.0, 0.0, n, in_ms, out_ms, u.stride(0), v.stride(0),
-            params.data_ptr(), params.stride(0), stream_of(u))
-
-
-def _launch_packed(planes, outs, u, v, vel_stats, stats, dt, decay_rate,
-                   dye: bool, fast_path: bool):
-    h, w = u.shape
-    if vel_stats is not None:
-        check_f32("vel_stats", vel_stats, (2,))
-    # the kernel reduces max|u|, max|v| here when no bound is given
-    scratch = (torch.empty((2,), dtype=torch.float32, device=u.device)
-               if fast_path and vel_stats is None else None)
-    with torch.cuda.device(u.device):
-        PACKED.launch(
-            "fluid_advect_packed", *_ptrs(planes), *_ptrs(outs),
-            u.data_ptr(), v.data_ptr(),
-            vel_stats.data_ptr() if vel_stats is not None else None,
-            scratch.data_ptr() if scratch is not None else None,
-            stats.data_ptr() if stats is not None else None,
-            len(planes), h, w, int(dye), int(bool(fast_path)),
-            float(ref.f32(dt)), ref.decay_factor(dt, decay_rate), 1, 0, 0, 0, 0, None, 0,
-            stream_of(u))
-
-
-def _launch_packed_batched(planes, outs, in_ms, out_ms, u, v, vel_stats, stats, params,
-                           dye: bool, fast_path: bool):
-    """H8 over the B members: as :func:`_launch_batched`, with each member's
-    quiet branch decided from its row of ``vel_stats`` (B, 2), or from its
-    maxima reduced first when ``vel_stats`` is None."""
-    n, h, w = u.shape
-    member_params.check(params, n, member_params.ADVECT_COLS, u.device)
-    if vel_stats is not None:
-        check_f32("vel_stats", vel_stats, (n, 2))
+def _launch(kern, mode, u, v, *, uv_out=None, dye=None, dye_out=None, stats=None,
+            vel_stats=None, dt=0.0, decay_rate=0.0, params=None, packed=False,
+            fast_path=False, design=None):
+    """One launch of ``fluid_advect_rows``.  Single: u, v (H, W), ``uv_out``
+    (2, H, W), ``dye``/``dye_out`` (C, H, W), ``stats`` (2,), dt and the
+    decay by value.  Batched (u (B, H, W)): ``uv_out`` (2, B, H, W), the
+    dye (B, C, H, W) at any member stride, ``stats`` (B, 2), each member's
+    [dt, decay] from its row of ``params``."""
+    batched = u.dim() == 3
+    n = u.shape[0] if batched else 1
+    h, w = u.shape[-2:]
+    cells, rows, tiles, prefetch = DESIGN if design is None else design
+    stream = stream_of(u)
+    slots = counts = None
+    slot_count = 0
+    if stats is not None:  # a slot a block (fluid_advect_rows' rows_grid)
+        blocks_y = -(-(-(-h // rows)) // tiles)  # ceil(ceil(h / rows) / tiles)
+        slot_count = -(-w // (32 * cells)) * blocks_y * n
+        slots = torch.empty((slot_count, 2), dtype=torch.float32, device=u.device)
+        counts = _ARRIVALS.get(u.device, stream, n)
+    # H8 reduces max|u|, max|v| here when no bound is given
     scratch = (torch.empty((n, 2), dtype=torch.float32, device=u.device)
-               if fast_path and vel_stats is None else None)
+               if packed and fast_path and vel_stats is None else None)
+    ou = ov = None
+    if uv_out is not None:
+        ou, ov = (uv_out[0, 0], uv_out[1, 0]) if batched else (uv_out[0], uv_out[1])
+    c, planes, outs = 0, [], []
+    if dye is not None:
+        c = dye.shape[-3]
+        planes, outs = (list(dye[0]), list(dye_out[0])) if batched else (list(dye), list(dye_out))
+    if batched:
+        ms = (u.stride(0), v.stride(0), h * w, dye.stride(0) if dye is not None else 0,
+              dye_out.stride(0) if dye_out is not None else 0)
+        dt_f, decay, prm, prm_stride = 0.0, 0.0, params.data_ptr(), params.stride(0)
+    else:
+        ms = (0, 0, 0, 0, 0)
+        dt_f, decay = float(ref.f32(dt)), ref.decay_factor(dt, decay_rate)
+        prm, prm_stride = None, 0
     with torch.cuda.device(u.device):
-        PACKED_BATCHED.launch(
-            "fluid_advect_packed", *_ptrs(planes), *_ptrs(outs), u.data_ptr(), v.data_ptr(),
-            vel_stats.data_ptr() if vel_stats is not None else None,
-            scratch.data_ptr() if scratch is not None else None,
-            stats.data_ptr() if stats is not None else None,
-            len(planes), h, w, int(dye), int(bool(fast_path)), 0.0, 0.0, n, in_ms, out_ms,
-            u.stride(0), v.stride(0), params.data_ptr(), params.stride(0), stream_of(u))
+        kern.launch(
+            "fluid_advect_rows", u.data_ptr(), v.data_ptr(), _ptr(ou), _ptr(ov), *_ptrs(planes),
+            *_ptrs(outs), _ptr(vel_stats), _ptr(scratch), _ptr(stats), _ptr(slots),
+            _ptr(counts), c, h, w, mode, int(bool(packed)), int(bool(fast_path)), dt_f, decay,
+            n, *ms, prm, prm_stride, cells, rows, tiles, prefetch, slot_count, stream)
 
 
 def _given(*tensors):
     return [t for t in tensors if t is not None]
 
 
+def _check_dye(dye, h, w):
+    if dye.dim() != 3 or not 1 <= dye.shape[0] <= 3:
+        raise ValueError(f"dye: expected (C<=3, H, W), got {tuple(dye.shape)}")
+    check_f32("dye", dye, (dye.shape[0], h, w))
+
+
+def _check_dye_batched(dye, n, h, w):
+    if dye.dim() != 4 or dye.shape[0] != n or not 1 <= dye.shape[1] <= 3:
+        raise ValueError(f"dye: expected ({n}, C<=3, H, W), got {tuple(dye.shape)}")
+    check_planes("dye", dye, (n, dye.shape[1], h, w))
+
+
 def advect_velocity(u, v, dt, decay_rate, *, vel_stats=None,
                     return_stats: bool = False, packed: bool = False,
-                    fast_path: bool = True):
+                    fast_path: bool = True, design=None):
     """Self-advection of (u, v) with decay; ``ops.ref.advect_velocity``
     semantics, or ``ops.advect_packed.advect_velocity``'s with ``packed``
     (kernel H8; ``fast_path`` and ``vel_stats`` steer its quiet branch).
-    ``return_stats`` also returns the kernel-emitted [max|u'|, max|v'|]."""
+    ``return_stats`` also returns the kernel-emitted [max|u'|, max|v'|].
+    ``design``: (cells, rows, tiles, prefetch) in place of ``DESIGN``."""
     if not on_card(*_given(u, v, vel_stats)):
         if packed:
             return advect_packed.advect_velocity(
@@ -177,20 +231,20 @@ def advect_velocity(u, v, dt, decay_rate, *, vel_stats=None,
                                    return_stats=return_stats)
     check_f32("u", u, u.shape)
     check_f32("v", v, u.shape)
+    if packed and vel_stats is not None:
+        check_f32("vel_stats", vel_stats, (2,))
     out = torch.empty((2,) + tuple(u.shape), dtype=torch.float32, device=u.device)
     stats = torch.empty((2,), dtype=torch.float32, device=u.device)
-    if packed:
-        _launch_packed([u, v], [out[0], out[1]], u, v, vel_stats, stats, dt,
-                       decay_rate, dye=False, fast_path=fast_path)
-    else:
-        _launch([u, v], [out[0], out[1]], u, v, stats, dt, decay_rate, dye=False)
+    _launch(PACKED if packed else VELOCITY_PASS, _VELOCITY, u, v, uv_out=out, stats=stats,
+            vel_stats=vel_stats if packed else None, dt=dt, decay_rate=decay_rate,
+            packed=packed, fast_path=fast_path, design=design)
     if return_stats:
         return out[0], out[1], stats
     return out[0], out[1]
 
 
 def advect_dye(dye, u, v, dt, decay_rate, *, vel_stats=None,
-               packed: bool = False, fast_path: bool = True, out=None):
+               packed: bool = False, fast_path: bool = True, out=None, design=None):
     """Dye advection through the advected velocity with the fade
     fmin(1, c^1.005 * decay); ``ops.ref.advect_dye`` semantics, or
     ``ops.advect_packed.advect_dye``'s with ``packed`` (kernel H8).  The
@@ -208,16 +262,40 @@ def advect_dye(dye, u, v, dt, decay_rate, *, vel_stats=None,
     h, w = u.shape
     check_f32("u", u, (h, w))
     check_f32("v", v, (h, w))
-    if dye.dim() != 3 or not 1 <= dye.shape[0] <= 3:
-        raise ValueError(f"dye: expected (C<=3, H, W), got {tuple(dye.shape)}")
-    check_f32("dye", dye, (dye.shape[0], h, w))
+    _check_dye(dye, h, w)
+    if packed and vel_stats is not None:
+        check_f32("vel_stats", vel_stats, (2,))
     out = torch.empty_like(dye) if out is None else out
-    if packed:
-        _launch_packed(list(dye), list(out), u, v, vel_stats, None, dt,
-                       decay_rate, dye=True, fast_path=fast_path)
-    else:
-        _launch(list(dye), list(out), u, v, None, dt, decay_rate, dye=True)
+    _launch(PACKED if packed else DYE_PASS, _DYE, u, v, dye=dye, dye_out=out,
+            vel_stats=vel_stats if packed else None, dt=dt, decay_rate=decay_rate,
+            packed=packed, fast_path=fast_path, design=design)
     return out
+
+
+def advect_both(u, v, dye, dt, decay_rate, *, vel_stats=None, return_stats: bool = False,
+                out=None, design=None):
+    """H1's velocity and dye advection in one launch: :func:`advect_velocity`
+    then :func:`advect_dye` through its result, bit for bit, without
+    writing u', v' to read them back.  Returns u', v', the dye (into
+    ``out`` when given, as :func:`advect_dye`) [and the kernel-emitted
+    [max|u'|, max|v'|]].  ``vel_stats`` is accepted for signature parity
+    with the step's namespaces and unused (H1 has no quiet branch)."""
+    if out is not None:
+        ref.check_out(out, dye.shape, dye, u, v, vel_stats)
+    if not on_card(*_given(u, v, dye, vel_stats, out)):
+        u2, v2, st = ref.advect_velocity(u, v, dt, decay_rate, return_stats=True)
+        dye2 = ref.advect_dye(dye, u2, v2, dt, decay_rate, out=out)
+        return (u2, v2, dye2, st) if return_stats else (u2, v2, dye2)
+    h, w = u.shape
+    check_f32("u", u, (h, w))
+    check_f32("v", v, (h, w))
+    _check_dye(dye, h, w)
+    uv = torch.empty((2, h, w), dtype=torch.float32, device=u.device)
+    stats = torch.empty((2,), dtype=torch.float32, device=u.device)
+    out = torch.empty_like(dye) if out is None else out
+    _launch(KERNEL, _BOTH, u, v, uv_out=uv, dye=dye, dye_out=out, stats=stats, dt=dt,
+            decay_rate=decay_rate, design=design)
+    return (uv[0], uv[1], out, stats) if return_stats else (uv[0], uv[1], out)
 
 
 def _params(params, dt, decay_rate, device):
@@ -227,12 +305,12 @@ def _params(params, dt, decay_rate, device):
 
 def advect_velocity_batched(u, v, dt, decay_rate, *, vel_stats=None,
                             return_stats: bool = False, params=None, packed: bool = False,
-                            fast_path: bool = True):
-    """H1 over B members: u, v (B, H, W) (each plane contiguous), dt (B,);
-    ``ops.ref.advect_velocity_batched`` semantics, or with ``packed`` H8's,
-    ``ops.advect_packed.advect_velocity_batched`` (``fast_path`` and each
-    member's row of ``vel_stats`` (B, 2) steer its quiet branch).
-    ``params``: the step's (B, >= 2) device rows [dt, decay]
+                            fast_path: bool = True, design=None):
+    """H1's velocity pass over B members: u, v (B, H, W) (each plane
+    contiguous), dt (B,); ``ops.ref.advect_velocity_batched`` semantics, or
+    with ``packed`` H8's, ``ops.advect_packed.advect_velocity_batched``
+    (``fast_path`` and each member's row of ``vel_stats`` (B, 2) steer its
+    quiet branch).  ``params``: the step's (B, >= 2) device rows [dt, decay]
     (``ops/member_params.py``), uploaded here when None.  Returns u', v'
     (B, H, W) [and stats (B, 2)]."""
     if not on_card(*_given(u, v, vel_stats)):
@@ -245,23 +323,21 @@ def advect_velocity_batched(u, v, dt, decay_rate, *, vel_stats=None,
     n, h, w = u.shape
     check_planes("u", u, (n, h, w))
     check_planes("v", v, (n, h, w))
+    if packed and vel_stats is not None:
+        check_f32("vel_stats", vel_stats, (n, 2))
     params = _params(params, ref.member_vec(dt, n), decay_rate, u.device)
+    member_params.check(params, n, member_params.ADVECT_COLS, u.device)
     out = torch.empty((2, n, h, w), dtype=torch.float32, device=u.device)
     stats = torch.empty((n, 2), dtype=torch.float32, device=u.device)
-    if u.stride(0) != v.stride(0):
-        raise ValueError(f"u, v: member strides differ ({u.stride(0)}, {v.stride(0)})")
-    planes, outs = [u[0], v[0]], [out[0, 0], out[1, 0]]
-    if packed:
-        _launch_packed_batched(planes, outs, u.stride(0), h * w, u, v, vel_stats, stats,
-                               params, dye=False, fast_path=fast_path)
-    else:
-        _launch_batched(planes, outs, u.stride(0), h * w, u, v, stats, params, dye=False)
+    _launch(PACKED_BATCHED if packed else VELOCITY_PASS_BATCHED, _VELOCITY, u, v,
+            uv_out=out, stats=stats, vel_stats=vel_stats if packed else None, params=params,
+            packed=packed, fast_path=fast_path, design=design)
     return (out[0], out[1], stats) if return_stats else (out[0], out[1])
 
 
 def advect_dye_batched(dye, u, v, dt, decay_rate, *, vel_stats=None, params=None, out=None,
-                       packed: bool = False, fast_path: bool = True):
-    """H1's dye fade over B members: dye (B, C, H, W) and u, v (B, H, W),
+                       packed: bool = False, fast_path: bool = True, design=None):
+    """H1's dye pass over B members: dye (B, C, H, W) and u, v (B, H, W),
     each plane contiguous (the dye of a step is channels 2-4 of the last
     one's pack); ``ops.ref.advect_dye_batched`` semantics, or with
     ``packed`` H8's (``ops.advect_packed.advect_dye_batched``, each
@@ -279,18 +355,43 @@ def advect_dye_batched(dye, u, v, dt, decay_rate, *, vel_stats=None, params=None
     n, h, w = u.shape
     check_planes("u", u, (n, h, w))
     check_planes("v", v, (n, h, w))
-    if dye.dim() != 4 or dye.shape[0] != n or not 1 <= dye.shape[1] <= 3:
-        raise ValueError(f"dye: expected ({n}, C<=3, H, W), got {tuple(dye.shape)}")
-    check_planes("dye", dye, (n, dye.shape[1], h, w))
+    _check_dye_batched(dye, n, h, w)
+    if packed and vel_stats is not None:
+        check_f32("vel_stats", vel_stats, (n, 2))
     params = _params(params, ref.member_vec(dt, n), decay_rate, u.device)
+    member_params.check(params, n, member_params.ADVECT_COLS, u.device)
     out = torch.empty_like(dye) if out is None else out
-    if packed:
-        _launch_packed_batched(list(dye[0]), list(out[0]), dye.stride(0), out.stride(0), u, v,
-                               vel_stats, None, params, dye=True, fast_path=fast_path)
-    else:
-        _launch_batched(list(dye[0]), list(out[0]), dye.stride(0), out.stride(0), u, v,
-                        None, params, dye=True)
+    _launch(PACKED_BATCHED if packed else DYE_PASS_BATCHED, _DYE, u, v, dye=dye, dye_out=out,
+            vel_stats=vel_stats if packed else None, params=params, packed=packed,
+            fast_path=fast_path, design=design)
     return out
+
+
+def advect_both_batched(u, v, dye, dt, decay_rate, *, vel_stats=None,
+                        return_stats: bool = False, params=None, out=None, design=None):
+    """:func:`advect_both` over B members: u, v (B, H, W), dye (B, C, H, W),
+    each plane contiguous, dt (B,), ``params`` and ``out`` as
+    :func:`advect_dye_batched`'s; :func:`advect_velocity_batched` then
+    :func:`advect_dye_batched` bit for bit, in one launch.  Returns u', v'
+    (B, H, W), the dye [and stats (B, 2)]."""
+    if out is not None:
+        ref.check_out_planes(out, dye.shape, dye, u, v, vel_stats)
+    if not on_card(*_given(u, v, dye, vel_stats, out)):
+        u2, v2, st = ref.advect_velocity_batched(u, v, dt, decay_rate, return_stats=True)
+        dye2 = ref.advect_dye_batched(dye, u2, v2, dt, decay_rate, out=out)
+        return (u2, v2, dye2, st) if return_stats else (u2, v2, dye2)
+    n, h, w = u.shape
+    check_planes("u", u, (n, h, w))
+    check_planes("v", v, (n, h, w))
+    _check_dye_batched(dye, n, h, w)
+    params = _params(params, ref.member_vec(dt, n), decay_rate, u.device)
+    member_params.check(params, n, member_params.ADVECT_COLS, u.device)
+    uv = torch.empty((2, n, h, w), dtype=torch.float32, device=u.device)
+    stats = torch.empty((n, 2), dtype=torch.float32, device=u.device)
+    out = torch.empty_like(dye) if out is None else out
+    _launch(BATCHED, _BOTH, u, v, uv_out=uv, dye=dye, dye_out=out, stats=stats, params=params,
+            design=design)
+    return (uv[0], uv[1], out, stats) if return_stats else (uv[0], uv[1], out)
 
 
 def _check_cells(name, t, shape):

@@ -5,9 +5,10 @@ Pallas kernels.
 ``ops.backend.get_ops``:
 
 - H1 advect (``ops/advect_cuda.py``, ``csrc/advect.cu``): ``advect_velocity``,
-  ``advect_dye``; H8, its bf16-tap entry in the same source, when
-  ``fast_velocity`` or ``fast_dye`` asks for it (``advect_fast_path``
-  threaded through);
+  ``advect_dye`` and, unless a fast mode is on, ``advect_both`` (velocity
+  and dye in one launch, which the step takes in place of the two); H8,
+  the bf16-tap mode of the same source, when ``fast_velocity`` or
+  ``fast_dye`` asks for it (``advect_fast_path`` threaded through);
 - H2 vorticity (``ops/jacobi_cuda.py``, ``csrc/vorticity.cu``): both
   variants;
 - H3 diffusion (``csrc/diffuse.cu``): ``diffuse``, ``diffuse_multi``,
@@ -70,6 +71,8 @@ def overrides(config: FluidConfig) -> dict:
         "pressure_project_mg": functools.partial(
             multigrid.pressure_project_mg, ends=multigrid_cuda.ENDS),
     }
+    if not (config.fast_velocity or config.fast_dye):
+        out["advect_both"] = advect_cuda.advect_both
     if config.fast_diffuse:
         # {} where the taps would not undercut the exact sweeps
         out.update(fastdiffuse.make_ops(config))
@@ -77,8 +80,9 @@ def overrides(config: FluidConfig) -> dict:
 
 
 def batched_overrides(config: FluidConfig) -> dict:
-    """Batched op name -> kernel wrapper over B members: H1 or H8 advection
-    (``fast_velocity``, ``fast_dye``), H2, H3 or H7 diffusion
+    """Batched op name -> kernel wrapper over B members: H1 (its two
+    passes in one launch, ``advect_both``) or H8 advection (``fast_velocity``,
+    ``fast_dye``), H2, H3 or H7 diffusion
     (``fast_diffuse``, where granted), H4, and H5 with H6 under the
     multigrid hook."""
     from cudafluidsimulation_tpu_torch.ops import (
@@ -102,6 +106,8 @@ def batched_overrides(config: FluidConfig) -> dict:
         "pressure_project_mg": functools.partial(
             multigrid.pressure_project_mg_batched, ends=multigrid_cuda.ENDS_BATCHED),
     }
+    if not (config.fast_velocity or config.fast_dye):
+        out["advect_both"] = advect_cuda.advect_both_batched
     if config.fast_diffuse:
         # {} where the taps would not undercut the exact sweeps
         out.update(fastdiffuse.make_batched_ops(config))

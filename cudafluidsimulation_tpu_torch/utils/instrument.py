@@ -145,16 +145,18 @@ def timed_ops(base, spans: StageSpans) -> types.SimpleNamespace:
         spans.end("Force", begun)
         return out
 
-    def advect_both(u, v, dye, dt, decay_rate, vel_stats=None, return_stats=False):
-        # a namespace that carries the fused advection (the JAX package's
-        # sharded ones do) still bills Advect through the sub-ops
+    def advect_both(u, v, dye, dt, decay_rate, vel_stats=None, return_stats=False,
+                    out=None):
+        # a namespace that carries the fused advection (H1's one launch, the
+        # sharded namespaces' one exchange) still bills Advect through the
+        # sub-ops
         if return_stats:
             u2, v2, st = ns.advect_velocity(u, v, dt, decay_rate, vel_stats=vel_stats,
                                             return_stats=True)
-            dye2 = ns.advect_dye(dye, u2, v2, dt, decay_rate, vel_stats=st)
+            dye2 = ns.advect_dye(dye, u2, v2, dt, decay_rate, vel_stats=st, out=out)
             return u2, v2, dye2, st
         u2, v2 = ns.advect_velocity(u, v, dt, decay_rate, vel_stats=vel_stats)
-        return u2, v2, ns.advect_dye(dye, u2, v2, dt, decay_rate)
+        return u2, v2, ns.advect_dye(dye, u2, v2, dt, decay_rate, out=out)
 
     def render_frame(dye, pos, intense, radius, active):
         rgba = ns.pack_rgba(dye)  # bills Paint
