@@ -2,6 +2,7 @@
 """Time the port's steps of two checkouts in turns, on one NVIDIA card.
 
     python3 chip_ab.py PARENT_DIR [CHANGE_DIR] [--rounds 6] [--windows 12] [--grid 2048]
+    python3 chip_ab.py PARENT_DIR [CHANGE_DIR] --multicard [--rounds 2]
 
 ``CHANGE_DIR`` defaults to this script's checkout.  Each round runs one
 process per checkout, the parent first in odd rounds and second in even
@@ -14,6 +15,12 @@ the card's name and power limit, one JSON line per process, then per path
 and checkout each process's median ms/step, the median and quartiles over
 all windows, and whether every process of the change beat every process
 of the parent.
+With ``--multicard`` (at least two cards) a round runs each checkout's
+``chip_multicard.py`` instead, in the same alternating order, and compares
+its rates part by part: the ens groups' member-steps/s a group a card, all
+on card 0 (``chip_smoke.py`` phase 13(a)'s mesh, (ens 4, x 1) on one
+card) and the one-device ensemble; the rows and 2-D meshes' ms/step a
+shard a card, all on card 0 and on one device; the CLI's steps/s.
 Needs a CUDA device; imports nothing of JAX.
 """
 
@@ -64,6 +71,39 @@ def child(root: Path, windows: int, n: int) -> dict:
     return out
 
 
+def multicard(root: Path) -> dict:
+    """The rates of one run of the checkout's ``chip_multicard.py``, by part."""
+    proc = subprocess.run([sys.executable, str(root / "chip_multicard.py")], cwd=root,
+                          check=True, capture_output=True, text=True)
+    out = {}
+    for line in proc.stdout.splitlines():
+        if not line.startswith("{"):
+            continue
+        row = json.loads(line)
+        part = ("ens groups" if "ensemble" in row else f"mesh {row['mesh']}" if "mesh" in row
+                else f"cli {row['cli']}" if "cli" in row else None)
+        if part is not None:
+            out[part] = {k: v for k, v in row.items()
+                         if k.startswith(("member_steps_per_s", "ms_per_step", "steps_per_s"))}
+    return out
+
+
+def summarize_multicard(runs: dict, smi: str) -> None:
+    """Per part and rate: each process's value, the median, and whether the
+    change did better than the parent in every process (a higher rate, a
+    lower ms/step)."""
+    for part in runs["change"][0]:
+        for key in runs["change"][0][part]:
+            row = {"part": part, "rate": key, "smi": smi}
+            for tree, rs in runs.items():
+                vals = [r[part][key] for r in rs]
+                row[tree] = {"processes": vals, "median": statistics.median(vals)}
+            ch, pa = row["change"]["processes"], row["parent"]["processes"]
+            row["change_better_in_every_process"] = (
+                max(ch) < min(pa) if key.startswith("ms_") else min(ch) > max(pa))
+            print(json.dumps(row), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("parent", type=Path, nargs="?")
@@ -71,6 +111,7 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--windows", type=int, default=12)
     ap.add_argument("--grid", type=int, default=2048)
+    ap.add_argument("--multicard", action="store_true")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -92,12 +133,19 @@ def main() -> int:
     for i in range(args.rounds):
         order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
         for tree in order:
+            if args.multicard:
+                runs[tree].append(multicard(trees[tree]))
+                print(json.dumps({"round": i + 1, "tree": tree, **runs[tree][-1]}), flush=True)
+                continue
             proc = subprocess.run(
                 [sys.executable, str(Path(__file__).resolve()), "--child", str(trees[tree]),
                  "--windows", str(args.windows), "--grid", str(args.grid)],
                 check=True, capture_output=True, text=True)
             runs[tree].append(json.loads(proc.stdout.strip().splitlines()[-1]))
             print(json.dumps({"round": i + 1, "tree": tree, **runs[tree][-1]}), flush=True)
+    if args.multicard:
+        summarize_multicard(runs, smi)
+        return 0
     for path in PATHS:
         row = {"path": path, "grid": f"{args.grid}x{args.grid}", "smi": smi}
         for tree, rs in runs.items():

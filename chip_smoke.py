@@ -22,8 +22,7 @@ caught:
    passes bit for bit (into the pack too, at H2's shapes, from unaligned
    planes, through the dye's NaN saturation) and the plain versions
    within RTOL, its bound ``vel_max`` of its output (a NaN velocity
-   giving a NaN bound, as H1's and H8's velocity passes), every design of
-   ADVECT_DESIGNS bit-equal to the shipped one; H3 diffusion with
+   giving a NaN bound, as H1's and H8's velocity passes); H3 diffusion with
    the splat, H4 pressure with its velocity bound, H5 divergence and
    projection at 2048x2048 and 540x960; H6 (the multigrid smoother ends) also at 135x240
    and 16x16, the coarse levels' shapes, and its ends with the grid
@@ -207,9 +206,9 @@ caught:
    read once, each output written once) at 3.35 TB/s and its float32
    operations at 67 TFLOP/s (``H1`` is the step's one launch, against 10
    planes; ``H1 velocity pass`` and ``H1 dye pass`` its passes apart, 4
-   and 8; ``H8`` its two passes, 12, with each pass's device ms); every
-   design of ADVECT_DESIGNS (``advect_designs`` lines, single and
-   batched); the ensemble's member-steps/s batched and
+   and 8; ``H8`` its two passes, 12, with each pass's device ms); H1's
+   velocity pass with and without its bound (``advect_bound`` lines,
+   single and batched, information); the ensemble's member-steps/s batched and
    with the same members run one after another as single-member steps,
    and the batched kernels' rows (``H1 batched`` ... ``H4 batched``, each
    asserted to make one device launch a stage or a burst for all members);
@@ -277,7 +276,7 @@ RTOL = {"H1": 1e-6, "H2": 0.0, "H3": 1e-5, "H3 sweeps": 0.0, "H4": 0.0,
 # H1's velocity and dye in one launch against its two passes: the same
 # floats (the dye backtraces through the u', v' the two-pass form writes
 # and reads back), so 0; each design against the shipped one, 0
-RTOL.update({"H1 fused": 0.0, "H1 fused batched": 0.0, "H1 design": 0.0})
+RTOL.update({"H1 fused": 0.0, "H1 fused batched": 0.0})
 # phase 12, the sharded rollout's entries: H1/H8's window is H1's/H8's
 # arithmetic on global coordinates; H4's solve from an iterate and H3 on a
 # padded shard (no splat) are blocked sweeps in the plain order: 0
@@ -386,17 +385,6 @@ ENS_WINDOW = 25
 # two blends, two decays and the bound's two abs and maxes, the dye three
 # blends, each with its pow, scale and min
 H1_OPS = {"velocity": 18 + 2 * 13 + 4, "dye": 18 + 3 * 15}
-# H1's and H8's designs timed against the shipped one (advect_cuda.DESIGN):
-# (cells a thread along a row, rows of 32 threads a block, tiles of rows a
-# block walks, the dye's L1 prefetch: 0 none, 1 the tile's own lines, 2 a
-# tile ahead); (1, 8, 1, 0) keeps the cells and
-# blocks of the kernels before their redesign, a cell a thread in 32 x 8
-ADVECT_DESIGNS = ((1, 8, 1, 0), (2, 8, 1, 0), (4, 8, 1, 0), (4, 4, 1, 0), (4, 16, 1, 0),
-                  (2, 16, 1, 0), (1, 16, 1, 0), (4, 8, 1, 1), (4, 4, 1, 1), (2, 16, 1, 1),
-                  (4, 8, 4, 0), (4, 8, 4, 1), (4, 8, 8, 1), (2, 16, 4, 1), (4, 8, 4, 2),
-                  (4, 8, 8, 2), (4, 4, 4, 1))
-
-
 def _json(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -540,6 +528,29 @@ def _device_ms(fn, calls=10):
     wrapper's host cost, the event-timed ms of a row is the host's; this is
     the card's."""
     return sum(us for _, us in _device_trace(fn, calls)) / calls / 1e3
+
+
+def _bound_cost(u, v, dt, decay_rate, params=None):
+    """Device ms of H1's velocity pass with its bound (a slot a block, the
+    last block's reduction) and of the same launch without it, on u, v
+    (H, W) or (B, H, W) with the members' ``params``: the bound's cost."""
+    from cudafluidsimulation_tpu_torch.ops import advect_cuda
+
+    batched = u.dim() == 3
+    kern = advect_cuda.VELOCITY_PASS_BATCHED if batched else advect_cuda.VELOCITY_PASS
+    uv = torch.empty((2,) + tuple(u.shape), dtype=torch.float32, device=u.device)
+    stats = torch.empty(tuple(u.shape[:-2]) + (2,), dtype=torch.float32, device=u.device)
+    if batched and params is None:
+        raise ValueError("_bound_cost: a batch needs its params")
+
+    def launch(with_bound):
+        advect_cuda._launch(kern, advect_cuda._VELOCITY, u, v, uv_out=uv,
+                            stats=stats if with_bound else None, dt=dt,
+                            decay_rate=decay_rate, params=params)
+
+    with_ms, without_ms = _device_ms(lambda: launch(True)), _device_ms(lambda: launch(False))
+    return {"velocity_pass_device_ms": with_ms, "without_bound_device_ms": without_ms,
+            "bound_device_ms": with_ms - without_ms}
 
 
 def _step_vs_ref(what, sim, ref_sim, state, imp):
@@ -724,11 +735,6 @@ def ensemble_phase(smi, gen, worst, reset_counts, read_counts, kernels):
         if not bool(fpack[:, :2].isnan().all()):
             raise AssertionError(f"H1 fused batched {tag}: the dye wrote outside pack[:, 2:5]")
         _check_vel_max("H1 fused batched", fused[3], fused[0], fused[1])
-        if (b, h, w) in (ENS_SHAPES[0], ENS_SHAPES[1]):
-            for design in ADVECT_DESIGNS:
-                _check(worst, "H1 design", f"fused batched {design} {tag}", zip(
-                    ("u", "v", "dye", "stats"), advect_cuda.advect_both_batched(
-                        u, v, dye, dts, rate, return_stats=True, design=design), fused))
         vorts = {"gpu": 50.0, "cpu": 0.35}
         uvs = {}
         for variant, vort in vorts.items():
@@ -963,16 +969,8 @@ def ensemble_phase(smi, gen, worst, reset_counts, read_counts, kernels):
               "H2 batched": ([u, v, adv_p], cells * 25),
               "H3 batched": ([all5, dif_p], 5 * cells * (6 * 20 + 10)),
               "H4 batched": ([u, v], cells * (4 + 5 * 40 + 8))}
-        # every design of ADVECT_DESIGNS at the sweep's shapes (information)
-        design_ms = {str(d): {
-            "H1 batched": _device_ms(lambda: advect_cuda.advect_both_batched(
-                u, v, dye, dts, rate, return_stats=True, params=adv_p, design=d)),
-            "H1 batched velocity pass": _device_ms(lambda: advect_cuda.advect_velocity_batched(
-                u, v, dts, rate, return_stats=True, params=adv_p, design=d)),
-            "H1 batched dye pass": _device_ms(lambda: advect_cuda.advect_dye_batched(
-                dye, u2, v2, dts, rate, params=adv_p, design=d))} for d in ADVECT_DESIGNS}
-        _json({"phase": "advect_designs", "members": b, "grid": f"{ENS_N}x{ENS_N}",
-               "shipped": list(advect_cuda.DESIGN), "device_ms": design_ms, "smi": smi})
+        _json({"phase": "advect_bound", "members": b, "grid": f"{ENS_N}x{ENS_N}",
+               **_bound_cost(u, v, dts, rate, params=adv_p), "smi": smi})
         rows = []
         for k, (kern_fn, plain_fn) in cases.items():
             calls = _device_kernels(kern_fn)
@@ -1618,23 +1616,18 @@ def ensemble_rest_phase(smi, gen, worst, reset_counts, read_counts, kernels):
         path_launches = {"fast ensemble": flaunch, "quality sweep": qlaunch,
                          "fixed-cycle ensemble": xlaunch}
 
-        def h8_velocity(design=None):
+        def h8_velocity():
             return advect_cuda.advect_velocity_batched(fu, fv, dts, rate, vel_stats=fst,
                                                        return_stats=True, packed=True,
-                                                       params=adv_p, design=design)
+                                                       params=adv_p)
 
-        def h8_dye(design=None):
+        def h8_dye():
             return advect_cuda.advect_dye_batched(fdye, fu2, fv2, dts, rate, vel_stats=fst2,
-                                                  packed=True, params=adv_p, design=design)
+                                                  packed=True, params=adv_p)
 
-        # H8's two passes apart, and every design (information)
+        # H8's two passes apart (information)
         extra = {"H8 batched": {"velocity_device_ms": _device_ms(h8_velocity),
                                 "dye_device_ms": _device_ms(h8_dye)}}
-        _json({"phase": "advect_designs", "members": b, "grid": f"{ENS_N}x{ENS_N}",
-               "shipped": list(advect_cuda.DESIGN), "device_ms": {str(d): {
-                   "H8 batched velocity": _device_ms(lambda: h8_velocity(d)),
-                   "H8 batched dye": _device_ms(lambda: h8_dye(d))} for d in ADVECT_DESIGNS},
-               "smi": smi})
         for k, (kern_fn, plain_fn, inputs, n_ops, path) in cases.items():
             calls = _device_kernels(kern_fn)
             if sum(calls.values()) != ENS_REST_CALL_LAUNCHES[k]:
@@ -3175,8 +3168,7 @@ def main() -> int:
 
     # H1 fused and its passes at every shape class of H2 (odd widths and
     # ragged blocks take the scalar path), from planes one float off 16
-    # bytes too; at 2048² and 2049x2047 every design of ADVECT_DESIGNS
-    # (H1 fused and both of H8's passes) bit-equal to the shipped one
+    # bytes too
     for h, w in VORT_SHAPES:
         tag = f"{h}x{w}"
         u, v = randn(h, w, scale=200.0), randn(h, w, scale=200.0)
@@ -3197,23 +3189,7 @@ def main() -> int:
             exp = ref.advect_velocity(uu, vv, dt, decay_rate)
             _check(worst, "H1", f"fused {label} {tag}", zip(("u", "v", "dye"), fused[:3], (
                 exp[0], exp[1], ref.advect_dye(dd, exp[0], exp[1], dt, decay_rate))))
-        if (h, w) in ((2048, 2048), (2049, 2047)):
-            bound = ref.vel_max(u, v)
-            h8 = advect_cuda.advect_velocity(u, v, dt, decay_rate, vel_stats=bound,
-                                             return_stats=True, packed=True)
-            h8_dye = advect_cuda.advect_dye(dye, h8[0], h8[1], dt, decay_rate,
-                                            vel_stats=h8[2], packed=True)
-            for design in ADVECT_DESIGNS:
-                _check(worst, "H1 design", f"fused {design} {tag}", zip(
-                    ("u", "v", "dye", "stats"), advect_cuda.advect_both(
-                        u, v, dye, dt, decay_rate, return_stats=True, design=design), fused))
-                g8 = advect_cuda.advect_velocity(u, v, dt, decay_rate, vel_stats=bound,
-                                                 return_stats=True, packed=True, design=design)
-                g8_dye = advect_cuda.advect_dye(dye, h8[0], h8[1], dt, decay_rate,
-                                                vel_stats=h8[2], packed=True, design=design)
-                _check(worst, "H1 design", f"H8 {design} {tag}", zip(
-                    ("u", "v", "stats", "dye"), tuple(g8) + (g8_dye,), tuple(h8) + (h8_dye,)))
-    del buf, cases, two, two_dye, fused, h8, h8_dye, g8, g8_dye
+    del buf, cases, two, two_dye, fused
     # a NaN velocity cell (its backtrace and every cell that taps it turn
     # NaN; the plain version cannot index a NaN backtrace): each bound is
     # the max of its own output, NaN
@@ -3882,28 +3858,19 @@ def main() -> int:
     path_launches = {"parity": parity_launches, "quality": quality_launches,
                      "fixed-cycle": fixed_launches, "fast": fast_launches,
                      "cli decomposed": cli_decomposed}
-    # H8's two passes apart; every design of H1 and H8 at the path's shapes
+    # H8's two passes apart; H1's velocity pass with and without its bound
     # (information)
-    def h8_velocity(design=None):
+    def h8_velocity():
         return advect_cuda.advect_velocity(ku, kv, dt, decay_rate, vel_stats=kst,
-                                           return_stats=True, packed=True, design=design)
+                                           return_stats=True, packed=True)
 
-    def h8_dye(design=None):
+    def h8_dye():
         return advect_cuda.advect_dye(kstate.dye, ku2, kv2, dt, decay_rate, vel_stats=kst2,
-                                      packed=True, design=design)
+                                      packed=True)
 
     extra = {"H8": {"velocity_device_ms": _device_ms(h8_velocity),
                     "dye_device_ms": _device_ms(h8_dye)}}
-    _json({"phase": "advect_designs", "grid": f"{N}x{N}", "shipped": list(advect_cuda.DESIGN),
-           "device_ms": {str(d): {
-               "H1": _device_ms(lambda: advect_cuda.advect_both(
-                   u, v, dye, dt, decay_rate, return_stats=True, design=d)),
-               "H1 velocity pass": _device_ms(lambda: advect_cuda.advect_velocity(
-                   u, v, dt, decay_rate, return_stats=True, design=d)),
-               "H1 dye pass": _device_ms(lambda: advect_cuda.advect_dye(
-                   dye, u2, v2, dt, decay_rate, design=d)),
-               "H8 velocity": _device_ms(lambda: h8_velocity(d)),
-               "H8 dye": _device_ms(lambda: h8_dye(d))} for d in ADVECT_DESIGNS},
+    _json({"phase": "advect_bound", "grid": f"{N}x{N}", **_bound_cost(u, v, dt, decay_rate),
            "smi": smi[0]})
     rows = []
     for k, (kern_fn, plain_fn) in cases.items():

@@ -36,29 +36,30 @@
 // max of u', v' (vel_stats, the lax.cond of the JAX package), which no
 // block knows before every block of the velocity pass has finished.
 //
-// The design against that bound:
-// - Each thread takes `cells` (1, 2 or 4) consecutive cells of a row, a
-//   block 32 threads by `rows`; where every plane's rows start on 16 (8)
-//   bytes and the width is a multiple of the cells, u, v, u', v' and the
-//   dye move as one 16- (8-) byte access a plane, else a scalar access a
-//   cell (the ragged edge, odd widths, unaligned planes).  The gathers of
-//   all the thread's cells are independent, so more bytes are in flight.
-// - A block walks `tiles` tiles of rows (gridDim.y tiles apart), and each
-//   thread loads the next tile's u, v before it computes this one's, so
-//   the stream's latency hides behind the gathers; the dye's lines at the
-//   thread's cells are prefetched into L1 before the velocity is
-//   computed, so the dye's gathers, which wait on u', v', mostly hit L1.
-//   The shipped design (ops/advect_cuda.py DESIGN) is 4 cells, 8 rows, 4
-//   tiles and the prefetch; chip_smoke.py times the others (PERF.md).
-// - The velocity bound without same-address atomics: each block reduces
-//   its cells' [max|u'|, max|v'|] (NaN kept: fluid_nanmax) by warp
-//   shuffles into its own slot of `slots`, then bumps its member's arrival
-//   count; the last block of the member to arrive reduces the member's
-//   slots into stats[2b..2b+1] and resets the count to 0.  So no memset
-//   precedes a launch, and the bound is the exact max.  The counts are the
-//   caller's: zero before the launch, one int a member, and not shared with
-//   a launch that may overlap this one (the wrapper keeps them per stream).
-//
+// The design against that bound (ADVECT_CELLS, ADVECT_ROWS, ADVECT_TILES;
+// PERF.md keeps the variants measured against it):
+// - Each thread takes 4 consecutive cells of a row, a block 32 threads by
+//   8 rows; where every plane's rows start on 16 bytes and the width is a
+//   multiple of 4, u, v, u', v' and the dye move as one 16-byte access a
+//   plane, else a scalar access a cell (the ragged edge, odd widths,
+//   unaligned planes).  The gathers of all the thread's cells are
+//   independent, so more bytes are in flight.
+// - A block walks up to 4 tiles of rows (gridDim.y tiles apart; one where
+//   the grid covers the rows), and each thread loads the next tile's u, v
+//   before it computes this one's, so the stream's latency hides behind the
+//   gathers; the dye's lines at the thread's cells are prefetched into L1
+//   before the velocity is computed, so the dye's gathers, which wait on
+//   u', v', mostly hit L1.
+// - The velocity bound: each block reduces its cells' [max|u'|, max|v'|]
+//   (NaN kept: fluid_nanmax) by warp shuffles into its own slot of
+//   `slots`, then makes one arrival atomic on its member's count, in place
+//   of two atomicMax a block on the member's two stats and a memset before
+//   the launch; the last block of the member to arrive reduces the
+//   member's slots into stats[2b..2b+1] and resets the count to 0.  So the
+//   bound is the exact max.  The counts are the caller's: zero before the
+//   launch, one int a member, and not shared with a launch that may overlap
+//   this one (the wrapper keeps them per stream).
+
 // Members: a batch of independent members (ensembles, the analog of the
 // JAX package's vmap): member b = blockIdx.z (and every gridDim.z after it)
 // reads its planes at b times each array's member stride, its dt and decay
@@ -93,6 +94,13 @@
 #include <initializer_list>
 
 #include "fluid_common.cuh"
+
+// The row kernels' design: cells a thread along a row, rows of 32 threads a
+// block, tiles of rows a block walks (ops/advect_cuda.py mirrors them to
+// size the bound's slots).
+#define ADVECT_CELLS 4
+#define ADVECT_ROWS 8
+#define ADVECT_TILES 4
 
 struct Planes {
   const float* in[3];
@@ -181,36 +189,34 @@ __device__ __forceinline__ float blend_at(const float* f, const Taps& t, bool ro
   return tap_blend(f, t.i00, t.i01, t.i10, t.i11, t.tx, t.ty, round);
 }
 
-// K floats of a row from column x0 < w: one 16- or 8-byte access when VEC
-// (the row starts aligned and w % K == 0), else K scalar ones, cells at or
+// The 4 floats of a row from column x0 < w: one 16-byte access when VEC
+// (the row starts aligned and w % 4 == 0), else 4 scalar ones, cells at or
 // past w left 0.
-template <int K, bool VEC>
-__device__ __forceinline__ void load_row(float (&r)[K], const float* p, int x0, int w) {
-  if constexpr (VEC && K == 4) {
+static_assert(ADVECT_CELLS == 4, "the row accesses are float4");
+
+template <bool VEC>
+__device__ __forceinline__ void load_row(float (&r)[ADVECT_CELLS], const float* p, int x0,
+                                         int w) {
+  if constexpr (VEC) {
     const float4 q = __ldg(reinterpret_cast<const float4*>(p + x0));
     r[0] = q.x;
     r[1] = q.y;
     r[2] = q.z;
     r[3] = q.w;
-  } else if constexpr (VEC && K == 2) {
-    const float2 q = __ldg(reinterpret_cast<const float2*>(p + x0));
-    r[0] = q.x;
-    r[1] = q.y;
   } else {
 #pragma unroll
-    for (int k = 0; k < K; ++k) r[k] = x0 + k < w ? __ldg(p + x0 + k) : 0.f;
+    for (int k = 0; k < ADVECT_CELLS; ++k) r[k] = x0 + k < w ? __ldg(p + x0 + k) : 0.f;
   }
 }
 
-template <int K, bool VEC>
-__device__ __forceinline__ void store_row(float* p, const float (&r)[K], int x0, int w) {
-  if constexpr (VEC && K == 4) {
+template <bool VEC>
+__device__ __forceinline__ void store_row(float* p, const float (&r)[ADVECT_CELLS], int x0,
+                                          int w) {
+  if constexpr (VEC) {
     *reinterpret_cast<float4*>(p + x0) = make_float4(r[0], r[1], r[2], r[3]);
-  } else if constexpr (VEC && K == 2) {
-    *reinterpret_cast<float2*>(p + x0) = make_float2(r[0], r[1]);
   } else {
 #pragma unroll
-    for (int k = 0; k < K; ++k)
+    for (int k = 0; k < ADVECT_CELLS; ++k)
       if (x0 + k < w) p[x0 + k] = r[k];
   }
 }
@@ -319,21 +325,21 @@ __device__ __forceinline__ void block_bound(float a, float c, const Bound& bd, i
   __syncthreads();  // sa, sc and last, before the next member's
 }
 
-// MODE (velocity, dye or both) over K cells a thread; VEC: the 16/8-byte
-// row accesses; BATCH false (a single call) compiles the member loop away;
-// WALK: a block walks the tiles gridDim.y apart, each thread loading the
-// next tile's u, v before it computes this one's.  prefetch 1 brings the
-// dye's lines at the thread's cells into L1 before the gathers, 2 a tile
-// ahead.
+// MODE (velocity, dye or both) over ADVECT_CELLS cells a thread; VEC: the
+// 16-byte row accesses; BATCH false (a single call) compiles the member
+// loop away.  A block walks the tiles gridDim.y apart, each thread loading
+// the next tile's u, v before it computes this one's; in the dye modes it
+// brings the dye's lines at its cells into L1 before the gathers.
 // bound: the device [max|u|, max|v|] of each member that decides H8's
 // quiet branch (read when packed and fast_path).
-template <int MODE, int K, bool VEC, bool BATCH, bool WALK>
-__global__ void __launch_bounds__(512)
+template <int MODE, bool VEC, bool BATCH>
+__global__ void __launch_bounds__(32 * ADVECT_ROWS)
     advect_rows_kernel(Rows r, Members m, Bound bd, const float* __restrict__ bound, int h,
-                       int w, float dt, float decay, int packed, int fast_path, int prefetch) {
+                       int w, float dt, float decay, int packed, int fast_path) {
+  constexpr int K = ADVECT_CELLS;
   const int x0 = (blockIdx.x * blockDim.x + threadIdx.x) * K;
   const int y0 = blockIdx.y * blockDim.y + threadIdx.y;
-  const int ystep = WALK ? gridDim.y * blockDim.y : h;
+  const int ystep = gridDim.y * blockDim.y;
   const int nb = BATCH ? m.nb : 1;
   // one member at a time
 #pragma unroll 1
@@ -357,25 +363,21 @@ __global__ void __launch_bounds__(512)
       const float* u = r.u + b * m.u;
       const float* v = r.v + b * m.v;
       float uu[K], vv[K];
-      load_row<K, VEC>(uu, u + static_cast<size_t>(y0) * w, x0, w);
-      load_row<K, VEC>(vv, v + static_cast<size_t>(y0) * w, x0, w);
+      load_row<VEC>(uu, u + static_cast<size_t>(y0) * w, x0, w);
+      load_row<VEC>(vv, v + static_cast<size_t>(y0) * w, x0, w);
 #pragma unroll 1
       for (int y = y0; y < h; y += ystep) {
         const size_t row = static_cast<size_t>(y) * w;
         float nu[K], nv[K];
-        if (WALK && y + ystep < h) {
-          load_row<K, VEC>(nu, u + row + static_cast<size_t>(ystep) * w, x0, w);
-          load_row<K, VEC>(nv, v + row + static_cast<size_t>(ystep) * w, x0, w);
+        if (y + ystep < h) {
+          load_row<VEC>(nu, u + row + static_cast<size_t>(ystep) * w, x0, w);
+          load_row<VEC>(nv, v + row + static_cast<size_t>(ystep) * w, x0, w);
         }
-        if ((MODE & MODE_DYE) && prefetch) {
-          // this tile's lines (2: the first tile's, then a tile ahead)
+        if (MODE & MODE_DYE) {
 #pragma unroll
           for (int ch = 0; ch < 3; ++ch) {
             if (ch >= r.c) break;
-            const float* d = r.din[ch] + b * m.din + row + x0;
-            if (prefetch == 1 || y == y0) prefetch_l1(d);
-            if (WALK && prefetch == 2 && y + ystep < h)
-              prefetch_l1(d + static_cast<size_t>(ystep) * w);
+            prefetch_l1(r.din[ch] + b * m.din + row + x0);
           }
         }
         if (MODE & MODE_VELOCITY) {
@@ -392,8 +394,8 @@ __global__ void __launch_bounds__(512)
               mv = fluid_nanmax(mv, fabsf(ov[k]));
             }
           }
-          store_row<K, VEC>(r.ou + b * m.ouv + row, ou, x0, w);
-          store_row<K, VEC>(r.ov + b * m.ouv + row, ov, x0, w);
+          store_row<VEC>(r.ou + b * m.ouv + row, ou, x0, w);
+          store_row<VEC>(r.ov + b * m.ouv + row, ov, x0, w);
           if (MODE == MODE_BOTH) {
             // the dye backtraces through the advected velocity: these very
             // floats, which the two-pass form writes and reads back
@@ -421,14 +423,12 @@ __global__ void __launch_bounds__(512)
           }
 #pragma unroll
           for (int ch = 0; ch < 3; ++ch)
-            if (ch < r.c) store_row<K, VEC>(r.dout[ch] + b * m.dout + row, od[ch], x0, w);
+            if (ch < r.c) store_row<VEC>(r.dout[ch] + b * m.dout + row, od[ch], x0, w);
         }
-        if (WALK) {
 #pragma unroll
-          for (int k = 0; k < K; ++k) {
-            uu[k] = nu[k];
-            vv[k] = nv[k];
-          }
+        for (int k = 0; k < K; ++k) {
+          uu[k] = nu[k];
+          vv[k] = nv[k];
         }
       }
     }
@@ -457,66 +457,46 @@ __global__ void vel_bound_kernel(const float* __restrict__ u,
   }
 }
 
-// A launch's design and scalars, past the template choices.
+// A launch's grid and scalars, past the template choices.
 struct Launch {
-  dim3 grid, block;
+  dim3 grid;
   cudaStream_t s;
   int h, w;
   float dt, decay;
-  int packed, fast_path, prefetch;
+  int packed, fast_path;
 };
 
-template <int MODE, int K, bool VEC, bool BATCH>
-static void launch_rows(bool walk, const Launch& l, const Rows& r, const Members& m,
-                        const Bound& bd, const float* bound) {
-  if (walk)
-    advect_rows_kernel<MODE, K, VEC, BATCH, true><<<l.grid, l.block, 0, l.s>>>(
-        r, m, bd, bound, l.h, l.w, l.dt, l.decay, l.packed, l.fast_path, l.prefetch);
-  else
-    advect_rows_kernel<MODE, K, VEC, BATCH, false><<<l.grid, l.block, 0, l.s>>>(
-        r, m, bd, bound, l.h, l.w, l.dt, l.decay, l.packed, l.fast_path, l.prefetch);
-}
-
-template <int MODE, int K>
-static void launch_rows(bool vec, bool batch, bool walk, const Launch& l, const Rows& r,
-                        const Members& m, const Bound& bd, const float* bound) {
-  if constexpr (K > 1) {
-    if (vec) {
-      if (batch)
-        launch_rows<MODE, K, true, true>(walk, l, r, m, bd, bound);
-      else
-        launch_rows<MODE, K, true, false>(walk, l, r, m, bd, bound);
-      return;
-    }
-  }
-  if (batch)
-    launch_rows<MODE, K, false, true>(walk, l, r, m, bd, bound);
-  else
-    launch_rows<MODE, K, false, false>(walk, l, r, m, bd, bound);
+template <int MODE, bool VEC, bool BATCH>
+static void launch_rows(const Launch& l, const Rows& r, const Members& m, const Bound& bd,
+                        const float* bound) {
+  const dim3 block(32, ADVECT_ROWS);
+  advect_rows_kernel<MODE, VEC, BATCH><<<l.grid, block, 0, l.s>>>(
+      r, m, bd, bound, l.h, l.w, l.dt, l.decay, l.packed, l.fast_path);
 }
 
 template <int MODE>
-static void launch_rows(int cells, bool vec, bool batch, bool walk, const Launch& l,
-                        const Rows& r, const Members& m, const Bound& bd, const float* bound) {
-  if (cells == 4)
-    launch_rows<MODE, 4>(vec, batch, walk, l, r, m, bd, bound);
-  else if (cells == 2)
-    launch_rows<MODE, 2>(vec, batch, walk, l, r, m, bd, bound);
+static void launch_rows(bool vec, bool batch, const Launch& l, const Rows& r, const Members& m,
+                        const Bound& bd, const float* bound) {
+  if (vec && batch)
+    launch_rows<MODE, true, true>(l, r, m, bd, bound);
+  else if (vec)
+    launch_rows<MODE, true, false>(l, r, m, bd, bound);
+  else if (batch)
+    launch_rows<MODE, false, true>(l, r, m, bd, bound);
   else
-    launch_rows<MODE, 1>(vec, batch, walk, l, r, m, bd, bound);
+    launch_rows<MODE, false, false>(l, r, m, bd, bound);
 }
 
 static bool aligned_to(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// The grid of a launch over (h, w) at `cells` a thread, `rows` a block and
-// `tiles` tiles of rows a block walks: a bound needs grid.x * grid.y slots
-// a member.
-static dim3 rows_grid(int h, int w, int cells, int rows, int tiles, int nb) {
-  const int tiles_y = (h + rows - 1) / rows;
-  return dim3((w + 32 * cells - 1) / (32 * cells), (tiles_y + tiles - 1) / tiles,
-              fluid_grid_z(nb));
+// The grid of a launch over (h, w): a bound needs grid.x * grid.y slots a
+// member.
+static dim3 rows_grid(int h, int w, int nb) {
+  const int tiles_y = (h + ADVECT_ROWS - 1) / ADVECT_ROWS;
+  return dim3((w + 32 * ADVECT_CELLS - 1) / (32 * ADVECT_CELLS),
+              (tiles_y + ADVECT_TILES - 1) / ADVECT_TILES, fluid_grid_z(nb));
 }
 
 // mode 1 velocity: u, v -> ou, ov; stats (may be null) receives each
@@ -531,10 +511,6 @@ static dim3 rows_grid(int h, int w, int cells, int rows, int tiles, int nb) {
 // u_ms, v_ms, ouv_ms, din_ms, dout_ms: member strides (floats) of u, v, ou
 // and ov, d*, o*; prm: nb rows of [dt, decay] in device memory, prm_stride
 // floats apart, or null for dt and decay (the only member when nb = 1).
-// The design: cells (1, 2, 4) a thread along a row, rows a block of 32
-// columns of threads (32 * rows <= 512), tiles of rows a block walks (1:
-// one tile, a block a tile), prefetch the dye's lines into L1 ahead of
-// its gathers (0 no, 1 the tile's own, 2 a tile ahead).
 FLUID_API int fluid_advect_rows(const float* u, const float* v, float* ou, float* ov,
                                 const float* d0, const float* d1, const float* d2, float* o0,
                                 float* o1, float* o2, const float* bound, float* scratch,
@@ -542,8 +518,7 @@ FLUID_API int fluid_advect_rows(const float* u, const float* v, float* ou, float
                                 int mode, int packed, int fast_path, float dt, float decay,
                                 int nb, long long u_ms, long long v_ms, long long ouv_ms,
                                 long long din_ms, long long dout_ms, const float* prm,
-                                int prm_stride, int cells, int rows, int tiles, int prefetch,
-                                long long slot_count, void* stream) {
+                                int prm_stride, long long slot_count, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode < MODE_VELOCITY || mode > MODE_BOTH || h < 1 || w < 1 || nb < 1)
     return cudaErrorInvalidValue;
@@ -551,9 +526,7 @@ FLUID_API int fluid_advect_rows(const float* u, const float* v, float* ou, float
   if ((mode & MODE_VELOCITY) && (ou == nullptr || ov == nullptr)) return cudaErrorInvalidValue;
   if (mode == MODE_BOTH && packed) return cudaErrorInvalidValue;
   if (prm != nullptr && prm_stride < 2) return cudaErrorInvalidValue;
-  if ((cells != 1 && cells != 2 && cells != 4) || rows < 1 || 32 * rows > 512 || tiles < 1)
-    return cudaErrorInvalidValue;
-  const dim3 grid = rows_grid(h, w, cells, rows, tiles, nb);
+  const dim3 grid = rows_grid(h, w, nb);
   const bool want_bound = (mode & MODE_VELOCITY) && stats != nullptr;
   if (want_bound && (slots == nullptr || counts == nullptr || !aligned_to(slots, 8) ||
                      slot_count < static_cast<long long>(grid.x) * grid.y * nb))
@@ -580,23 +553,22 @@ FLUID_API int fluid_advect_rows(const float* u, const float* v, float* ou, float
   const Rows r = {u, v, ou, ov, {d0, d1, d2}, {o0, o1, o2}, c};
   const Bound bd = {want_bound ? stats : nullptr, reinterpret_cast<float2*>(slots),
                     reinterpret_cast<unsigned*>(counts)};
-  // every plane's rows start on cells * 4 bytes (unused planes are null)
-  bool vec = w % cells == 0;
+  // every plane's rows start on 16 bytes (unused planes are null)
+  bool vec = w % ADVECT_CELLS == 0;
   for (const void* p : {static_cast<const void*>(u), static_cast<const void*>(v),
                         static_cast<const void*>(ou), static_cast<const void*>(ov),
                         static_cast<const void*>(d0), static_cast<const void*>(d1),
                         static_cast<const void*>(d2), static_cast<const void*>(o0),
                         static_cast<const void*>(o1), static_cast<const void*>(o2)})
-    vec = vec && aligned_to(p, 4 * cells);
-  for (long long st : {u_ms, v_ms, ouv_ms, din_ms, dout_ms}) vec = vec && st % cells == 0;
-  const Launch l = {grid, dim3(32, rows), s, h, w, dt, decay, packed, fast_path, prefetch};
-  const bool walk = grid.y * rows < h;  // a block takes more than one tile
+    vec = vec && aligned_to(p, 4 * ADVECT_CELLS);
+  for (long long st : {u_ms, v_ms, ouv_ms, din_ms, dout_ms}) vec = vec && st % ADVECT_CELLS == 0;
+  const Launch l = {grid, s, h, w, dt, decay, packed, fast_path};
   if (mode == MODE_VELOCITY)
-    launch_rows<MODE_VELOCITY>(cells, vec, batch, walk, l, r, m, bd, bound);
+    launch_rows<MODE_VELOCITY>(vec, batch, l, r, m, bd, bound);
   else if (mode == MODE_DYE)
-    launch_rows<MODE_DYE>(cells, vec, batch, walk, l, r, m, bd, bound);
+    launch_rows<MODE_DYE>(vec, batch, l, r, m, bd, bound);
   else
-    launch_rows<MODE_BOTH>(cells, vec, batch, walk, l, r, m, bd, bound);
+    launch_rows<MODE_BOTH>(vec, batch, l, r, m, bd, bound);
   return cudaGetLastError();
 }
 
@@ -695,7 +667,7 @@ __global__ void window_bound_kernel(const float* __restrict__ u,
 // y0, x0, h_phys, w_phys, d, d_x, yi: the window (ops/ref.py Window and
 // window_rows; w_phys > 0).  With d_x = 0 the taps' columns
 // are global ones shifted by -x0, so [0, w_phys) must lie within the view.
-// packed selects H8 (fast_path, bound and scratch as fluid_advect_packed's);
+// packed selects H8 (fast_path, bound and scratch as fluid_advect_rows');
 // stats (velocity mode, may be null) receives the interior's bound.
 FLUID_API int fluid_advect_window(const float* f0, const float* f1, const float* f2,
                                   float* o0, float* o1, float* o2, const float* u,

@@ -69,11 +69,7 @@ static inline dim3 burst_grid(int h, int w, int tile_h, int tile_w, int z = 1) {
 // so several blocks fit on an SM.
 template <class K>
 static inline cudaError_t burst_allow_smem(K kernel, size_t bytes) {
-  cudaError_t e = fluid_allow_smem(kernel, bytes);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
+  return fluid_allow_smem(kernel, bytes, cudaSharedmemCarveoutMaxShared);
 }
 
 // This block's tile and where its buffers sit: buffer cell (r, c) is

@@ -8,6 +8,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <mutex>
+#include <vector>
+
 #define FLUID_API extern "C" __attribute__((visibility("default")))
 
 // Thread block of the 2-D kernels: 32 columns (one warp, coalesced rows)
@@ -59,26 +62,50 @@ __device__ __forceinline__ void fluid_block_max2_atomic(float a, float b,
 }
 
 // Let `kernel` take the most dynamic shared memory a block may have on the
-// current device beside its static arrays; `bytes`, what this launch
-// takes, is refused above it.
+// current device beside its static arrays, and with carveout >= 0 prefer
+// that shared carveout; `bytes`, what this launch takes, is refused above
+// the cap.
 // Every caller sets the same cap: the shard threads of a mesh launch one
 // kernel at once with plans of different sizes (two ens groups drift a
 // burst apart), and a cap set to one plan's bytes could refuse another
 // thread's larger launch between that thread's own set and its launch
-// (cudaErrorInvalidValue).
+// (cudaErrorInvalidValue).  The attributes are set once a (kernel, device)
+// and the cap remembered, so a launch costs a cudaGetDevice and a lookup.
 template <class K>
-static inline cudaError_t fluid_allow_smem(K kernel, size_t bytes) {
-  int dev = 0, cap = 0;
+static inline cudaError_t fluid_allow_smem(K kernel, size_t bytes, int carveout = -1) {
+  struct Cap {
+    const void* kernel;
+    int dev, dynamic;
+  };
+  static std::mutex mu;
+  static std::vector<Cap> caps;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  int dev = 0, dynamic = -1;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, kernel);
-  if (e != cudaSuccess) return e;
-  const int dynamic = cap - static_cast<int>(a.sharedSizeBytes);
-  if (bytes > static_cast<size_t>(dynamic)) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic);
+  {
+    std::lock_guard<std::mutex> g(mu);
+    for (const Cap& c : caps)
+      if (c.kernel == key && c.dev == dev) dynamic = c.dynamic;
+  }
+  if (dynamic < 0) {
+    int cap = 0;
+    e = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return e;
+    cudaFuncAttributes a;
+    e = cudaFuncGetAttributes(&a, kernel);
+    if (e != cudaSuccess) return e;
+    dynamic = cap - static_cast<int>(a.sharedSizeBytes);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic);
+    if (e != cudaSuccess) return e;
+    if (carveout >= 0) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
+      if (e != cudaSuccess) return e;
+    }
+    std::lock_guard<std::mutex> g(mu);
+    caps.push_back({key, dev, dynamic});
+  }
+  return bytes > static_cast<size_t>(dynamic) ? cudaErrorInvalidValue : cudaSuccess;
 }
 
 static inline dim3 fluid_grid2d(int h, int w, int z = 1) {

@@ -36,16 +36,18 @@ written once (the taps are near the cell and hit L1 and L2):
   passes serve the decomposed stage report (``utils/instrument.py``),
   and the checks hold the fused launch to them bit for bit.
 
-The design (``DESIGN``: cells a thread, rows a block, tiles a block walks,
-the dye's L1 prefetch): each thread takes 4 cells of a row with one
-16-byte access a plane where every plane's rows start on 16 bytes (a
-scalar access a cell elsewhere); a block of 32 x 8 threads walks 4 tiles
-of rows, loading the next tile's u, v while it gathers this one's, and
-prefetches the dye's lines into L1 before the dye's gathers wait on u',
-v'.  The velocity bound [max|u'|, max|v'|] needs no memset and no atomic
-on a shared address: a block writes its max into its own slot, and the
-member's last block to arrive reduces the slots (its arrival count kept
-per stream by :class:`_Arrivals`).
+The design (``csrc/advect.cu``'s ``ADVECT_CELLS``, ``ADVECT_ROWS``,
+``ADVECT_TILES``, mirrored here as :data:`CELLS`, :data:`ROWS`,
+:data:`TILES`): each thread takes 4 cells of a row with one 16-byte access
+a plane where every plane's rows start on 16 bytes (a scalar access a cell
+elsewhere); a block of 32 x 8 threads walks up to 4 tiles of rows, loading
+the next tile's u, v while it gathers this one's, and prefetches the dye's
+lines into L1 before the dye's gathers wait on u', v'.  The velocity
+bound [max|u'|, max|v'|] needs no memset: a block writes its max into its
+own slot and makes one arrival atomic on its member's count (in place of
+two ``atomicMax`` a block on the member's two stats), and the member's
+last block to arrive reduces the slots.  The slots and counts are kept per
+stream by :class:`_Bounds`.
 
 **Batched** (``*_batched``): B independent members (ensembles, the analog
 of vmap over the JAX step) in one launch, member b on grid z; each
@@ -88,16 +90,14 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 
 # fluid_advect_rows(u, v, ou, ov, d0, d1, d2, o0, o1, o2, bound, scratch, stats,
 #                   slots, counts, c, h, w, mode, packed, fast_path, dt, decay, nb,
-#                   u_ms, v_ms, ouv_ms, din_ms, dout_ms, prm, prm_stride, cells, rows,
-#                   tiles, prefetch, slot_count, stream)
+#                   u_ms, v_ms, ouv_ms, din_ms, dout_ms, prm, prm_stride, slot_count,
+#                   stream)
 _ROWS = {"fluid_advect_rows": [_P] * 15 + [_I] * 6 + [_F, _F, _I] + [_L] * 5
-         + [_P] + [_I] * 5 + [_L, _P]}
+         + [_P, _I, _L, _P]}
 _VELOCITY, _DYE, _BOTH = 1, 2, 3
-# the row kernels' design: cells a thread along a row, rows of 32 threads a
-# block, tiles of rows a block walks (loading the next tile's u, v ahead),
-# and whether the dye's lines are prefetched into L1 ahead of its gathers
-# (chip_smoke.py times the others: PERF.md)
-DESIGN = (4, 8, 4, 1)
+# the row kernels' design, as csrc/advect.cu defines it: cells a thread
+# along a row, rows of 32 threads a block, tiles of rows a block walks
+CELLS, ROWS, TILES = 4, 8, 4
 # H1 as the step launches it, velocity and dye in one launch; single and
 # B members a launch, each its own launch count
 KERNEL = Kernel("advect", _ROWS)
@@ -119,29 +119,38 @@ WINDOW = Kernel("advect", _WINDOW)
 PACKED_WINDOW = Kernel("advect", _WINDOW)
 
 
-class _Arrivals:
-    """The velocity bound's arrival counts: one int32 a member, zero, kept
-    for each (device, stream).  Launches on one stream run one after
-    another and each launch's last block resets its members' counts, so
-    the next launch finds zeros; launches that may overlap (other streams,
-    as the shard threads of ``parallel/mesh.py`` could use) get other
-    counts.  Made on the stream at its first use."""
+class _Bounds:
+    """The velocity bound's scratch: a slot (2 floats) a block and an
+    arrival count (int32, zero) a member, kept for each (device, stream)
+    and grown as needed.  Launches on one stream run one after another and
+    each launch's last block resets its members' counts, so the next launch
+    finds zeros and may reuse the slots; launches that may overlap (other
+    streams, as the shard threads of ``parallel/mesh.py`` could use) get
+    other scratch.  Made on the stream at its first use; the lock is taken
+    only to make or grow it."""
 
     def __init__(self):
         self._by_stream = {}
         self._lock = threading.Lock()
 
-    def get(self, device: torch.device, stream: int, n: int) -> torch.Tensor:
+    def get(self, device: torch.device, stream: int, n: int, slot_count: int):
         key = (device.index, stream)
-        with self._lock:
-            counts = self._by_stream.get(key)
-            if counts is None or counts.numel() < n:
-                counts = torch.zeros((max(n, 256),), dtype=torch.int32, device=device)
-                self._by_stream[key] = counts
-            return counts
+        got = self._by_stream.get(key)
+        if got is None or got[0].shape[0] < slot_count or got[1].numel() < n:
+            with self._lock:
+                got = self._by_stream.get(key)
+                if got is None or got[0].shape[0] < slot_count or got[1].numel() < n:
+                    slots, counts = got or (None, None)
+                    if slots is None or slots.shape[0] < slot_count:
+                        slots = torch.empty((max(slot_count, 4096), 2), dtype=torch.float32,
+                                            device=device)
+                    if counts is None or counts.numel() < n:
+                        counts = torch.zeros((max(n, 256),), dtype=torch.int32, device=device)
+                    got = self._by_stream[key] = (slots, counts)
+        return got
 
 
-_ARRIVALS = _Arrivals()
+_BOUNDS = _Bounds()
 
 
 def _ptr(t):
@@ -154,7 +163,7 @@ def _ptrs(tensors):
 
 def _launch(kern, mode, u, v, *, uv_out=None, dye=None, dye_out=None, stats=None,
             vel_stats=None, dt=0.0, decay_rate=0.0, params=None, packed=False,
-            fast_path=False, design=None):
+            fast_path=False):
     """One launch of ``fluid_advect_rows``.  Single: u, v (H, W), ``uv_out``
     (2, H, W), ``dye``/``dye_out`` (C, H, W), ``stats`` (2,), dt and the
     decay by value.  Batched (u (B, H, W)): ``uv_out`` (2, B, H, W), the
@@ -163,15 +172,13 @@ def _launch(kern, mode, u, v, *, uv_out=None, dye=None, dye_out=None, stats=None
     batched = u.dim() == 3
     n = u.shape[0] if batched else 1
     h, w = u.shape[-2:]
-    cells, rows, tiles, prefetch = DESIGN if design is None else design
     stream = stream_of(u)
     slots = counts = None
     slot_count = 0
     if stats is not None:  # a slot a block (fluid_advect_rows' rows_grid)
-        blocks_y = -(-(-(-h // rows)) // tiles)  # ceil(ceil(h / rows) / tiles)
-        slot_count = -(-w // (32 * cells)) * blocks_y * n
-        slots = torch.empty((slot_count, 2), dtype=torch.float32, device=u.device)
-        counts = _ARRIVALS.get(u.device, stream, n)
+        blocks_y = -(-(-(-h // ROWS)) // TILES)  # ceil(ceil(h / ROWS) / TILES)
+        slot_count = -(-w // (32 * CELLS)) * blocks_y * n
+        slots, counts = _BOUNDS.get(u.device, stream, n, slot_count)
     # H8 reduces max|u|, max|v| here when no bound is given
     scratch = (torch.empty((n, 2), dtype=torch.float32, device=u.device)
                if packed and fast_path and vel_stats is None else None)
@@ -195,7 +202,7 @@ def _launch(kern, mode, u, v, *, uv_out=None, dye=None, dye_out=None, stats=None
             "fluid_advect_rows", u.data_ptr(), v.data_ptr(), _ptr(ou), _ptr(ov), *_ptrs(planes),
             *_ptrs(outs), _ptr(vel_stats), _ptr(scratch), _ptr(stats), _ptr(slots),
             _ptr(counts), c, h, w, mode, int(bool(packed)), int(bool(fast_path)), dt_f, decay,
-            n, *ms, prm, prm_stride, cells, rows, tiles, prefetch, slot_count, stream)
+            n, *ms, prm, prm_stride, slot_count, stream)
 
 
 def _given(*tensors):
@@ -216,12 +223,11 @@ def _check_dye_batched(dye, n, h, w):
 
 def advect_velocity(u, v, dt, decay_rate, *, vel_stats=None,
                     return_stats: bool = False, packed: bool = False,
-                    fast_path: bool = True, design=None):
+                    fast_path: bool = True):
     """Self-advection of (u, v) with decay; ``ops.ref.advect_velocity``
     semantics, or ``ops.advect_packed.advect_velocity``'s with ``packed``
     (kernel H8; ``fast_path`` and ``vel_stats`` steer its quiet branch).
-    ``return_stats`` also returns the kernel-emitted [max|u'|, max|v'|].
-    ``design``: (cells, rows, tiles, prefetch) in place of ``DESIGN``."""
+    ``return_stats`` also returns the kernel-emitted [max|u'|, max|v'|]."""
     if not on_card(*_given(u, v, vel_stats)):
         if packed:
             return advect_packed.advect_velocity(
@@ -237,14 +243,14 @@ def advect_velocity(u, v, dt, decay_rate, *, vel_stats=None,
     stats = torch.empty((2,), dtype=torch.float32, device=u.device)
     _launch(PACKED if packed else VELOCITY_PASS, _VELOCITY, u, v, uv_out=out, stats=stats,
             vel_stats=vel_stats if packed else None, dt=dt, decay_rate=decay_rate,
-            packed=packed, fast_path=fast_path, design=design)
+            packed=packed, fast_path=fast_path)
     if return_stats:
         return out[0], out[1], stats
     return out[0], out[1]
 
 
 def advect_dye(dye, u, v, dt, decay_rate, *, vel_stats=None,
-               packed: bool = False, fast_path: bool = True, out=None, design=None):
+               packed: bool = False, fast_path: bool = True, out=None):
     """Dye advection through the advected velocity with the fade
     fmin(1, c^1.005 * decay); ``ops.ref.advect_dye`` semantics, or
     ``ops.advect_packed.advect_dye``'s with ``packed`` (kernel H8).  The
@@ -268,12 +274,12 @@ def advect_dye(dye, u, v, dt, decay_rate, *, vel_stats=None,
     out = torch.empty_like(dye) if out is None else out
     _launch(PACKED if packed else DYE_PASS, _DYE, u, v, dye=dye, dye_out=out,
             vel_stats=vel_stats if packed else None, dt=dt, decay_rate=decay_rate,
-            packed=packed, fast_path=fast_path, design=design)
+            packed=packed, fast_path=fast_path)
     return out
 
 
 def advect_both(u, v, dye, dt, decay_rate, *, vel_stats=None, return_stats: bool = False,
-                out=None, design=None):
+                out=None):
     """H1's velocity and dye advection in one launch: :func:`advect_velocity`
     then :func:`advect_dye` through its result, bit for bit, without
     writing u', v' to read them back.  Returns u', v', the dye (into
@@ -294,7 +300,7 @@ def advect_both(u, v, dye, dt, decay_rate, *, vel_stats=None, return_stats: bool
     stats = torch.empty((2,), dtype=torch.float32, device=u.device)
     out = torch.empty_like(dye) if out is None else out
     _launch(KERNEL, _BOTH, u, v, uv_out=uv, dye=dye, dye_out=out, stats=stats, dt=dt,
-            decay_rate=decay_rate, design=design)
+            decay_rate=decay_rate)
     return (uv[0], uv[1], out, stats) if return_stats else (uv[0], uv[1], out)
 
 
@@ -305,7 +311,7 @@ def _params(params, dt, decay_rate, device):
 
 def advect_velocity_batched(u, v, dt, decay_rate, *, vel_stats=None,
                             return_stats: bool = False, params=None, packed: bool = False,
-                            fast_path: bool = True, design=None):
+                            fast_path: bool = True):
     """H1's velocity pass over B members: u, v (B, H, W) (each plane
     contiguous), dt (B,); ``ops.ref.advect_velocity_batched`` semantics, or
     with ``packed`` H8's, ``ops.advect_packed.advect_velocity_batched``
@@ -331,12 +337,12 @@ def advect_velocity_batched(u, v, dt, decay_rate, *, vel_stats=None,
     stats = torch.empty((n, 2), dtype=torch.float32, device=u.device)
     _launch(PACKED_BATCHED if packed else VELOCITY_PASS_BATCHED, _VELOCITY, u, v,
             uv_out=out, stats=stats, vel_stats=vel_stats if packed else None, params=params,
-            packed=packed, fast_path=fast_path, design=design)
+            packed=packed, fast_path=fast_path)
     return (out[0], out[1], stats) if return_stats else (out[0], out[1])
 
 
 def advect_dye_batched(dye, u, v, dt, decay_rate, *, vel_stats=None, params=None, out=None,
-                       packed: bool = False, fast_path: bool = True, design=None):
+                       packed: bool = False, fast_path: bool = True):
     """H1's dye pass over B members: dye (B, C, H, W) and u, v (B, H, W),
     each plane contiguous (the dye of a step is channels 2-4 of the last
     one's pack); ``ops.ref.advect_dye_batched`` semantics, or with
@@ -363,12 +369,12 @@ def advect_dye_batched(dye, u, v, dt, decay_rate, *, vel_stats=None, params=None
     out = torch.empty_like(dye) if out is None else out
     _launch(PACKED_BATCHED if packed else DYE_PASS_BATCHED, _DYE, u, v, dye=dye, dye_out=out,
             vel_stats=vel_stats if packed else None, params=params, packed=packed,
-            fast_path=fast_path, design=design)
+            fast_path=fast_path)
     return out
 
 
 def advect_both_batched(u, v, dye, dt, decay_rate, *, vel_stats=None,
-                        return_stats: bool = False, params=None, out=None, design=None):
+                        return_stats: bool = False, params=None, out=None):
     """:func:`advect_both` over B members: u, v (B, H, W), dye (B, C, H, W),
     each plane contiguous, dt (B,), ``params`` and ``out`` as
     :func:`advect_dye_batched`'s; :func:`advect_velocity_batched` then
@@ -389,8 +395,7 @@ def advect_both_batched(u, v, dye, dt, decay_rate, *, vel_stats=None,
     uv = torch.empty((2, n, h, w), dtype=torch.float32, device=u.device)
     stats = torch.empty((n, 2), dtype=torch.float32, device=u.device)
     out = torch.empty_like(dye) if out is None else out
-    _launch(BATCHED, _BOTH, u, v, uv_out=uv, dye=dye, dye_out=out, stats=stats, params=params,
-            design=design)
+    _launch(BATCHED, _BOTH, u, v, uv_out=uv, dye=dye, dye_out=out, stats=stats, params=params)
     return (uv[0], uv[1], out, stats) if return_stats else (uv[0], uv[1], out)
 
 

@@ -9,11 +9,11 @@ row schedule of the redesigned H1/H8 kernels, on the CPU.
   scale, the tolerance of tests/test_torch_kernels_vs_pallas.py.
 - ``csrc/advect.cu`` runs only on the card (``chip_smoke.py`` holds it
   there bit for bit against the two passes and the plain versions).  Here
-  :func:`emulate` runs its schedule in plain torch: blocks of 32 threads by
-  ``rows`` that walk ``tiles`` tiles of rows, a thread ``cells``
-  consecutive cells of a row, one 16- or 8-byte access a plane where every
-  plane's rows start aligned and the width is a multiple of the cells,
-  else a scalar access a cell; the dye
+  :func:`emulate` runs its schedule (``advect_cuda.CELLS``, ``ROWS``,
+  ``TILES``) in plain torch: blocks of 32 x 8 threads that walk up to 4
+  tiles of rows, a thread 4 consecutive cells of a row, one 16-byte access
+  a plane where every plane's rows and member strides are aligned and the
+  width is a multiple of 4, else a scalar access a cell; the dye
   backtraced through the u', v' the thread holds; each block's
   [max|u'|, max|v'|] into its own slot and the slots reduced.  Every cell
   must be written once, the result must equal the plain versions bit for
@@ -165,13 +165,16 @@ def test_advect_both_checks_out(launches):
 # -- (b) the kernels' schedule, emulated -------------------------------------------------
 
 
-def _vec(cells, w, tensors, strides=()):
-    """The kernel's choice of 16/8-byte row accesses (``fluid_advect_rows``):
+CELLS, ROWS, TILES = advect_cuda.CELLS, advect_cuda.ROWS, advect_cuda.TILES
+
+
+def _vec(w, tensors, strides=()):
+    """The kernel's choice of 16-byte row accesses (``fluid_advect_rows``):
     the width a multiple of the cells, every plane's start and every member
     stride a multiple of the cells' bytes."""
-    return (cells > 1 and w % cells == 0
-            and all(t.data_ptr() % (4 * cells) == 0 for t in tensors)
-            and all(s % cells == 0 for s in strides))
+    return (w % CELLS == 0
+            and all(t.data_ptr() % (4 * CELLS) == 0 for t in tensors)
+            and all(s % CELLS == 0 for s in strides))
 
 
 def _row_run(x0, cells, w, vec):
@@ -203,10 +206,10 @@ def _slot(a):
     return a.abs().max() if a.numel() else torch.zeros(())
 
 
-def emulate(u, v, dye, dt, decay_rate, cells, rows, tiles, vec):
-    """``advect_rows_kernel``'s both mode, block by block: returns u', v',
-    the dye, the bound reduced from the blocks' slots, and how often each
-    cell was written."""
+def emulate(u, v, dye, dt, decay_rate, vec, cells=CELLS, rows=ROWS, tiles=TILES):
+    """``advect_rows_kernel``'s both mode, block by block, for one member:
+    returns u', v', the dye, the bound reduced from the blocks' slots, and
+    how often each cell was written."""
     h, w = u.shape
     blocks_y = math.ceil(math.ceil(h / rows) / tiles)  # fluid_advect_rows' rows_grid
     dt, decay = float(ref.f32(dt)), ref.decay_factor(dt, decay_rate)
@@ -240,27 +243,60 @@ def emulate(u, v, dye, dt, decay_rate, cells, rows, tiles, vec):
     return u2, v2, dye2, bound, written
 
 
-DESIGNS = [(1, 8, 1), (2, 8, 1), (4, 8, 1), (4, 4, 1), (2, 16, 1), (4, 8, 4), (2, 4, 3),
-           (1, 16, 2)]
+ROW_SHAPES = SHAPES + [(9, 130), (33, 128), (70, 36), (8, 256), (65, 4), (17, 3)]
+# which planes lie one float off their 16-byte start
+ALIGNMENTS = ("aligned", "u unaligned", "dye unaligned", "all unaligned")
 
 
-@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
-@pytest.mark.parametrize("design", DESIGNS, ids=lambda d: f"{d[0]}cells_{d[1]}rows_{d[2]}tiles")
-@pytest.mark.parametrize("shape", SHAPES + [(9, 130)], ids=lambda s: f"{s[0]}x{s[1]}")
-def test_row_schedule_is_bit_equal(rng, shape, design, aligned):
+def _placed(t, shift):
+    """A copy of ``t`` whose data starts ``shift`` floats into a buffer."""
+    buf = torch.empty(t.numel() + shift)[shift:]
+    return buf.view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("members", [None, 2], ids=["single", "batched"])
+@pytest.mark.parametrize("alignment", ALIGNMENTS)
+@pytest.mark.parametrize("shape", ROW_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_row_schedule_is_bit_equal(rng, shape, alignment, members):
+    # batched, the dye is channels 2-4 of the step's (B, 5, H, W) pack, as
+    # the batched step hands it over
     h, w = shape
-    cells, rows, tiles = design
-    u, v, dye = _fields(rng, h, w)
-    if not aligned:  # every plane one float off its 16-byte start
-        buf = torch.empty(2 * h * w + 1)[1:]
-        u, v = buf[:h * w].view(h, w).copy_(u), buf[h * w:].view(h, w).copy_(v)
-    vec = _vec(cells, w, (u, v, dye[0], dye[1], dye[2]))
-    assert vec == (aligned and cells > 1 and w % cells == 0)
-    u2, v2, dye2, bound, written = emulate(u, v, dye, DT, RATE, cells, rows, tiles, vec)
-    assert bool((written == 1).all())
-    eu, ev, est = ref.advect_velocity(u, v, DT, RATE, return_stats=True)
-    assert torch.equal(u2, eu) and torch.equal(v2, ev) and torch.equal(bound, est)
-    assert torch.equal(dye2, ref.advect_dye(dye, eu, ev, DT, RATE))
+    b = members or 1
+    u, v, dye = _fields(rng, h, w, b)
+    uv = _placed(torch.stack([u, v]), int(alignment in ("u unaligned", "all unaligned")))
+    u, v = uv[0], uv[1]
+    pack = _placed(torch.zeros((b, 5, h, w)), int(alignment in ("dye unaligned", "all unaligned")))
+    pack[:, 2:] = dye
+    dye = pack[:, 2:]
+    planes = [u[i] for i in range(b)] + [v[i] for i in range(b)] + [
+        dye[i, ch] for i in range(b) for ch in range(3)]
+    strides = (u.stride(0), v.stride(0), pack.stride(0)) if members else ()
+    vec = _vec(w, planes, strides)
+    assert vec == (alignment == "aligned" and w % CELLS == 0)
+    dts = (DT * (1.0 + 0.25 * rng.random(b))).astype(np.float32)
+    for i in range(b):
+        u2, v2, dye2, bound, written = emulate(u[i], v[i], dye[i], dts[i], RATE, vec)
+        assert bool((written == 1).all())
+        if members:
+            eu, ev, est = ref.advect_velocity_batched(u, v, dts, RATE, return_stats=True)
+            edye = ref.advect_dye_batched(dye, eu, ev, dts, RATE)
+            eu, ev, est, edye = eu[i], ev[i], est[i], edye[i]
+        else:
+            eu, ev, est = ref.advect_velocity(u[0], v[0], dts[0], RATE,
+                                              return_stats=True)
+            edye = ref.advect_dye(dye[0], eu, ev, dts[0], RATE)
+        assert torch.equal(u2, eu) and torch.equal(v2, ev) and torch.equal(bound, est)
+        assert torch.equal(dye2, edye)
+
+
+def test_row_schedule_walks_every_tile():
+    # a block walks up to TILES tiles of ROWS rows, gridDim.y tiles apart:
+    # at 70 rows (9 tiles) 3 blocks take 3 tiles each; at 8 rows one block
+    # takes its one tile
+    for h, walks in ((70, [3, 3, 3]), (8, [1]), (33, [3, 2]), (64, [4, 4])):
+        blocks_y = math.ceil(math.ceil(h / ROWS) / TILES)
+        got = [len(range(by * ROWS, h, blocks_y * ROWS)) for by in range(blocks_y)]
+        assert got == walks
 
 
 @pytest.mark.parametrize("where", [(0, 0), (5, 40), (8, 129)], ids=["first", "middle", "last"])
@@ -270,29 +306,28 @@ def test_row_schedule_bound_keeps_nan(rng, where):
     h, w = 9, 130
     u2, v2, _ = _fields(rng, h, w)
     u2[where] = float("nan")
-    for cells, rows, tiles in DESIGNS:
-        blocks_y = math.ceil(math.ceil(h / rows) / tiles)
-        slots = []
-        for by in range(blocks_y):
-            # the block's rows: its tiles, blocks_y tiles apart
-            ys = [y for y in range(h) if (y // rows) % blocks_y == by]
-            for bx in range(math.ceil(w / (32 * cells))):
-                block = (ys, slice(bx * 32 * cells, (bx + 1) * 32 * cells))
-                slots.append(torch.stack([_slot(u2[block]), _slot(v2[block])]))
-        bound = torch.stack(slots).max(dim=0).values
-        exp = ref.vel_max(u2, v2)
-        assert bool(bound[0].isnan()) and bool(exp[0].isnan())
-        assert torch.equal(bound[1], exp[1])
+    blocks_y = math.ceil(math.ceil(h / ROWS) / TILES)
+    slots = []
+    for by in range(blocks_y):
+        # the block's rows: its tiles, blocks_y tiles apart
+        ys = [y for y in range(h) if (y // ROWS) % blocks_y == by]
+        for bx in range(math.ceil(w / (32 * CELLS))):
+            block = (ys, slice(bx * 32 * CELLS, (bx + 1) * 32 * CELLS))
+            slots.append(torch.stack([_slot(u2[block]), _slot(v2[block])]))
+    bound = torch.stack(slots).max(dim=0).values
+    exp = ref.vel_max(u2, v2)
+    assert bool(bound[0].isnan()) and bool(exp[0].isnan())
+    assert torch.equal(bound[1], exp[1])
 
 
 def test_row_vec_rule_takes_member_strides(rng):
     # batched: a member stride that is not a multiple of the cells (the
     # 5-channel pack at an odd plane size) takes the scalar path
     pack = torch.zeros((2, 5, 3, 5))
-    assert not _vec(4, 5, (pack[0, 2],), (pack.stride(0),))
+    assert not _vec(5, (pack[0, 2],), (pack.stride(0),))
     pack = torch.zeros((2, 5, 4, 8))
-    assert _vec(4, 8, (pack[0, 2], pack[0, 3], pack[0, 4]), (pack.stride(0),))
-    assert not _vec(4, 8, (pack[0, 2],), (pack.stride(0) + 2,))
+    assert _vec(8, (pack[0, 2], pack[0, 3], pack[0, 4]), (pack.stride(0),))
+    assert not _vec(8, (pack[0, 2],), (pack.stride(0) + 2,))
 
 
 # -- (c) the step ---------------------------------------------------------------------------
