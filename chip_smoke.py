@@ -194,7 +194,14 @@ caught:
    (information), ms a step beside the rows mesh's; (c) the fast and
    quality presets, 3 steps on (2, 2) at 2048², then one step against the
    same mesh's plain schedule (``kernels=shardmap_step.PLAIN``);
-14. timing with CUDA events after a warm-up: driven and quiet steps/s of
+14. the benchmarks: ``python3 bench_torch.py`` and ``python3
+   scripts/bench_suite_torch.py``, each a process of its own with a time
+   limit, their lines printed here (``bench`` lines); it fails if either
+   exits non-zero, a rate is null, a suite row is missing, ``exact`` is
+   false, the realized displacement lies outside (0, 31], or a parity
+   window on the host's clock is shorter than CUDA events record over the
+   same window;
+15. timing with CUDA events after a warm-up: driven and quiet steps/s of
    the parity, quality and fast paths, the fixed-cycle path's ms/step, the
    plain versions' ms/step on the card, the device launches one H3, one H4
    and each H6 call of the quality path make (``torch.profiler``; one each
@@ -675,7 +682,7 @@ def ensemble_phase(smi, gen, worst, reset_counts, read_counts, kernels):
     device operations of one batched step and runs one under
     ``set_sync_debug_mode("error")``; steps a cpu-variant ensemble and holds
     one step against the plain versions on the card.  Returns the timing
-    part, called in phase 14 (timing), which returns the batched rows of the kernels
+    part, called in phase 15 (timing), which returns the batched rows of the kernels
     line."""
     import dataclasses
 
@@ -1269,7 +1276,7 @@ def ensemble_rest_phase(smi, gen, worst, reset_counts, read_counts, kernels):
     multigrid steps from the sweep's state; the device operations of one
     batched fast step and one batched quality step, and the fast step under
     ``set_sync_debug_mode("error")``.  Returns the timing part, called in
-    phase 14 (timing): member-steps/s batched against one member at a time, and the
+    phase 15 (timing): member-steps/s batched against one member at a time, and the
     batched rows of the kernels line."""
     import dataclasses
 
@@ -3009,6 +3016,72 @@ def entry_phase(reset_counts, read_counts, dev):
            "example_seconds": seconds})
 
 
+# phase 14, the benchmarks: each script in a process of its own, with a
+# time limit; the suite's rows (16384² only under BENCH_16384=1)
+BENCH_SCRIPTS = (("bench_torch.py", 240), ("scripts/bench_suite_torch.py", 480))
+BENCH_HEADLINE_RATES = ("value", "quiet_steps_per_sec", "quality_steps_per_sec",
+                        "fast_steps_per_sec")
+BENCH_SUITE_ROWS = ("cpu-parity 256^2", "reference-workload 960x540", "single-chip 1024^2",
+                    "render-pipeline 2048^2", "ensemble 64 x 512^2", "single-chip 8192^2",
+                    "solver-frontier 2048^2 jacobi-40", "solver-frontier 2048^2 multigrid-2",
+                    "solver-frontier 2048^2 quality-preset", "sharded 8192^2 x20",
+                    "sharded 8192^2 (8-shard rows mesh model)",
+                    "sharded 8192^2 (2x4 rows-x-cols mesh model)",
+                    "sharded 8192^2 multigrid mg_cycles=2")
+
+
+def bench_phase():
+    """``bench_torch.py`` and ``scripts/bench_suite_torch.py`` as the user
+    runs them, each a process with a time limit; their lines printed here.
+    Fails if a script exits non-zero, a rate is null or not positive, a
+    suite row is missing, ``exact`` is false, the realized displacement
+    lies outside (0, max_displacement], or a parity window on the host's
+    clock is shorter than CUDA events record over it (a window that ended
+    before the device)."""
+    torch.cuda.empty_cache()  # the scripts' processes share the card with this one
+    root = Path(__file__).resolve().parent
+    lines = {}
+    for script, limit in BENCH_SCRIPTS:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, str(root / script)], cwd=root,
+                             capture_output=True, text=True, timeout=limit)
+        seconds = time.perf_counter() - t0
+        out = [json.loads(s) for s in run.stdout.splitlines() if s.startswith("{")]
+        for obj in out:
+            _json({"phase": "bench", "script": script, "line": obj})
+        _json({"phase": "bench_process", "script": script, "rc": run.returncode,
+               "seconds": seconds, "lines": len(out)})
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"{script} exited {run.returncode}")
+        lines[script] = out
+    head, = lines["bench_torch.py"]
+    bad = [k for k in BENCH_HEADLINE_RATES if not (head[k] or 0) > 0]
+    if bad:
+        raise AssertionError(f"bench_torch.py: rates {bad} null or not positive")
+    if head["exact"] is not True:
+        raise AssertionError("bench_torch.py: exact is false")
+    if not 0 < head["realized_max_displacement"] <= head["max_displacement"]:
+        raise AssertionError(f"bench_torch.py: realized displacement "
+                             f"{head['realized_max_displacement']} outside (0, "
+                             f"{head['max_displacement']}]")
+    parity = head["rows"]["parity"]
+    short = [(h, e) for h, e in zip(parity["window_s"], parity["event_s"]) if h < e]
+    if short:
+        raise AssertionError(f"bench_torch.py: parity windows (host s, event s) {short} "
+                             "end before the device")
+    suite = lines["scripts/bench_suite_torch.py"]
+    for prefix in BENCH_SUITE_ROWS:
+        if not any(r["config"].startswith(prefix) for r in suite):
+            raise AssertionError(f"bench_suite_torch.py: no row {prefix!r}")
+    timed = [r for r in suite if "steps_per_sec" in r]
+    bad = [r["config"] for r in timed if not (r["steps_per_sec"] or 0) > 0]
+    if bad:
+        raise AssertionError(f"bench_suite_torch.py: rates null or not positive in {bad}")
+    _json({"phase": "bench_checked", "headline_rates": {k: head[k] for k in BENCH_HEADLINE_RATES},
+           "suite_rows": len(suite)})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3671,7 +3744,10 @@ def main() -> int:
     ens_x_rows = sharded_ensemble_phase(smi[0], gen, worst, reset_counts, read_counts,
                                         kernels, dev)
 
-    # -- 14. timing ------------------------------------------------------------
+    # -- 14. the benchmarks: bench_torch.py and the suite, as processes ------------
+    bench_phase()
+
+    # -- 15. timing ------------------------------------------------------------
     def rates(what, sim_, ref_sim_):
         driven_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), driven), iters=3))
         quiet_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), quiet), iters=3))
