@@ -52,6 +52,11 @@ caught:
    of one step (11, none a ``cat``); H1's one launch a step and neither of
    its passes, and both rollouts bit for bit against the same rollouts
    through H1's two passes (a namespace without ``advect_both``);
+   ``run_scan_render`` for 4 steps, bit for bit against the step and the
+   render one at a time, each step within STEP_RTOL (its frame one level)
+   of the same step on ``backend="ref"`` from the same state; one step
+   under ``emit_nvtx``, with the
+   spans' gate open and the state unchanged;
 5. the quality path: ``FluidConfig.quality`` at 2048² (multigrid pressure,
    V-cycles until rms(A p + div) < 0.05) on ``backend="cuda"``, the same
    rollouts and frame, launch counts read around them (H5, H6's fused
@@ -194,14 +199,7 @@ caught:
    (information), ms a step beside the rows mesh's; (c) the fast and
    quality presets, 3 steps on (2, 2) at 2048², then one step against the
    same mesh's plain schedule (``kernels=shardmap_step.PLAIN``);
-14. the benchmarks: ``python3 bench_torch.py`` and ``python3
-   scripts/bench_suite_torch.py``, each a process of its own with a time
-   limit, their lines printed here (``bench`` lines); it fails if either
-   exits non-zero, a rate is null, a suite row is missing, ``exact`` is
-   false, the realized displacement lies outside (0, 31], or a parity
-   window on the host's clock is shorter than CUDA events record over the
-   same window;
-15. timing with CUDA events after a warm-up: driven and quiet steps/s of
+14. timing with CUDA events after a warm-up: driven and quiet steps/s of
    the parity, quality and fast paths, the fixed-cycle path's ms/step, the
    plain versions' ms/step on the card, the device launches one H3, one H4
    and each H6 call of the quality path make (``torch.profiler``; one each
@@ -335,6 +333,7 @@ F32_OPS_PER_S = 67e12
 # max |cuda - ref| <= STEP_RTOL * max|ref| for each field
 STEP_RTOL = 1e-5
 STATE_FIELDS = ("u", "v", "dye", "pressure", "vel_stats")
+SCAN_STEPS = 4  # run_scan_render's steps in phase 4
 FAST = dict(fast_dye=True, fast_velocity=True, fast_diffuse=True)
 # the ensemble phase: 64 members at 512² (BASELINE.json config 4, the JAX
 # package's viscosity sweep), and the batched kernels' other check shapes:
@@ -572,6 +571,56 @@ def _step_vs_ref(what, sim, ref_sim, state, imp):
     return step_err, bool(torch.equal(sim.render_fn(got), ref_sim.render_fn(exp)))
 
 
+def _scan_render(what, sim, ref_sim, state, imp):
+    """``run_scan_render`` on the card: its steps and frames bit for bit the
+    same as the step and the render called one at a time, and each of its
+    steps against the same step on the plain ops from the same state (within
+    STEP_RTOL, its frame within one level).  The plain ops follow step by
+    step: the flow is chaotic, so a rollout of their own drifts from the
+    kernels' by more than one step's rounding."""
+    from cudafluidsimulation_tpu_torch.models.simulation import run_scan_render
+    from cudafluidsimulation_tpu_torch.utils.impulse import slice_step
+
+    got, frames = run_scan_render(sim.step_fn, sim.render_fn, state, imp)
+    err = dict.fromkeys(STATE_FIELDS, 0.0)
+    level = 0
+    one = state
+    for i in range(SCAN_STEPS):
+        exp = ref_sim.step(one, slice_step(imp, i))
+        one = sim.step(one, slice_step(imp, i))
+        if not torch.equal(frames[i], sim.render_fn(one)):
+            raise AssertionError(f"{what}: run_scan_render frame {i} differs from the render")
+        for name in STATE_FIELDS:
+            err[name] = max(err[name], _max_err(getattr(one, name), getattr(exp, name))[1])
+        level = max(level, (frames[i].int() - ref_sim.render_fn(exp).int()).abs().max().item())
+    for name in STATE_FIELDS:
+        if not torch.equal(getattr(got, name), getattr(one, name)):
+            raise AssertionError(f"{what}: run_scan_render {name} differs from the steps")
+    _json({"phase": "scan_render", "path": what, "steps": SCAN_STEPS,
+           "frames": list(frames.shape), "max_rel_err": err, "frame_max_level": level})
+    bad = {k: e for k, e in err.items() if not e <= STEP_RTOL}
+    if bad or frames.shape != (SCAN_STEPS, 4, N, N) or level > 1:
+        raise AssertionError(f"{what}: run_scan_render cuda vs ref: rel err {bad}, "
+                             f"frames {tuple(frames.shape)}, {level} levels apart")
+
+
+def _nvtx_spans(what, sim, state, imp):
+    """Under ``emit_nvtx`` the port's span gate is open (its spans are
+    pushed as NVTX ranges), and a step gives the same state as without."""
+    from cudafluidsimulation_tpu_torch.utils import trace
+
+    plain = sim.step(state, imp)
+    with torch.autograd.profiler.emit_nvtx():
+        gate = trace.span("fluid.step", 0) is not trace.OFF
+        got = sim.step(state, imp)
+        torch.cuda.synchronize()
+    same = all(torch.equal(getattr(got, n), getattr(plain, n)) for n in STATE_FIELDS)
+    _json({"phase": "nvtx_spans", "path": what, "gate_open": gate, "same_step": same})
+    if not (gate and same):
+        raise AssertionError(f"{what}: under emit_nvtx the gate is open {gate}, "
+                             f"the step the same {same}")
+
+
 def cat_form(ops):
     """``ops`` with the step's 5-channel pack built as it was before the
     dye advection and the confinement wrote into it: they return fresh
@@ -682,7 +731,7 @@ def ensemble_phase(smi, gen, worst, reset_counts, read_counts, kernels):
     device operations of one batched step and runs one under
     ``set_sync_debug_mode("error")``; steps a cpu-variant ensemble and holds
     one step against the plain versions on the card.  Returns the timing
-    part, called in phase 15 (timing), which returns the batched rows of the kernels
+    part, called in phase 14 (timing), which returns the batched rows of the kernels
     line."""
     import dataclasses
 
@@ -1276,7 +1325,7 @@ def ensemble_rest_phase(smi, gen, worst, reset_counts, read_counts, kernels):
     multigrid steps from the sweep's state; the device operations of one
     batched fast step and one batched quality step, and the fast step under
     ``set_sync_debug_mode("error")``.  Returns the timing part, called in
-    phase 15 (timing): member-steps/s batched against one member at a time, and the
+    phase 14 (timing): member-steps/s batched against one member at a time, and the
     batched rows of the kernels line."""
     import dataclasses
 
@@ -3016,72 +3065,6 @@ def entry_phase(reset_counts, read_counts, dev):
            "example_seconds": seconds})
 
 
-# phase 14, the benchmarks: each script in a process of its own, with a
-# time limit; the suite's rows (16384² only under BENCH_16384=1)
-BENCH_SCRIPTS = (("bench_torch.py", 240), ("scripts/bench_suite_torch.py", 480))
-BENCH_HEADLINE_RATES = ("value", "quiet_steps_per_sec", "quality_steps_per_sec",
-                        "fast_steps_per_sec")
-BENCH_SUITE_ROWS = ("cpu-parity 256^2", "reference-workload 960x540", "single-chip 1024^2",
-                    "render-pipeline 2048^2", "ensemble 64 x 512^2", "single-chip 8192^2",
-                    "solver-frontier 2048^2 jacobi-40", "solver-frontier 2048^2 multigrid-2",
-                    "solver-frontier 2048^2 quality-preset", "sharded 8192^2 x20",
-                    "sharded 8192^2 (8-shard rows mesh model)",
-                    "sharded 8192^2 (2x4 rows-x-cols mesh model)",
-                    "sharded 8192^2 multigrid mg_cycles=2")
-
-
-def bench_phase():
-    """``bench_torch.py`` and ``scripts/bench_suite_torch.py`` as the user
-    runs them, each a process with a time limit; their lines printed here.
-    Fails if a script exits non-zero, a rate is null or not positive, a
-    suite row is missing, ``exact`` is false, the realized displacement
-    lies outside (0, max_displacement], or a parity window on the host's
-    clock is shorter than CUDA events record over it (a window that ended
-    before the device)."""
-    torch.cuda.empty_cache()  # the scripts' processes share the card with this one
-    root = Path(__file__).resolve().parent
-    lines = {}
-    for script, limit in BENCH_SCRIPTS:
-        t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, str(root / script)], cwd=root,
-                             capture_output=True, text=True, timeout=limit)
-        seconds = time.perf_counter() - t0
-        out = [json.loads(s) for s in run.stdout.splitlines() if s.startswith("{")]
-        for obj in out:
-            _json({"phase": "bench", "script": script, "line": obj})
-        _json({"phase": "bench_process", "script": script, "rc": run.returncode,
-               "seconds": seconds, "lines": len(out)})
-        if run.returncode != 0:
-            print(run.stderr[-4000:], file=sys.stderr)
-            raise AssertionError(f"{script} exited {run.returncode}")
-        lines[script] = out
-    head, = lines["bench_torch.py"]
-    bad = [k for k in BENCH_HEADLINE_RATES if not (head[k] or 0) > 0]
-    if bad:
-        raise AssertionError(f"bench_torch.py: rates {bad} null or not positive")
-    if head["exact"] is not True:
-        raise AssertionError("bench_torch.py: exact is false")
-    if not 0 < head["realized_max_displacement"] <= head["max_displacement"]:
-        raise AssertionError(f"bench_torch.py: realized displacement "
-                             f"{head['realized_max_displacement']} outside (0, "
-                             f"{head['max_displacement']}]")
-    parity = head["rows"]["parity"]
-    short = [(h, e) for h, e in zip(parity["window_s"], parity["event_s"]) if h < e]
-    if short:
-        raise AssertionError(f"bench_torch.py: parity windows (host s, event s) {short} "
-                             "end before the device")
-    suite = lines["scripts/bench_suite_torch.py"]
-    for prefix in BENCH_SUITE_ROWS:
-        if not any(r["config"].startswith(prefix) for r in suite):
-            raise AssertionError(f"bench_suite_torch.py: no row {prefix!r}")
-    timed = [r for r in suite if "steps_per_sec" in r]
-    bad = [r["config"] for r in timed if not (r["steps_per_sec"] or 0) > 0]
-    if bad:
-        raise AssertionError(f"bench_suite_torch.py: rates null or not positive in {bad}")
-    _json({"phase": "bench_checked", "headline_rates": {k: head[k] for k in BENCH_HEADLINE_RATES},
-           "suite_rows": len(suite)})
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3575,6 +3558,8 @@ def main() -> int:
            "quiet_u_max": quiet_state.u.abs().max().item()})
     _step_vs_cat("parity", sim, state, slice_step(driven, STEPS - 1))
     _step_device_ops("parity", lambda: sim.step(state, slice_step(driven, STEPS - 1)))
+    _scan_render("parity", sim, ref_sim, state, Impulse(*(f[:SCAN_STEPS] for f in driven)))
+    _nvtx_spans("parity", sim, state, slice_step(driven, STEPS - 1))
 
     # -- 5. the quality path (multigrid, residual-targeted) --------------------
     qcfg = FluidConfig.quality(nx=N, ny=N, backend="cuda")
@@ -3744,10 +3729,7 @@ def main() -> int:
     ens_x_rows = sharded_ensemble_phase(smi[0], gen, worst, reset_counts, read_counts,
                                         kernels, dev)
 
-    # -- 14. the benchmarks: bench_torch.py and the suite, as processes ------------
-    bench_phase()
-
-    # -- 15. timing ------------------------------------------------------------
+    # -- 14. timing ------------------------------------------------------------
     def rates(what, sim_, ref_sim_):
         driven_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), driven), iters=3))
         quiet_ms = statistics.median(cuda_times_ms(lambda: sim_.run(sim_.init(), quiet), iters=3))

@@ -16,6 +16,14 @@ the one thing the host waits on before it hands the image to the sink.  A
 plain ``.cpu()`` would also wait for every kernel queued after the render,
 so with ``pipelined`` the step just dispatched would no longer overlap the
 previous frame's readback.
+
+Spans (``utils.trace.span``, no-ops unless a profiler runs):
+``fluid.session.setup`` around a session's set-up, ``fluid.frame`` around
+each iteration of the loop (the frame's number as ``ident``) and inside it
+``fluid.frame.input`` (the input source), the step's and the render's spans,
+``fluid.frame.layout`` and ``fluid.frame.readback_queue`` (queueing the
+readback), ``fluid.frame.readback_wait`` (the host waiting on the card) and
+``fluid.frame.sink``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from cudafluidsimulation_tpu_torch.models.simulation import Simulation
 from cudafluidsimulation_tpu_torch.state import FluidState
 from cudafluidsimulation_tpu_torch.utils.impulse import single
 from cudafluidsimulation_tpu_torch.utils.timing import StageReport
+from cudafluidsimulation_tpu_torch.utils.trace import span
 
 # An input source returns (pos, last_pos, pressed) in grid coords for a
 # given frame time — the replacement for glfwGetCursorPos polling
@@ -102,12 +111,14 @@ def queue_readback(device_frame: torch.Tensor):
     to the cache when the sink keeps no reference to it, so a loop cycles
     through two blocks, and a sink that keeps its frames keeps blocks no
     later copy writes into."""
-    if device_frame.device.type != "cuda":
-        return Simulation.frame_image(device_frame), None
-    img = Simulation.frame_layout(device_frame)
-    host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
-    host.copy_(img, non_blocking=True)
-    return host, _recorded(device_frame.device)
+    with span("fluid.frame.layout"):
+        img = Simulation.frame_layout(device_frame)
+    with span("fluid.frame.readback_queue"):
+        if img.device.type != "cuda":
+            return img.numpy(), None
+        host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+        host.copy_(img, non_blocking=True)
+        return host, _recorded(img.device)
 
 
 def finish_readback(pending) -> np.ndarray:
@@ -115,7 +126,8 @@ def finish_readback(pending) -> np.ndarray:
     image, done = pending
     if done is None:
         return image
-    done.synchronize()
+    with span("fluid.frame.readback_wait"):
+        done.synchronize()
     return image.numpy()
 
 
@@ -127,13 +139,14 @@ class FluidApp:
                  frame_sink: Optional[Callable[[np.ndarray], None]] = None,
                  fixed_dt: Optional[float] = None,
                  log: Callable[[str], None] = lambda s: None):
-        self.sim = Simulation(config)
-        self.config = config
-        self.input_source = input_source or orbit_source(config)
-        self.frame_sink = frame_sink
-        self.fixed_dt = fixed_dt
-        self.log = log
-        self.state: FluidState = self.sim.init()
+        with span("fluid.session.setup"):
+            self.sim = Simulation(config)
+            self.config = config
+            self.input_source = input_source or orbit_source(config)
+            self.frame_sink = frame_sink
+            self.fixed_dt = fixed_dt
+            self.log = log
+            self.state: FluidState = self.sim.init()
         self.frames = 0
         self.min_compute = float("inf")
         self.max_compute = 0.0
@@ -170,7 +183,9 @@ class FluidApp:
         device = self.sim.device
 
         def emit(readback):
-            self.frame_sink(finish_readback(readback))
+            image = finish_readback(readback)
+            with span("fluid.frame.sink"):
+                self.frame_sink(image)
 
         while True:
             now = time.perf_counter()
@@ -180,52 +195,55 @@ class FluidApp:
                 break
             if stop_when is not None and stop_when():
                 break
-            dt = self.fixed_dt if self.fixed_dt is not None else max(
-                1e-4, now - last_t)
-            last_t = now
-            sim_t += dt
+            with span("fluid.frame", self.frames + 1):
+                dt = self.fixed_dt if self.fixed_dt is not None else max(
+                    1e-4, now - last_t)
+                last_t = now
+                sim_t += dt
 
-            pos, last, pressed = self.input_source(sim_t)
-            imp = single(pos, last, pressed, dt)
+                with span("fluid.frame.input"):
+                    pos, last, pressed = self.input_source(sim_t)
+                imp = single(pos, last, pressed, dt)
 
-            c0 = time.perf_counter()
-            self.state = self.sim.step(self.state, imp)
-            stepped = _recorded(device)
-            frame = None
-            if self.frame_sink is not None:
-                frame = queue_readback(self.sim.render_fn(self.state))
-            measured = True
-            if pipelined and frame is not None:
-                if pending is not None:
-                    emit(pending)  # waits on the PREVIOUS frame's copy
-                else:
-                    measured = False  # first frame: nothing to wait on yet
-                pending = frame
-            elif stepped is not None:
-                # without a sink there is nothing to pipeline against; always
-                # wait for the step so the host cannot run unboundedly ahead
-                stepped.synchronize()
-            compute = time.perf_counter() - c0
+                c0 = time.perf_counter()
+                self.state = self.sim.step(self.state, imp)
+                stepped = _recorded(device)
+                frame = None
+                if self.frame_sink is not None:
+                    frame = queue_readback(self.sim.render_fn(self.state))
+                measured = True
+                if pipelined and frame is not None:
+                    if pending is not None:
+                        emit(pending)  # waits on the PREVIOUS frame's copy
+                    else:
+                        measured = False  # first frame: nothing to wait on yet
+                    pending = frame
+                elif stepped is not None:
+                    # without a sink there is nothing to pipeline against; always
+                    # wait for the step so the host cannot run unboundedly ahead
+                    with span("fluid.frame.readback_wait"):
+                        stepped.synchronize()
+                compute = time.perf_counter() - c0
 
-            if not pipelined and frame is not None:
-                emit(frame)
+                if not pipelined and frame is not None:
+                    emit(frame)
 
-            self.frames += 1
-            fps_frames += 1
-            if on_frame is not None:
-                on_frame(self.state, self.frames)
-            if measured:
-                self.total_compute += compute
-                self.min_compute = min(self.min_compute, compute)
-                self.max_compute = max(self.max_compute, compute)
+                self.frames += 1
+                fps_frames += 1
+                if on_frame is not None:
+                    on_frame(self.state, self.frames)
+                if measured:
+                    self.total_compute += compute
+                    self.min_compute = min(self.min_compute, compute)
+                    self.max_compute = max(self.max_compute, compute)
 
-            if now - fps_window_start >= 0.5:  # 2 Hz readout, Main.cpp:143
-                self.log(
-                    f"FPS: {fps_frames / (now - fps_window_start):.0f}     "
-                    f"FRAME TIME: {1000.0 * (now - fps_window_start) / max(1, fps_frames):.2f}ms"
-                )
-                fps_window_start = now
-                fps_frames = 0
+                if now - fps_window_start >= 0.5:  # 2 Hz readout, Main.cpp:143
+                    self.log(
+                        f"FPS: {fps_frames / (now - fps_window_start):.0f}     "
+                        f"FRAME TIME: {1000.0 * (now - fps_window_start) / max(1, fps_frames):.2f}ms"
+                    )
+                    fps_window_start = now
+                    fps_frames = 0
 
         if pending is not None:
             emit(pending)  # drain the pipelined tail frame

@@ -23,6 +23,16 @@ the device.  So the step reads nothing back from the device, with one
 exception: multigrid with residual-targeted stopping (``mg_tol > 0``, the
 ``quality`` preset) reads the residual's mean once per stopping test, k + 1
 reads for a step that completes k V-cycles (``ops.multigrid.probed_tol_loop``).
+
+Spans (``utils.trace.span``, no-ops unless a profiler runs): ``fluid.step``
+around a step, and inside it one span a stage, each closed after the
+stage's last launch, so the host arithmetic between stages is the step's
+own: ``fluid.step.advection``, ``fluid.step.vorticity``,
+``fluid.step.diffusion_splat`` (or ``fluid.step.diffusion`` and
+``fluid.step.splat`` where they run apart), ``fluid.step.pressure_projection``
+and, on the cpu variant, ``fluid.step.boundary_strip``; ``fluid.render``
+around a render.  The four stages of the gpu step carry
+``fluidbench/roofline.py``'s stage names.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from cudafluidsimulation_tpu_torch.ops.backend import get_batched_ops, get_ops
 from cudafluidsimulation_tpu_torch.ops.ref import cycle_color_batched, f32, f32_vec
 from cudafluidsimulation_tpu_torch.state import FluidState
 from cudafluidsimulation_tpu_torch.utils.impulse import Impulse
+from cudafluidsimulation_tpu_torch.utils.trace import span
 
 StepFn = Callable[[FluidState, Impulse], FluidState]
 F = np.float32
@@ -60,6 +71,10 @@ def make_step(config: FluidConfig, ops=None) -> StepFn:
     five = config.color_diffusion_enabled and (not cpu_variant or config.diffusion_iters > 0)
 
     def step(state: FluidState, imp: Impulse) -> FluidState:
+        with span("fluid.step", state.step):
+            return _step(state, imp)
+
+    def _step(state: FluidState, imp: Impulse) -> FluidState:
         dt = f32(imp.dt)
         u, v, dye = state.u, state.v, state.dye
         pack = (torch.empty((5,) + tuple(u.shape), dtype=torch.float32, device=u.device)
@@ -72,21 +87,23 @@ def make_step(config: FluidConfig, ops=None) -> StepFn:
         #    (both tap pre-advection data)
         dye_out = None if pack is None else pack[2:]
         advect_both = getattr(ops, "advect_both", None)
-        if advect_both is not None:
-            u, v, dye, vstats = advect_both(u, v, dye, dt, config.decay_rate,
-                                            vel_stats=state.vel_stats, return_stats=True,
-                                            out=dye_out)
-        else:
-            u, v, vstats = ops.advect_velocity(u, v, dt, config.decay_rate,
-                                               vel_stats=state.vel_stats,
-                                               return_stats=True)
-            dye = ops.advect_dye(dye, u, v, dt, config.decay_rate, vel_stats=vstats,
-                                 out=dye_out)
+        with span("fluid.step.advection"):
+            if advect_both is not None:
+                u, v, dye, vstats = advect_both(u, v, dye, dt, config.decay_rate,
+                                                vel_stats=state.vel_stats, return_stats=True,
+                                                out=dye_out)
+            else:
+                u, v, vstats = ops.advect_velocity(u, v, dt, config.decay_rate,
+                                                   vel_stats=state.vel_stats,
+                                                   return_stats=True)
+                dye = ops.advect_dye(dye, u, v, dt, config.decay_rate, vel_stats=vstats,
+                                     out=dye_out)
 
         # -- vorticity confinement
         confine = ops.vorticity_confinement_cpu if cpu_variant else ops.vorticity_confinement_gpu
-        u, v = confine(u, v, dt, config.vorticity,
-                       out=None if pack is None else pack[:2])
+        with span("fluid.step.vorticity"):
+            u, v = confine(u, v, dt, config.vorticity,
+                           out=None if pack is None else pack[:2])
 
         # -- impulse parameters, on the host ("if pressed" as data: the
         #    force scale and colour are zero when unpressed, which makes the
@@ -111,51 +128,56 @@ def make_step(config: FluidConfig, ops=None) -> StepFn:
                             (last[1] - cur[1]) * force_eff * dt], np.float32),
                 color_eff,
             ])
-            all5 = ops.diffuse_multi_splat(
-                pack, dt, coeffs5, config.diffusion_iters, amps, last,
-                config.splat_radius,
-            )
+            with span("fluid.step.diffusion_splat"):
+                all5 = ops.diffuse_multi_splat(
+                    pack, dt, coeffs5, config.diffusion_iters, amps, last,
+                    config.splat_radius,
+                )
             u, v, dye = all5[0], all5[1], all5[2:]
         else:
             if config.diffusion_iters > 0:
-                if config.color_diffusion_enabled:
-                    all5 = ops.diffuse_multi(pack, dt, coeffs5, config.diffusion_iters)
-                    u, v, dye = all5[0], all5[1], all5[2:]
-                else:
-                    uv = ops.diffuse(torch.stack([u, v]), dt,
-                                     config.velocity_diffusion,
-                                     config.diffusion_iters)
-                    u, v = uv[0], uv[1]
+                with span("fluid.step.diffusion"):
+                    if config.color_diffusion_enabled:
+                        all5 = ops.diffuse_multi(pack, dt, coeffs5, config.diffusion_iters)
+                        u, v, dye = all5[0], all5[1], all5[2:]
+                    else:
+                        uv = ops.diffuse(torch.stack([u, v]), dt,
+                                         config.velocity_diffusion,
+                                         config.diffusion_iters)
+                        u, v = uv[0], uv[1]
             splat = ops.splat_cpu if cpu_variant else ops.splat_gpu
-            u, v, dye = splat(u, v, dye, cur, last, dt, force_eff,
-                              config.splat_radius, color_eff)
+            with span("fluid.step.splat"):
+                u, v, dye = splat(u, v, dye, cur, last, dt, force_eff,
+                                  config.splat_radius, color_eff)
 
         # -- pressure projection (emits the next step's vel_stats)
-        if config.pressure_solver == "multigrid":
-            ppmg = getattr(ops, "pressure_project_mg", None)
-            if ppmg is not None:
-                # divergence, residuals and projection folded into the
-                # smoother ends (ops/multigrid.py)
-                u, v, p, vel_stats = ppmg(
-                    u, v, config.mg_cycles, tol=config.mg_tol,
-                    max_cycles=config.mg_max_cycles,
-                    half=config.half_divergence, return_stats=True)
+        with span("fluid.step.pressure_projection"):
+            if config.pressure_solver == "multigrid":
+                ppmg = getattr(ops, "pressure_project_mg", None)
+                if ppmg is not None:
+                    # divergence, residuals and projection folded into the
+                    # smoother ends (ops/multigrid.py)
+                    u, v, p, vel_stats = ppmg(
+                        u, v, config.mg_cycles, tol=config.mg_tol,
+                        max_cycles=config.mg_max_cycles,
+                        half=config.half_divergence, return_stats=True)
+                else:
+                    div = ops.divergence(u, v, config.half_divergence)
+                    p = ops.pressure_solve_mg(div, config.mg_cycles,
+                                              tol=config.mg_tol,
+                                              max_cycles=config.mg_max_cycles)
+                    u, v, vel_stats = ops.project(u, v, p, return_stats=True)
             else:
-                div = ops.divergence(u, v, config.half_divergence)
-                p = ops.pressure_solve_mg(div, config.mg_cycles,
-                                          tol=config.mg_tol,
-                                          max_cycles=config.mg_max_cycles)
-                u, v, vel_stats = ops.project(u, v, p, return_stats=True)
-        else:
-            u, v, p, vel_stats = ops.pressure_project(
-                u, v, config.pressure_iters, config.half_divergence,
-                return_stats=True,
-            )
+                u, v, p, vel_stats = ops.pressure_project(
+                    u, v, config.pressure_iters, config.half_divergence,
+                    return_stats=True,
+                )
 
         # -- boundary strip (cpu path only; zeroing rows keeps vel_stats a
         #    valid upper bound)
         if config.boundary_rows > 0:
-            u, v, dye = ops.boundary_strip(u, v, dye, config.boundary_rows)
+            with span("fluid.step.boundary_strip"):
+                u, v, dye = ops.boundary_strip(u, v, dye, config.boundary_rows)
 
         return FluidState(
             u=u,
@@ -202,6 +224,10 @@ def make_batched_step(config: FluidConfig, ops=None, diffusions=None) -> StepFn:
     fused_splat = config.color_diffusion_enabled and not cpu_variant
 
     def step(state: FluidState, imp: Impulse) -> FluidState:
+        with span("fluid.step", state.step):
+            return _step(state, imp)
+
+    def _step(state: FluidState, imp: Impulse) -> FluidState:
         u, v, dye = state.u, state.v, state.dye
         n = u.shape[0]
         dt = f32_vec(imp.dt)
@@ -239,51 +265,58 @@ def make_batched_step(config: FluidConfig, ops=None, diffusions=None) -> StepFn:
         #    then vorticity confinement
         dye_out = None if pack is None else pack[:, 2:]
         advect_both = getattr(ops, "advect_both", None)
-        if advect_both is not None:
-            u, v, dye, vstats = advect_both(u, v, dye, dt, config.decay_rate,
-                                            vel_stats=state.vel_stats, return_stats=True,
-                                            params=adv_p, out=dye_out)
-        else:
-            u, v, vstats = ops.advect_velocity(u, v, dt, config.decay_rate,
-                                               vel_stats=state.vel_stats, return_stats=True,
-                                               params=adv_p)
-            dye = ops.advect_dye(dye, u, v, dt, config.decay_rate, vel_stats=vstats,
-                                 params=adv_p, out=dye_out)
+        with span("fluid.step.advection"):
+            if advect_both is not None:
+                u, v, dye, vstats = advect_both(u, v, dye, dt, config.decay_rate,
+                                                vel_stats=state.vel_stats, return_stats=True,
+                                                params=adv_p, out=dye_out)
+            else:
+                u, v, vstats = ops.advect_velocity(u, v, dt, config.decay_rate,
+                                                   vel_stats=state.vel_stats,
+                                                   return_stats=True, params=adv_p)
+                dye = ops.advect_dye(dye, u, v, dt, config.decay_rate, vel_stats=vstats,
+                                     params=adv_p, out=dye_out)
         confine = ops.vorticity_confinement_cpu if cpu_variant else ops.vorticity_confinement_gpu
-        u, v = confine(u, v, dt, config.vorticity, params=adv_p,
-                       out=None if pack is None else pack[:, :2])
+        with span("fluid.step.vorticity"):
+            u, v = confine(u, v, dt, config.vorticity, params=adv_p,
+                           out=None if pack is None else pack[:, :2])
 
         # -- diffusion + splat
         if fused_splat:
-            all5 = ops.diffuse_multi_splat(pack, dt, coeffs, config.diffusion_iters,
-                                           amps, last, config.splat_radius, params=dif_p)
+            with span("fluid.step.diffusion_splat"):
+                all5 = ops.diffuse_multi_splat(pack, dt, coeffs, config.diffusion_iters,
+                                               amps, last, config.splat_radius, params=dif_p)
             u, v, dye = all5[:, 0], all5[:, 1], all5[:, 2:]
         else:
             if config.diffusion_iters > 0:
-                if config.color_diffusion_enabled:
-                    all5 = ops.diffuse_multi(pack, dt, coeffs, config.diffusion_iters,
-                                             params=dif_p)
-                    u, v, dye = all5[:, 0], all5[:, 1], all5[:, 2:]
-                else:
-                    uv = ops.diffuse(torch.stack([u, v], dim=1), dt, k,
-                                     config.diffusion_iters, params=dif_p)
-                    u, v = uv[:, 0], uv[:, 1]
+                with span("fluid.step.diffusion"):
+                    if config.color_diffusion_enabled:
+                        all5 = ops.diffuse_multi(pack, dt, coeffs, config.diffusion_iters,
+                                                 params=dif_p)
+                        u, v, dye = all5[:, 0], all5[:, 1], all5[:, 2:]
+                    else:
+                        uv = ops.diffuse(torch.stack([u, v], dim=1), dt, k,
+                                         config.diffusion_iters, params=dif_p)
+                        u, v = uv[:, 0], uv[:, 1]
             splat = ops.splat_cpu if cpu_variant else ops.splat_gpu
-            u, v, dye = splat(u, v, dye, cur, last, dt, force_eff,
-                              config.splat_radius, color_eff)
+            with span("fluid.step.splat"):
+                u, v, dye = splat(u, v, dye, cur, last, dt, force_eff,
+                                  config.splat_radius, color_eff)
 
         # -- pressure projection (emits the next step's vel_stats)
-        if config.pressure_solver == "multigrid":
-            u, v, p, vel_stats = ops.pressure_project_mg(
-                u, v, config.mg_cycles, tol=config.mg_tol,
-                max_cycles=config.mg_max_cycles, half=config.half_divergence,
-                return_stats=True)
-        else:
-            u, v, p, vel_stats = ops.pressure_project(
-                u, v, config.pressure_iters, config.half_divergence, return_stats=True)
+        with span("fluid.step.pressure_projection"):
+            if config.pressure_solver == "multigrid":
+                u, v, p, vel_stats = ops.pressure_project_mg(
+                    u, v, config.mg_cycles, tol=config.mg_tol,
+                    max_cycles=config.mg_max_cycles, half=config.half_divergence,
+                    return_stats=True)
+            else:
+                u, v, p, vel_stats = ops.pressure_project(
+                    u, v, config.pressure_iters, config.half_divergence, return_stats=True)
 
         if config.boundary_rows > 0:
-            u, v, dye = ops.boundary_strip(u, v, dye, config.boundary_rows)
+            with span("fluid.step.boundary_strip"):
+                u, v, dye = ops.boundary_strip(u, v, dye, config.boundary_rows)
 
         return FluidState(
             u=u,
@@ -310,10 +343,11 @@ def make_render(config: FluidConfig, ops=None) -> Callable[[FluidState], torch.T
         ops = get_ops(config)
 
     def render(state: FluidState) -> torch.Tensor:
-        if config.bloom_enabled:
-            active = f32(state.time_since_press) < F(config.bloom_duration)
-            return ops.render_frame(state.dye, state.mouse, config.bloom_intense,
-                                    config.splat_radius, active)
-        return ops.pack_rgba(state.dye)
+        with span("fluid.render"):
+            if config.bloom_enabled:
+                active = f32(state.time_since_press) < F(config.bloom_duration)
+                return ops.render_frame(state.dye, state.mouse, config.bloom_intense,
+                                        config.splat_radius, active)
+            return ops.pack_rgba(state.dye)
 
     return render

@@ -21,6 +21,7 @@ from cudafluidsimulation_tpu_torch.state import FluidState, default_device, init
 from cudafluidsimulation_tpu_torch.utils.impulse import (
     Impulse, no_impulse, num_steps, slice_step)
 from cudafluidsimulation_tpu_torch.utils.timing import StageReport, cuda_times_ms, time_stage
+from cudafluidsimulation_tpu_torch.utils.trace import span
 
 
 def run_scan(step_fn, state: FluidState, impulses: Impulse) -> FluidState:
@@ -64,13 +65,18 @@ class Simulation:
     # -- lifecycle ----------------------------------------------------------
 
     def init(self) -> FluidState:
-        return init_state(self.config, self.device)
+        with span("fluid.init"):
+            return init_state(self.config, self.device)
 
     def step(self, state: FluidState, imp: Impulse) -> FluidState:
         return self.step_fn(state, imp)
 
     def run(self, state: FluidState, impulses: Impulse) -> FluidState:
-        return run_scan(self.step_fn, state, impulses)
+        """The rollout over every step of ``impulses`` (a ``fluid.rollout``
+        span, its steps as ``ident``)."""
+        n = num_steps(impulses)
+        with span("fluid.rollout", n):
+            return run_scan(self.step_fn, state, impulses)
 
     def run_steps(self, state: FluidState, steps: int) -> FluidState:
         """``steps`` steps of free evolution."""

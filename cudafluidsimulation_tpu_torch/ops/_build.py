@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
@@ -39,6 +40,10 @@ NVCC_FLAGS = [
 ]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# seconds spent hashing, compiling and loading the libraries, and how many
+# were compiled and loaded in this process (``utils.trace.counters``)
+BUILD_STATS = {"build_s": 0.0, "builds": 0, "loads": 0}
+_STATS_LOCK = threading.Lock()
 # one build or load at a time: the shards of a mesh (parallel/mesh.py) call
 # the wrappers from one thread each
 _LOAD_LOCK = threading.Lock()
@@ -82,6 +87,20 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     return name -> library path.  Each compiler's output (``-Xptxas -v``:
     registers, shared memory, spills) is kept beside its library as
     ``.log``."""
+    t0 = time.perf_counter()
+    try:
+        return _build_all(names)
+    finally:
+        _count(build_s=time.perf_counter() - t0)
+
+
+def _count(**add) -> None:
+    with _STATS_LOCK:
+        for key, value in add.items():
+            BUILD_STATS[key] += value
+
+
+def _build_all(names: Iterable[str]) -> Dict[str, Path]:
     BUILD.mkdir(parents=True, exist_ok=True)
     paths = {name: _library_path(name) for name in names}
     missing = {name: lib for name, lib in paths.items() if not lib.is_file()}
@@ -102,6 +121,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
             continue
         lib.with_suffix(".log").write_text(out)
         os.replace(tmp, lib)
+        _count(builds=1)
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return paths
@@ -118,10 +138,13 @@ def load(name: str) -> ctypes.CDLL:
     with _LOAD_LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all([name])[name]))
+            path = build_all([name])[name]
+            t0 = time.perf_counter()
+            lib = ctypes.CDLL(str(path))
             lib.fluid_error_string.argtypes = [ctypes.c_int]
             lib.fluid_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
+            _count(build_s=time.perf_counter() - t0, loads=1)
         return lib
 
 

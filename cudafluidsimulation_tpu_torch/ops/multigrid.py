@@ -55,6 +55,7 @@ import torch.nn.functional as F
 
 from cudafluidsimulation_tpu_torch.ops import ref
 from cudafluidsimulation_tpu_torch.ops.stencil import neighbors
+from cudafluidsimulation_tpu_torch.utils.trace import span
 
 OMEGA = 0.8  # damped-Jacobi smoothing weight
 
@@ -363,7 +364,8 @@ def probed_tol_loop(probe, finish, res_mean_fn, p0, first, tol, max_cycles):
     float32(tol)**2 or after ``max_cycles`` completed cycles; returns the
     probed iterate when converged, else the last completed cycle's, so a
     capped run equals the fixed-count run.  Each loop test reads the
-    residual's mean on the host, one copy.
+    residual's mean on the host, one copy (a ``fluid.mg.stopping_read``
+    span).
 
     ``res_mean_fn`` gives a 0-d tensor for one plane, or (B,) for B
     members (iterates (B, H, W)), which the loop treats as a vmapped
@@ -376,7 +378,8 @@ def probed_tol_loop(probe, finish, res_mean_fn, p0, first, tol, max_cycles):
     tol2 = float(np.float32(tol) ** 2)
     pf = p0
     rsq_dev = res_mean_fn(r1)  # each member's test, kept from where it stopped
-    rsq = rsq_dev.cpu().numpy()
+    with span("fluid.mg.stopping_read"):
+        rsq = rsq_dev.cpu().numpy()
     i = 0
     while i < max_cycles and (rsq >= tol2).any():
         pf_next = finish(p1, r1)
@@ -390,7 +393,8 @@ def probed_tol_loop(probe, finish, res_mean_fn, p0, first, tol, max_cycles):
             pf = pf_next if pf is None else torch.where(m, pf_next, pf)
             p1 = torch.where(m, p_next, p1)
             rsq_dev = torch.where(active, rsq_next, rsq_dev)
-        rsq = rsq_dev.cpu().numpy()
+        with span("fluid.mg.stopping_read"):
+            rsq = rsq_dev.cpu().numpy()
         i += 1
     done = rsq < tol2
     if done.all():

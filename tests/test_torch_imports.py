@@ -3,9 +3,7 @@
 Every module of ``cudafluidsimulation_tpu_torch`` is imported in a fresh
 interpreter (a subprocess: this test process has JAX loaded), which then
 reports any ``jax`` or ``cudafluidsimulation_tpu`` module in
-``sys.modules``.  The examples of the port and its benchmark scripts
-(``bench_torch.py``, ``scripts/bench_suite_torch.py``) are checked the
-same way.
+``sys.modules``.  The examples of the port are checked the same way.
 """
 
 import json
@@ -31,9 +29,9 @@ bad = sorted(m for m in sys.modules
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
-EXPECTED = {"bench", "cli", "config", "entry", "interop", "state", "models.app", "models.ensemble",
-            "models.pipelines", "models.simulation", "utils.http_view", "utils.native_sink",
-            "utils.term_input", "utils.term_view", "utils.png", "utils.video",
+EXPECTED = {"utils.trace", "cli", "config", "entry", "interop", "state", "models.app",
+            "models.ensemble", "models.pipelines", "models.simulation", "utils.http_view",
+            "utils.native_sink", "utils.term_input", "utils.term_view", "utils.png", "utils.video",
             "ops.cuda_kernels", "ops.ref", "parallel.mesh", "parallel.halo",
             "parallel.shardmap_step", "parallel.shardmap2d", "parallel.sharded"}
 
@@ -41,7 +39,6 @@ EXPECTED = {"bench", "cli", "config", "entry", "interop", "state", "models.app",
 @pytest.fixture(scope="module")
 def probe():
     examples = sorted(str(p) for p in (ROOT / "examples").glob("*_torch.py"))
-    examples += [str(ROOT / "bench_torch.py"), str(ROOT / "scripts" / "bench_suite_torch.py")]
     run = subprocess.run([sys.executable, "-c", PROBE, *examples], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stderr
