@@ -31,10 +31,12 @@ caught:
    (9 is two bursts), every H6 entry held to 0; then, at 540x960, the dye's NaN
    saturation, the cpu variant's flags (vorticity sign and epsilon, full
    divergence, 2-channel diffusion), 0, 1 and 2 iterations, and H4's
-   standalone ``pressure_solve`` at 0, 1, 2 and 40 sweeps; H3 and H4 at
-   k - 1, k, k + 1 and 2k + 1 sweeps (k the planner's burst depth) at
-   16x16, 4x8, 135x240 and 2049x2047 (ragged tiles), where H4, its solve
-   and H3 without the splat must be bit-identical; H7 (separable
+   standalone ``pressure_solve`` at 0, 1, 2 and 40 sweeps; H4 at k - 1,
+   k, k + 1 and 2k + 1 sweeps (k the planner's burst depth) and H3 at
+   those and at d - 1, d, d + 1 and 2d + 1 (d its pass depth) at 16x16,
+   4x8, 135x240 and 2049x2047 (ragged tiles and strips; an odd width
+   takes H3's one cell a lane), where H4, its solve and H3 without the
+   splat must be bit-identical; H7 (separable
    diffusion) with and without the splat (without it held to 0), at 5 and
    2 channels, at 2048x2048, 540x960, 16x16 and 4x8 (where radius 5
    reflects more than once), its generic kernel on another design's radii,
@@ -49,7 +51,7 @@ caught:
    that run — then one driven step held against ``backend="ref"`` on the
    card, and bit for bit against the same step with the 5-channel pack
    built by ``torch.cat`` (:func:`cat_form`), and the device operations
-   of one step (11, none a ``cat``); H1's one launch a step and neither of
+   of one step (10, none a ``cat``); H1's one launch a step and neither of
    its passes, and both rollouts bit for bit against the same rollouts
    through H1's two passes (a namespace without ``advect_both``);
    ``run_scan_render`` for 4 steps, bit for bit against the step and the
@@ -63,7 +65,7 @@ caught:
    ends and its stopping test's mean of squares launched, H4's
    ``pressure_project`` not), the V-cycles each step
    took (from the H6 entries' counts), the device operations of one step
-   (``torch.profiler``: 47 at its 2 V-cycles, none a ``cat``), one driven
+   (``torch.profiler``: 46 at its 2 V-cycles, none a ``cat``), one driven
    step against ``backend="ref"`` and against the ``torch.cat`` pack, the
    tolerance met by one projection of the driven state, and H1's one
    launch against its two passes as on the parity path;
@@ -121,7 +123,7 @@ caught:
    fixed-cycle multigrid steps from the sweep's state (H6
    ``prolong_smooth_project`` batched); the device operations of one
    batched fast step (11) and of one batched quality step whose members
-   stop together (12 + 14k at k V-cycles), the host reads of the sweep's
+   stop together (11 + 14k at k V-cycles), the host reads of the sweep's
    last step, and one batched fast step under
    ``set_sync_debug_mode("error")``;
 10. the headless CLI (``cudafluidsimulation_tpu_torch.cli.main``, in
@@ -169,7 +171,7 @@ caught:
    ((4096 + 62)², x0 = -31) and a ragged 135 x 240 window, both modes,
    driven and quiet flows, ``vel_stats`` given and absent; H4's solve from
    an iterate at 1, k, k + 1, 2k + 1 sweeps on a (2048 + 18) x 8192 shard;
-   H3 on an 8-padded shard in bursts of 3, its rows by the seam equal to
+   H3 on an 8-padded shard in passes of 3, its rows by the seam equal to
    the global sweeps; then gpu parity at 8192² with 100 pressure sweeps
    (BASELINE.json config 5) on a 4-shard rows mesh and a 2 x 2 mesh on
    the visible card(s): a 20-step orbit rollout (launches, each shard's,
@@ -203,7 +205,7 @@ caught:
    the parity, quality and fast paths, the fixed-cycle path's ms/step, the
    plain versions' ms/step on the card, the device launches one H3, one H4
    and each H6 call of the quality path make (``torch.profiler``; one each
-   for H6), H3 and H4 under a few other burst
+   for H6), H3 under other chunkings and H4 under a few other burst
    plans (information), and each kernel's ms at its path's shapes (by CUDA
    events over 10 calls, and its device ms by ``torch.profiler``, which
    differ where a kernel is shorter than its wrapper's host cost) beside
@@ -305,11 +307,11 @@ VORT_SHAPES = CHECK_SHAPES + ((2049, 2047), (2050, 2046), (135, 240), (16, 16), 
                               (3, 5), (1, 1))
 # device operations of one driven 2048² step: the kernels' launches and
 # the memsets of their velocity bounds, no copy into the 5-channel pack
-# (parity: H1's one launch, H2, H3's 3 bursts, H4's memset and 5 bursts;
+# (parity: H1's one launch, H2, H3's 2 passes, H4's memset and 5 bursts;
 # fast: H8's two passes, H2, H7, H4's 6; quality at its 2 V-cycles: each of
 # its 3 stopping tests is the two passes of H6 mean_square and a read).
 # H1 and H8 bound the velocity without a memset since their redesign
-STEP_DEVICE_OPS = {"parity": 11, "fast": 10, "quality": 47}
+STEP_DEVICE_OPS = {"parity": 10, "fast": 10, "quality": 46}
 QUALITY_STEP_VCYCLES = 2  # the V-cycles of the quality step counted
 # the most device launches one entry call may make at 2048²
 MAX_DEVICE_LAUNCHES = {"H3": 5, "H4": 8, "H4 solve": 8,
@@ -343,14 +345,14 @@ ENS_B, ENS_N, ENS_STEPS = 64, 512, 200
 ENS_SHAPES = ((ENS_B, ENS_N, ENS_N), (3, 540, 960), (5, 135, 240), (7, 4, 8))
 ENS_JITTER = 32.0  # each member's orbit centre moves by up to this many cells
 # device operations of one batched step: one copy of the members'
-# parameters, then the parity step's 11 (H1's one launch, H2, H3's 3
-# bursts, H4's memset and 5 bursts)
-ENS_STEP_DEVICE_OPS = 12
+# parameters, then the parity step's 10 (H1's one launch, H2, H3's 2
+# passes, H4's memset and 5 bursts)
+ENS_STEP_DEVICE_OPS = 11
 # device launches one call of each batched entry makes at 64 x 512²: one a
-# stage (a burst for H3 and H4) for all 64 members, with H4's memset of
+# stage (a pass for H3, a burst for H4) for all 64 members, with H4's memset of
 # its velocity bound
 ENS_CALL_LAUNCHES = {"H1 batched": 1, "H1 batched velocity pass": 1, "H1 batched dye pass": 1,
-                     "H2 batched": 1, "H3 batched": 3, "H4 batched": 6}
+                     "H2 batched": 1, "H3 batched": 2, "H4 batched": 6}
 ENS_CPU_B, ENS_CPU_STEPS = 8, 10
 # phase 9, the fast and multigrid ensembles on batched H5-H8: H6's ends with
 # the grid transfers at these level pairs (even extents: 64 x 512² -> 256²,
@@ -368,10 +370,10 @@ ENS_FAST_STEP_DEVICE_OPS = 11
 def ens_quality_step_ops(k, levels):
     """Device operations of one batched quality step whose members all
     complete k V-cycles on ``levels`` levels: the parameter copy, H1's one
-    launch, H2, H3's 3 bursts, H6's first end, 2 levels - 1 H6 ends a
+    launch, H2, H3's 2 passes, H6's first end, 2 levels - 1 H6 ends a
     cycle, the k + 1 stopping tests' two passes and read each, H5's
     projection with its memset."""
-    return 1 + 1 + 1 + 3 + 1 + k * (2 * levels - 1) + 3 * (k + 1) + 2
+    return 1 + 1 + 1 + 2 + 1 + k * (2 * levels - 1) + 3 * (k + 1) + 2
 
 
 # device launches one call of each batched row makes at 64 x 512² (the
@@ -1739,11 +1741,11 @@ CLI_BUCKETS = {
 
 def _cli_kernels_per_call():
     """Device kernels one entry call of the parity rollout launches at N²:
-    H1 and H2 one, H3 and H4 a burst each (the planner's plans for 20
-    diffusion and 40 pressure sweeps; memsets are not kernels)."""
+    H1 and H2 one, H3 a pass and H4 a burst each (the planners' plans for
+    20 diffusion and 40 pressure sweeps; memsets are not kernels)."""
     from cudafluidsimulation_tpu_torch.ops import jacobi_cuda
 
-    return {"H1": 1, "H2": 1, "H3": len(jacobi_cuda.plan_bursts(N, N, 20, "diffuse").depths),
+    return {"H1": 1, "H2": 1, "H3": len(jacobi_cuda.plan_diffuse(N, N, 20, 5).depths),
             "H4": len(jacobi_cuda.plan_bursts(N, N, 40, "project").depths)}
 
 
@@ -2352,7 +2354,7 @@ def sharded_phase(smi, gen, worst, reset_counts, read_counts, kernels, dev):
     H1/H8's window entry against its plain version on each window of
     SH_WINDOWS, both modes, driven and quiet flows, ``vel_stats`` given and
     absent; H4's solve from an iterate at 1, k, k + 1 and 2k + 1 sweeps; H3
-    on a kk-padded shard in bursts shallower than kk (kept rows equal to the
+    on a kk-padded shard in passes shallower than kk (kept rows equal to the
     global sweeps at the seam).  Then gpu parity at 8192² with 100 pressure
     sweeps on a 4-shard rows mesh and a 2 x 2 mesh: a 20-step rollout with
     each shard's launches, the exchange pairs a step, one step against the
@@ -2431,10 +2433,10 @@ def sharded_phase(smi, gen, worst, reset_counts, read_counts, kernels, dev):
     rows = torch.arange(2048 - kk, 4096 + kk, device=dev)  # shard 1 of 2 and its halo
     fp = g[:, rows.clamp(max=4095)].contiguous()
     fp[:, -kk:] = g[:, 4096 - kk:].flip(1)  # the physical top: the mirror
-    plan = jacobi_cuda.plan_bursts(fp.shape[1], fp.shape[2], kk, "diffuse", depth=3)
+    plan = jacobi_cuda.plan_diffuse(fp.shape[1], fp.shape[2], kk, 5, depth=3)
     exp = ref.diffuse_multi(g, dt, [0.8] * 5, kk)[:, 2048:]
     got = jacobi_cuda._diffuse(fp, dt, [0.8] * 5, kk, plan=plan)
-    _check(worst, "H3 sharded", f"padded shard {tuple(fp.shape)} bursts {plan.depths}",
+    _check(worst, "H3 sharded", f"padded shard {tuple(fp.shape)} passes {plan.depths}",
            [("padded", got, ref.diffuse_multi(fp, dt, [0.8] * 5, kk))])
     seam = (got[:, kk:kk + 1024] - exp[:, :1024]).abs().max().item()
     if seam != 0.0:
@@ -3411,16 +3413,17 @@ def main() -> int:
             "p", jacobi_cuda.pressure_solve(div, iters), ref.pressure_solve(div, iters))])
     del u, v, dye, fields, sat, push, got, exp, p, rhs, div
 
-    # H3 and H4 around the burst depth k: one burst short of k, exactly k,
-    # one sweep into a second burst, and 2k + 1 (three bursts); one tile,
-    # a grid narrower than one 16-byte load, odd and ragged tiles
-    k = jacobi_cuda.DEPTH
+    # H4 around the burst depth k: one burst short of k, exactly k, one
+    # sweep into a second burst, and 2k + 1 (three bursts); H3 at those and
+    # around its pass depth d; one tile or strip, a grid narrower than one
+    # 16-byte load, odd and ragged tiles and strips
+    k, d = jacobi_cuda.DEPTH, jacobi_cuda.DIFFUSE_DEPTH
     for h, w in BURST_SHAPES:
         u, v = randn(h, w, scale=200.0), randn(h, w, scale=200.0)
         fields = torch.cat([torch.stack([u, v]), torch.rand((3, h, w), generator=gen, device=dev)])
         last = (w * 0.4, h * 0.6)
         div = ref.divergence(u, v, True)
-        for iters in (k - 1, k, k + 1, 2 * k + 1):
+        for iters in sorted({k - 1, k, k + 1, 2 * k + 1, d - 1, d, d + 1, 2 * d + 1}):
             tag = f"iters={iters} {h}x{w}"
             _check(worst, "H3 sweeps", tag, [(
                 "fields", jacobi_cuda.diffuse_multi(fields, dt, coeffs, iters),
@@ -3428,6 +3431,8 @@ def main() -> int:
             _check(worst, "H3", f"splat {tag}", [(
                 "fields", jacobi_cuda.diffuse_multi_splat(fields, dt, coeffs, iters, amps, last, 400.0),
                 ref.diffuse_multi_splat(fields, dt, coeffs, iters, amps, last, 400.0))])
+            if iters not in (k - 1, k, k + 1, 2 * k + 1):
+                continue
             for half in (True, False):
                 got = jacobi_cuda.pressure_project(u, v, iters, half, return_stats=True)
                 exp = ref.pressure_project(u, v, iters, half, return_stats=True)
@@ -3871,7 +3876,7 @@ def main() -> int:
     # the device operations one call makes at the path's shapes: H3, H4,
     # and each H6 entry the quality path calls (the bottom at 16²)
     device_launches = {k: _device_kernels(cases[k][0]) for k in MAX_DEVICE_LAUNCHES}
-    plans = {"H3": jacobi_cuda.plan_bursts(N, N, 20, "diffuse"),
+    plans = {"H3": jacobi_cuda.plan_diffuse(N, N, 20, 5),
              "H4": jacobi_cuda.plan_bursts(N, N, 40, "project"),
              "H4 solve": jacobi_cuda.plan_bursts(N, N, 40, "solve"),
              "H6 smooth_res_restrict": jacobi_cuda.plan_bursts(N, N, 2, "smooth_res"),
@@ -3883,25 +3888,30 @@ def main() -> int:
         _json({"phase": "device_launches_per_call", "kernel": k,
                "grid": "x".join(map(str, rhs16.shape if k == "H6 smooth_damped" else (N, N))),
                "launches": n, "by_name": counts, "plan_depths": plans[k].depths,
-               "plan_tile": plans[k].tile, "plan_smem": plans[k].smem})
+               **({"plan_cells": plans[k].cells, "plan_strips": plans[k].strips,
+                   "plan_chunks": plans[k].chunks} if k == "H3" else
+                  {"plan_tile": plans[k].tile, "plan_smem": plans[k].smem})})
         if not 0 < n <= MAX_DEVICE_LAUNCHES[k]:
             raise AssertionError(f"{k}: {n} device launches in one call")
 
-    # information: H3 and H4 under other burst plans, against the default
+    # information: H3 under other chunkings and H4 under other burst plans,
+    # against the defaults
     def plan_ms(fn):
         return statistics.median(per_call(fn, iters=5, warmup=1))
 
     plan_rows = []
     for tile, depth in ((jacobi_cuda.TILE, jacobi_cuda.DEPTH), ((32, 112), 8), ((40, 112), 8),
                         ((42, 112), 8), ((26, 112), 8), ((48, 104), 10), ((40, 104), 10)):
-        hp = jacobi_cuda.plan_bursts(N, N, 20, "diffuse", tile=tile, depth=depth)
         pp = jacobi_cuda.plan_bursts(N, N, 40, "project", tile=tile, depth=depth)
         plan_rows.append({
-            "tile": tile, "depth": depth,
-            "H3_depths": hp.depths, "H3_smem": max(hp.smem),
-            "H3_ms": plan_ms(lambda: jacobi_cuda._diffuse(all5, dt, [0.8] * 5, 20, splat, plan=hp)),
-            "H4_depths": pp.depths, "H4_smem": max(pp.smem),
+            "tile": tile, "depth": depth, "H4_depths": pp.depths, "H4_smem": max(pp.smem),
             "H4_ms": plan_ms(lambda: jacobi_cuda._pressure_project(u, v, 40, True, plan=pp))})
+    for chunk in (None, 128, 171, 256):
+        hp = jacobi_cuda.plan_diffuse(N, N, 20, 5, chunk=chunk)
+        plan_rows.append({
+            "H3_chunk_rows": chunk, "H3_depths": hp.depths, "H3_cells": hp.cells,
+            "H3_strips": hp.strips, "H3_chunks": hp.chunks,
+            "H3_ms": plan_ms(lambda: jacobi_cuda._diffuse(all5, dt, [0.8] * 5, 20, splat, plan=hp))})
     _json({"phase": "burst_plans", "grid": f"{N}x{N}", "plans": plan_rows, "smi": smi[0]})
 
     # each row's launches come from the path that runs it

@@ -18,21 +18,23 @@ aligned, takes scalar loads and stores in the same kernel.
 
 **H3 diffusion** (``csrc/diffuse.cu``) replaces ``_diffuse_bursts`` →
 ``_diffuse_kernel`` and ``_diffuse_burst_tiled`` → ``_diffuse_kernel_tiled``
-(entries ``diffuse``, ``diffuse_multi``, ``diffuse_multi_splat``).  Each
-launch is a burst of sweeps, temporally blocked (``csrc/burst.cuh``): a
-block loads its channel's tile plus a ring as deep as the burst into
-shared memory, sweeps there (the region shrinks a ring a sweep), and
-writes the tile; the splat tail rides the last sweep of the last burst.
-A sweep moves 8 bytes a cell, so one launch per sweep (the first design,
-2.45 ms for 5 channels × 20 sweeps at 2048²) was bound by device memory;
-a burst moves them once per ``depth`` sweeps and is bound by the SMs'
-instruction issue and shared-memory traffic and by the halo's redundant
-cells: 0.57 ms on an NVIDIA H100 80GB HBM3 at 700 W.
+(entries ``diffuse``, ``diffuse_multi``, ``diffuse_multi_splat``).  A sweep
+moves 8 bytes a cell, so one launch per sweep (the first design, 2.45 ms
+for 5 channels × 20 sweeps at 2048²) was bound by device memory, and the
+trapezoid bursts after it (0.52 ms, 3 launches) by the SMs' issue of
+shared-memory traffic and barriers.  Now each launch is a pass of up to
+:data:`DIFFUSE_DEPTH` sweeps as a row-streaming wavefront: a warp carries
+the pass's sweeps down a column strip in registers, one sweep a row behind
+the last, so 20 sweeps are two passes over device memory; the splat tail
+rides the last sweep of the last pass.  :func:`plan_diffuse` chooses the
+passes, the columns a lane, the strips and the chunks of rows.
 
 **H4 pressure** (``csrc/pressure.cu``) replaces ``pressure_project`` →
 ``_single_pressure_kernel``, ``_first_pressure_kernel``,
-``_pressure_kernel``, ``_last_pressure_kernel`` (and the tiled twins), with
-the same bursts: the first computes the divergence of its region from u
+``_pressure_kernel``, ``_last_pressure_kernel`` (and the tiled twins), in
+bursts of trapezoid temporal blocking (``csrc/burst.cuh``: a block loads
+its tile plus a ring as deep as the burst into shared memory, sweeps
+there, and writes the tile): the first computes the divergence of its region from u
 and v and sweeps from p = 0, the last runs one ring deeper, subtracts the
 gradient and emits [max|u'|, max|v'|].  Its standalone entry
 ``pressure_solve`` (``PRESSURE_SOLVE``, its own launch count) replaces
@@ -41,13 +43,14 @@ over a given ``div``, from p = 0 or, as JAX's ``init``, from a given
 iterate.  40 sweeps at 2048²: 0.385 ms, against 0.96 ms one
 launch a sweep (same card); the solve alone 0.32 ms.
 
-:func:`plan_bursts` chooses the tile and the sweeps of each burst: fewer,
-deeper bursts trade device-memory round trips and launches for redundant
-halo work, (TX + 2k)(TY + 2k) / (TX·TY) cells computed per cell kept, and
-for shared memory per block.  A grid inside one tile runs every sweep in
-one launch.  The default, 48 × 112 tiles and bursts of at most 8 sweeps,
-makes a shared row 128 floats (one warp's width) and runs 20 sweeps in 3
-launches, 40 in 5; other tiles and depths measured within a few percent.
+:func:`plan_bursts` chooses H4's (and H6's) tile and the sweeps of each
+burst: fewer, deeper bursts trade device-memory round trips and launches
+for redundant halo work, (TX + 2k)(TY + 2k) / (TX·TY) cells computed per
+cell kept, and for shared memory per block.  A grid inside one tile runs
+every sweep in one launch.  The default, 48 × 112 tiles and bursts of at
+most 8 sweeps, makes a shared row 128 floats (one warp's width) and runs
+40 sweeps in 5 launches; other tiles and depths measured within a few
+percent.
 
 **H5 divergence and projection** (``csrc/pressure.cu``, ``STENCIL``)
 replaces ``divergence`` → ``_divergence_kernel`` and ``project`` →
@@ -63,7 +66,9 @@ on grid z, u and v at any member stride (a (B, 5, H, W) pack's planes).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import threading
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -80,11 +85,11 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 #                 v_ms, u2_ms, v2_ms, prm, prm_stride, stream)
 _VORTICITY = {"fluid_vorticity": [_P] * 4 + [_I] * 3 + [_F, _F, _I] + [_L] * 4 + [_P, _I, _P]}
 VORTICITY = Kernel("vorticity", _VORTICITY)
-# fluid_diffuse(in, out, scratch, n, h, w, tile_h, tile_w, depths*, nbursts,
-#               alpha*, inv_beta*, amp*, lx, ly, radius, splat, prm,
-#               prm_stride, chans, stream); depths, alpha, inv_beta and amp
-#               are host pointers, prm a device pointer
-_DIFFUSE = {"fluid_diffuse": [_P] * 3 + [_I] * 5 + [_P, _I] + [_P] * 3 + [_F] * 3
+# fluid_diffuse(in, out, scratch, n, h, w, cells, depths*, strips*, chunks*,
+#               npasses, alpha*, inv_beta*, amp*, lx, ly, radius, splat, prm,
+#               prm_stride, chans, stream); depths, strips, chunks, alpha,
+#               inv_beta and amp are host pointers, prm a device pointer
+_DIFFUSE = {"fluid_diffuse": [_P] * 3 + [_I] * 4 + [_P] * 3 + [_I] + [_P] * 3 + [_F] * 3
             + [_I, _P, _I, _I, _P]}
 DIFFUSE = Kernel("diffuse", _DIFFUSE)
 # fluid_pressure_project(u, v, u2, v2, p, div, scratch, stats, h, w, tile_h,
@@ -124,7 +129,7 @@ DEPTH = 8
 # shared buffers a block holds: two iterates, and the divergence for H4 or
 # the right-hand side for H6's "smooth" (sweeps only) and "smooth_res"
 # (sweeps, then a residual or a gradient on the tile) bursts
-_BUFFERS = {"diffuse": 2, "project": 3, "solve": 3, "smooth": 3, "smooth_res": 3}
+_BUFFERS = {"project": 3, "solve": 3, "smooth": 3, "smooth_res": 3}
 # kinds whose last burst runs one ring deeper, for a tail that reads p
 # beyond the tile
 _RING = ("project", "smooth_res")
@@ -132,10 +137,10 @@ _RING = ("project", "smooth_res")
 
 @dataclass(frozen=True)
 class BurstPlan:
-    """The launches of one H3 or H4 call: each burst's sweeps, the halo a
-    block loads around its tile, and its dynamic shared memory.  The C
-    entry puts the splat on the last burst, H4's divergence on the first
-    and its projection on the last."""
+    """The launches of one H4 (or H6) call: each burst's sweeps, the halo
+    a block loads around its tile, and its dynamic shared memory.  The C
+    entry puts H4's divergence on the first burst and its projection on the
+    last."""
 
     tile: Tuple[int, int]
     depths: Tuple[int, ...]
@@ -161,13 +166,13 @@ def burst_smem(kind: str, h: int, w: int, tile, halo: int) -> int:
 def plan_bursts(h: int, w: int, iters: int, kind: str, *,
                 tile: Optional[Tuple[int, int]] = None,
                 depth: Optional[int] = None) -> BurstPlan:
-    """Split ``iters`` sweeps of a ``kind`` call ("diffuse", "project",
-    "solve", or H6's "smooth" and "smooth_res") into bursts of at most
+    """Split ``iters`` sweeps of a ``kind`` call ("project", "solve", or
+    H6's "smooth" and "smooth_res") into bursts of at most
     ``depth`` sweeps, as even as they come, one launch each; the whole of
     them in one launch when the grid fits in one tile (no halo to
     recompute).  The last "project" or "smooth_res" burst runs one ring
     deeper (the gradient or the residual reads p beyond the tile).
-    ``iters`` = 0 is one burst of no sweeps (the splat alone; p = 0 and the
+    ``iters`` = 0 is one burst of no sweeps for "project" (p = 0 and the
     projection), or none for "solve" and H6.  A depth whose shared memory
     exceeds :data:`SMEM_LIMIT` is lowered."""
     if kind not in _BUFFERS:
@@ -181,7 +186,7 @@ def plan_bursts(h: int, w: int, iters: int, kind: str, *,
     project = kind in _RING
     while True:
         if iters == 0:
-            depths = (0,) if kind in ("diffuse", "project") else ()
+            depths = (0,) if kind == "project" else ()
         elif h <= tile[0] and w <= tile[1]:
             depths = (iters,)
         else:
@@ -189,14 +194,177 @@ def plan_bursts(h: int, w: int, iters: int, kind: str, *,
             depths = tuple(iters // n + (j < iters % n) for j in range(n))
         halos = tuple(d + (project and j == len(depths) - 1)
                       for j, d in enumerate(depths))
-        smem = tuple(0 if kind == "diffuse" and d == 0 else
-                     burst_smem(kind, h, w, tile, a) for d, a in zip(depths, halos))
+        smem = tuple(burst_smem(kind, h, w, tile, a) for a in halos)
         if max(smem, default=0) <= SMEM_LIMIT:
             break
         if depth == 1:
             raise ValueError(f"tile {tile} does not fit in shared memory")
         depth -= 1
     return BurstPlan(tile, depths, halos, smem)
+
+
+# -- H3's wavefront planner -------------------------------------------------------
+
+# csrc/diffuse.cu: the most sweeps a pass carries (DIFFUSE_DEPTH), the lanes
+# of a warp (a strip is LANES x cells columns wide), the cells a lane the
+# kernel takes (4 needs 16-byte rows: a width that is a multiple of 4 and a
+# 16-byte aligned plane; 1 takes any), the warps of a block (each its own
+# strip and chunk), the blocks an SM its registers are sized for, and the
+# rows in each warp's ring of input rows in flight
+DIFFUSE_DEPTH = 10
+LANES = 32
+DIFFUSE_CELLS = (4, 1)
+DIFFUSE_WARPS = 4
+DIFFUSE_BLOCKS_PER_SM = 2
+DIFFUSE_RING = 5
+# the chunks: the count whose pass takes the fewest steps, as waves of
+# blocks over an H100's 132 SMs times the steps of a chunk (its rows and
+# 2 d lead-in rows).  A wave is WAVE_SHARE of the DIFFUSE_BLOCKS_PER_SM
+# blocks an SM holds: measured on an H100 (5 x 20 sweeps at 2048², 1024²
+# and 960 x 540, 2 at 2048²), a step takes 0.42-0.58 us in waves of up to
+# 250 blocks, one block on an SM or two, and up to 0.9 us at 260-263 of
+# the 264 that fit
+SMS = 132
+WAVE_SHARE = 0.95
+
+
+def _chunks(h: int, d: int, tasks_a_row: int) -> int:
+    """The chunks of a pass whose strips and planes make ``tasks_a_row``
+    warp tasks a chunk (see :data:`SMS`)."""
+    def steps(m):
+        blocks = -(-tasks_a_row * m // DIFFUSE_WARPS)
+        waves = -(-blocks // int(SMS * DIFFUSE_BLOCKS_PER_SM * WAVE_SHARE))
+        return waves * (-(-h // m) + 2 * d)
+
+    return min(range(1, h + 1), key=lambda m: (steps(m), m))
+
+
+@dataclass(frozen=True)
+class DiffusePlan:
+    """The launches of one H3 call: each pass's sweeps (a depth of 0 is the
+    splat alone), its strips and its chunks of rows, and the cells a lane
+    of every pass.  The C entry puts the splat on the last pass."""
+
+    cells: int
+    depths: Tuple[int, ...]
+    strips: Tuple[int, ...]
+    chunks: Tuple[int, ...]
+    lanes: int = LANES
+
+    @property
+    def iters(self) -> int:
+        return sum(self.depths)
+
+    @property
+    def width(self) -> int:
+        """Columns a strip's warp holds."""
+        return self.lanes * self.cells
+
+
+def _align(cells: int) -> int:
+    return 4 if cells >= 4 else 1
+
+
+def strip_spans(w: int, width: int, cells: int, d: int, n: int):
+    """[(first, e0, e1)] of ``n`` strips ``width`` columns wide
+    (``csrc/diffuse.cu`` ``diffuse_first``, ``diffuse_exact``): strip j's
+    first column, and the columns [e0, e1) it keeps after ``d`` sweeps; or
+    None where some strip would keep a column its stale edges reach, or
+    would reach past the grid.  A strip starts at column 0 or ends at ``w``
+    wherever it reaches the grid's edge, so the edge columns are a lane's
+    first and last cell, where the kernel's clamp is one select."""
+    a = _align(cells)
+    if n < 1 or (a == 4 and w % 4):
+        return None
+    if n == 1:
+        return [(0, 0, w)] if w <= width and w % cells == 0 else None
+    if w < width:
+        return None
+
+    def exact(j):
+        return w if j >= n else j * w // n // a * a
+
+    spans = []
+    for j in range(n):
+        e0, e1 = exact(j), exact(j + 1)
+        if j == 0:
+            f = 0
+        elif j == n - 1:
+            f = w - width
+        else:
+            f = min(max(e0 - d, 0) // a * a, w - width)
+        if e1 <= e0 or f < 0 or f + width > w:
+            return None
+        # stale columns reach d in from a side that is not the grid's edge
+        if (f > 0 and f > e0 - d) or (f + width < w and f + width < e1 + d):
+            return None
+        spans.append((f, e0, e1))
+    return spans
+
+
+def chunk_rows(h: int, m: int):
+    """[(y0, y1)] of ``m`` chunks: the rows each keeps."""
+    return [(k * h // m, (k + 1) * h // m) for k in range(m)]
+
+
+@functools.lru_cache(maxsize=256)
+def _fewest_strips(w: int, width: int, cells: int, d: int) -> Optional[int]:
+    for n in range(max(1, -(-w // width)), w + 1):
+        if strip_spans(w, width, cells, d, n) is not None:
+            return n
+    return None
+
+
+@functools.lru_cache(maxsize=256)
+def plan_diffuse(h: int, w: int, iters: int, planes: int = 1, *,
+                 cells: Optional[int] = None, lanes: int = LANES,
+                 depth: Optional[int] = None, chunk: Optional[int] = None,
+                 aligned: bool = True) -> DiffusePlan:
+    """Split ``iters`` sweeps of ``planes`` (h, w) planes into passes of at
+    most ``depth`` (default :data:`DIFFUSE_DEPTH`) sweeps, as even as they
+    come, one launch each; ``iters`` = 0 is one pass of the splat alone.
+    Each pass takes the fewest strips that keep every column; ``cells``
+    (default: the one of :data:`DIFFUSE_CELLS` that issues the least a row,
+    4 where the rows are 16-byte aligned and its strips fit, else 1) sets a
+    strip's width, ``lanes`` x ``cells`` (``lanes`` other than 32 only for
+    emulation).  The chunks: ``chunk`` rows each where given, else as
+    :func:`_chunks` spreads them over the card."""
+    if h < 1 or w < 1 or iters < 0 or planes < 1:
+        raise ValueError(f"bad shape, planes or iters: {h}x{w}, {planes}, {iters}")
+    depth = DIFFUSE_DEPTH if depth is None else depth
+    if not 1 <= depth <= DIFFUSE_DEPTH or lanes < 1 or (chunk is not None and chunk < 1):
+        raise ValueError(f"bad depth, lanes or chunk: {depth}, {lanes}, {chunk}")
+    if cells is not None and cells not in DIFFUSE_CELLS:
+        raise ValueError(f"cells must be one of {DIFFUSE_CELLS}, got {cells}")
+    if iters == 0:
+        return DiffusePlan(cells or 1, (0,), (1,), (1,), lanes)
+    npass = math.ceil(iters / depth)
+    depths = tuple(iters // npass + (j < iters % npass) for j in range(npass))
+    if cells is not None:
+        choices = (cells,)
+    elif aligned and w % 4 == 0:
+        choices = DIFFUSE_CELLS
+    else:
+        choices = (1,)
+    best = None
+    for v in choices:
+        strips = tuple(_fewest_strips(w, lanes * v, v, d) for d in depths)
+        if None in strips:
+            continue
+        # issue a row: lane-columns x (6 flops and the two shuffles and
+        # selects a lane shares among its cells)
+        cost = sum(n * lanes * (6 * v + 4) for n in strips)
+        if best is None or cost < best[0]:
+            best = (cost, v, strips)
+    if best is None:
+        raise ValueError(f"no strips of {choices} cells a lane keep a {w}-wide grid "
+                         f"at depth {max(depths)}")
+    _, v, strips = best
+    chunks = []
+    for d, n in zip(depths, strips):
+        m = math.ceil(h / chunk) if chunk is not None else _chunks(h, d, planes * n)
+        chunks.append(max(1, min(m, h)))
+    return DiffusePlan(v, depths, strips, tuple(chunks), lanes)
 
 
 def _depths(plan: BurstPlan):
@@ -232,11 +400,62 @@ def vorticity_confinement(u, v, dt, vorticity, variant: str = "gpu", *,
     return out[0], out[1]
 
 
+# H3's counters (``utils.trace.counters``): wrapper calls on the card, and
+# the passes over device memory (launches) they made
+DIFFUSE_STATS = {"diffuse_calls": 0, "diffuse_passes": 0}
+_STATS_LOCK = threading.Lock()
+
+
+def _plan_for(fields, h: int, w: int, iters: int, planes: int,
+              plan: Optional[DiffusePlan]) -> DiffusePlan:
+    if plan is None:
+        plan = plan_diffuse(h, w, iters, planes, aligned=fields.data_ptr() % 16 == 0)
+    if plan.iters != iters:
+        raise ValueError(f"plan runs {plan.iters} sweeps, not {iters}")
+    if plan.lanes != LANES:
+        raise ValueError(f"plan has {plan.lanes} lanes a strip; the card's warps have {LANES}")
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_ints(plan: DiffusePlan):
+    """The plan's depths, strips and chunks as host int arrays for the C
+    entry, and their addresses (the arrays kept alive with the plan)."""
+    ints = tuple(np.ascontiguousarray(a, np.int32)
+                 for a in (plan.depths, plan.strips, plan.chunks))
+    return ints, tuple(a.ctypes.data for a in ints)
+
+
+def _launch_diffuse(kern: Kernel, fields, planes: int, plan: DiffusePlan, host, lx, ly,
+                    radius, splat: bool, params, chans: int):
+    """One H3 call: ``plan``'s passes over ``planes`` planes of ``fields``
+    into a new tensor, parameters by value (``host``: alpha, inv_beta,
+    amps as float32 arrays) or from the device rows ``params``."""
+    h, w = fields.shape[-2:]
+    npass = len(plan.depths)
+    _, ptrs = _plan_ints(plan)
+    out = torch.empty_like(fields)
+    scratch = torch.empty_like(fields) if npass >= 2 else None
+    with torch.cuda.device(fields.device):
+        kern.launch(
+            "fluid_diffuse", fields.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, planes, h, w, plan.cells,
+            *ptrs, npass,
+            *[a.ctypes.data if a is not None else None for a in host],
+            lx, ly, float(ref.f32(radius)), int(splat),
+            params.data_ptr() if params is not None else None,
+            params.stride(0) if params is not None else 0, chans, stream_of(fields))
+    with _STATS_LOCK:
+        DIFFUSE_STATS["diffuse_calls"] += 1
+        DIFFUSE_STATS["diffuse_passes"] += npass
+    return out
+
+
 def _diffuse(fields, dt, coeffs, iters: int, splat=None,
-             plan: Optional[BurstPlan] = None):
+             plan: Optional[DiffusePlan] = None):
     """Shared launcher: ``fields`` (C, H, W) on the card, ``coeffs`` one per
     channel, ``splat`` = (amps, last, radius) or None; ``plan`` defaults to
-    :func:`plan_bursts`'s.  Up to :data:`MAX_CHANNELS` planes take their
+    :func:`plan_diffuse`'s.  Up to :data:`MAX_CHANNELS` planes take their
     parameters by value; more go through device rows as a batch of one."""
     if fields.dim() != 3:
         raise ValueError(f"fields: expected (C, H, W), got {tuple(fields.shape)}")
@@ -261,28 +480,17 @@ def _diffuse(fields, dt, coeffs, iters: int, splat=None,
         lx, ly, radius = 0.0, 0.0, 1.0
     else:
         last = ref.f32_vec(splat[1])
-        lx, ly, radius = float(last[0]), float(last[1]), float(ref.f32(splat[2]))
-    plan = plan or plan_bursts(h, w, iters, "diffuse")
-    if plan.iters != iters:
-        raise ValueError(f"plan runs {plan.iters} sweeps, not {iters}")
-    depths, depths_ptr, nbursts = _depths(plan)
-    out = torch.empty_like(fields)
-    scratch = torch.empty_like(fields) if nbursts >= 2 else None
+        lx, ly, radius = float(last[0]), float(last[1]), splat[2]
+    plan = _plan_for(fields, h, w, iters, c, plan)
     host = [np.ascontiguousarray(a, np.float32) if a is not None else None
             for a in (alpha, inv_beta, amps)]
-    with torch.cuda.device(fields.device):
-        DIFFUSE.launch(
-            "fluid_diffuse", fields.data_ptr(), out.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
-            c, h, w, *plan.tile, depths_ptr, nbursts,
-            *[a.ctypes.data if a is not None else None for a in host],
-            lx, ly, radius, int(splat is not None), None, 0, c, stream_of(fields))
-    return out
+    return _launch_diffuse(DIFFUSE, fields, c, plan, host, lx, ly, radius, splat is not None,
+                           None, c)
 
 
 def _diffuse_rows(fields, iters: int, splat: bool, radius, params,
-                  plan: Optional[BurstPlan] = None, kern: Kernel = DIFFUSE):
-    """H3 over (B, C, H, W) ``fields``, B*C planes a launch a burst, each
+                  plan: Optional[DiffusePlan] = None, kern: Kernel = DIFFUSE):
+    """H3 over (B, C, H, W) ``fields``, B*C planes a launch a pass, each
     plane's alpha, 1/beta and amp and its member's splat centre from the
     device rows ``params`` (``member_params.diffuse_cols``'s layout)."""
     if fields.dim() != 4:
@@ -292,20 +500,9 @@ def _diffuse_rows(fields, iters: int, splat: bool, radius, params,
     if iters < 0:
         raise ValueError("iters must be >= 0")
     member_params.check(params, n, 3 * c + 2, fields.device)
-    plan = plan or plan_bursts(h, w, iters, "diffuse")
-    if plan.iters != iters:
-        raise ValueError(f"plan runs {plan.iters} sweeps, not {iters}")
-    depths, depths_ptr, nbursts = _depths(plan)
-    out = torch.empty_like(fields)
-    scratch = torch.empty_like(fields) if nbursts >= 2 else None
-    with torch.cuda.device(fields.device):
-        kern.launch(
-            "fluid_diffuse", fields.data_ptr(), out.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
-            n * c, h, w, *plan.tile, depths_ptr, nbursts, None, None, None,
-            0.0, 0.0, float(ref.f32(radius)), int(splat), params.data_ptr(),
-            params.stride(0), c, stream_of(fields))
-    return out
+    plan = _plan_for(fields, h, w, iters, n * c, plan)
+    return _launch_diffuse(kern, fields, n * c, plan, (None, None, None), 0.0, 0.0, radius,
+                           splat, params, c)
 
 
 def diffuse(fields, dt, diffusion, iters: int):

@@ -20,8 +20,10 @@ running, ``ident`` shows as the span's ``ident`` argument where the profiler
 records shapes (``record_shapes=True``).
 
 ``counters()`` reads the seconds and counts of building and loading the
-hand-written kernels' libraries (``ops._build.BUILD_STATS``): plain
-counters, always on, that a library adds to once per process.
+hand-written kernels' libraries (``ops._build.BUILD_STATS``), which a
+library adds to once per process, and H3's calls on the card and the passes
+over device memory they made (``ops.jacobi_cuda.DIFFUSE_STATS``), which its
+wrapper adds to at each call: plain counters, always on.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ try:
 except ImportError:  # a release without it: no spans
     _RecordFunctionFast = None
 
-from cudafluidsimulation_tpu_torch.ops import _build
+from cudafluidsimulation_tpu_torch.ops import _build, jacobi_cuda
 
 OFF = contextlib.nullcontext()
 
@@ -57,5 +59,7 @@ def span(name: str, ident=None):
 def counters() -> dict:
     """A snapshot, all in this process: ``build_s`` (seconds spent hashing
     sources, compiling and loading libraries), ``builds`` (libraries
-    compiled) and ``loads`` (libraries loaded)."""
-    return dict(_build.BUILD_STATS)
+    compiled), ``loads`` (libraries loaded), ``diffuse_calls`` (H3 wrapper
+    calls on the card) and ``diffuse_passes`` (the launches of a pass over
+    device memory those calls made)."""
+    return {**_build.BUILD_STATS, **jacobi_cuda.DIFFUSE_STATS}

@@ -1,18 +1,23 @@
-"""The burst planner of H3 and H4 and the tiled trapezoid schedule, on the
-CPU.
+"""H4's burst planner and tiled trapezoid schedule, and H3's wavefront
+planner and schedule, on the CPU.
 
-H3 (``csrc/diffuse.cu``) and H4 (``csrc/pressure.cu``) run their sweeps in
-bursts: a block cuts its tile plus a halo as deep as the burst out of the
-field, sweeps the cut-out with clamped taps, and writes back the tile
-(``csrc/burst.cuh``).  The CUDA kernels run only on the card
-(``chip_smoke.py`` holds them there bit for bit against the plain ops);
-here ``emulate`` runs the same schedule in plain torch on the planner's
-geometry, and it must be bit-equal to the plain ops (``ops/ref.py``),
-since each cell of the tile is computed by the same float32 operations in
-the same order as a global sweep computes it.  The clamp at a cut-out's
-inner edges is wrong, but it travels one ring a sweep and never reaches
-the tile: that is what the halo buys.  One case holds the emulation
-against the JAX Pallas kernels in interpret mode, at the tolerances of
+H4 (``csrc/pressure.cu``) runs its sweeps in bursts: a block cuts its tile
+plus a halo as deep as the burst out of the field, sweeps the cut-out with
+clamped taps, and writes back the tile (``csrc/burst.cuh``).  H3
+(``csrc/diffuse.cu``) runs passes of up to ``DIFFUSE_DEPTH`` sweeps as a
+row-streaming wavefront: a warp holds a strip of columns, streams a chunk
+of rows from ``d`` rows above it to ``d`` rows below it, and keeps the
+strip's middle columns and the chunk's rows.  The CUDA kernels run only on
+the card (``chip_smoke.py`` holds them there bit for bit against the plain
+ops); here ``emulate`` and ``emulate_wave`` run the same schedules in plain
+torch on the planners' geometry, and they must be bit-equal to the plain
+ops (``ops/ref.py``), since each cell kept is computed by the same float32
+operations in the same order as a global sweep computes it.  The clamp at
+a cut-out's inner edges is wrong (the wavefront's region takes NaN there,
+as the kernel takes a neighbour's stale column or a row it never loaded),
+but it travels one cell a sweep and never reaches the cells kept: that is
+what the halo buys.  One case holds the emulations against the JAX Pallas
+kernels in interpret mode, at the tolerances of
 ``tests/test_torch_kernels_vs_pallas.py`` (1e-5 of scale: 20 or 40 sweeps
 carry last-ulp differences along).
 """
@@ -34,10 +39,19 @@ DT = np.float32(1 / 60)
 K = jacobi_cuda.DEPTH
 SHAPES = ((1, 5), (4, 8), (16, 16), (37, 53), (135, 240), (540, 960), (2048, 2048))
 SMALL_SHAPES = SHAPES[:5]
-KINDS = ("diffuse", "project", "solve")
+KINDS = ("project", "solve")
 # the default plan, and a small one so that the small grids hold many
 # tiles, ragged on both axes, and many bursts
 PLANS = {"default": {}, "small": {"tile": (8, 16), "depth": 3}}
+# H3's: the default, and strips of 8 lanes of one cell, passes of 3 sweeps
+# and chunks of 7 rows, so the small grids hold many strips and chunks,
+# ragged on both axes, and many passes
+WAVE_PLANS = {"default": {}, "small": {"cells": 1, "lanes": 8, "depth": 3, "chunk": 7}}
+D = jacobi_cuda.DIFFUSE_DEPTH
+# H3's emulated grids: SHAPES' small ones, a 512² whose strips and chunks
+# are ragged, and a rows shard of 40 padded by 8 rows a side (as
+# parallel/ pads it for 8 sweeps)
+WAVE_SHAPES = SMALL_SHAPES + ((512, 512), (40 + 16, 96))
 
 
 def _iters(depth):
@@ -73,10 +87,8 @@ def test_plan_bursts(shape, kind):
         assert plan.halos == tuple(d + (kind == "project" and j == n - 1)
                                    for j, d in enumerate(plan.depths))
         assert all(b <= jacobi_cuda.SMEM_LIMIT <= 227 * 1024 for b in plan.smem)
-        assert plan.smem == tuple(
-            0 if kind == "diffuse" and d == 0 else
-            jacobi_cuda.burst_smem(kind, h, w, plan.tile, a)
-            for d, a in zip(plan.depths, plan.halos))
+        assert plan.smem == tuple(jacobi_cuda.burst_smem(kind, h, w, plan.tile, a)
+                                  for a in plan.halos)
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=[f"{h}x{w}" for h, w in SHAPES])
@@ -97,7 +109,6 @@ def test_tiles_cover_the_grid(shape):
 def test_shared_memory_bytes():
     # csrc/burst.cuh: rows of tile +- halo (clipped), the tile's width
     # (clipped, to 4 floats) plus the halo to 4 floats on each side
-    assert jacobi_cuda.burst_smem("diffuse", 2048, 2048, (48, 112), 7) == 2 * 62 * 128 * 4
     assert jacobi_cuda.burst_smem("project", 2048, 2048, (48, 112), 9) == 3 * 66 * 136 * 4
     assert jacobi_cuda.burst_smem("solve", 16, 16, (48, 112), 40) == 3 * 16 * 48 * 4
 
@@ -110,7 +121,7 @@ def test_depth_lowered_until_it_fits():
         jacobi_cuda.plan_bursts(4096, 4096, 40, "project", tile=(512, 512))
 
 
-@pytest.mark.parametrize("args", [(0, 8, 1, "diffuse"), (8, 8, -1, "solve"),
+@pytest.mark.parametrize("args", [(0, 8, 1, "project"), (8, 8, -1, "solve"),
                                   (8, 8, 4, "sweep")])
 def test_plan_rejects_bad_arguments(args):
     with pytest.raises(ValueError):
@@ -119,7 +130,7 @@ def test_plan_rejects_bad_arguments(args):
 
 def test_launchers_reject_a_plan_for_other_iters():
     f = torch.zeros((2, 8, 8))
-    plan = jacobi_cuda.plan_bursts(8, 8, 4, "diffuse")
+    plan = jacobi_cuda.plan_diffuse(8, 8, 4, 2)
     with pytest.raises(ValueError, match="sweeps"):
         jacobi_cuda._diffuse(f, DT, [0.8, 0.8], 5, plan=plan)
     with pytest.raises(ValueError, match="sweeps"):
@@ -150,13 +161,6 @@ def emulate(x, plan, sweep, last=None):
             out[..., ty0:ty1, tx0:tx1] = cut[(Ellipsis,) + inner]
         x = out
     return x
-
-
-def emulate_diffuse(f, coeffs, plan, splat=None):
-    alpha, inv_beta = ref.diffusion_alphas(DT, coeffs)
-    a, b = ref._per_channel(alpha, f), ref._per_channel(inv_beta, f)
-    out = emulate(f, plan, lambda cut, box: ref._sweeps(cut, a, b, 1))
-    return out if splat is None else ref.splat_tail(out, *splat)
 
 
 def _pressure_sweep(div):
@@ -214,21 +218,6 @@ def _cases(plan_name):
     return kw, _iters(kw.get("depth", K))
 
 
-@pytest.mark.parametrize("plan_name", PLANS)
-@pytest.mark.parametrize("shape", SMALL_SHAPES, ids=[f"{h}x{w}" for h, w in SMALL_SHAPES])
-def test_diffuse_schedule_is_bit_equal(rng, shape, plan_name):
-    h, w = shape
-    kw, iters_list = _cases(plan_name)
-    f, _, _ = _fields(rng, h, w)
-    for iters in iters_list:
-        plan = jacobi_cuda.plan_bursts(h, w, iters, "diffuse", **kw)
-        if iters > 0:
-            assert torch.equal(emulate_diffuse(f, COEFFS, plan),
-                               ref.diffuse_multi(f, DT, COEFFS, iters))
-        assert torch.equal(emulate_diffuse(f, COEFFS, plan, _splat(h, w)),
-                           ref.diffuse_multi_splat(f, DT, COEFFS, iters, *_splat(h, w)))
-
-
 @pytest.mark.parametrize("half", [True, False], ids=["half", "full"])
 @pytest.mark.parametrize("plan_name", PLANS)
 @pytest.mark.parametrize("shape", SMALL_SHAPES, ids=[f"{h}x{w}" for h, w in SMALL_SHAPES])
@@ -254,13 +243,205 @@ def test_pressure_solve_schedule_is_bit_equal(rng, shape, plan_name):
         assert torch.equal(emulate_solve(div, plan), ref.pressure_solve(div, iters))
 
 
-def test_schedule_without_the_halo_is_wrong(rng):
-    # the control: the same cut-outs without their halo give other values,
-    # so the tests above see the halo at work
-    f, u, v = _fields(rng, 37, 53)
-    plan = jacobi_cuda.plan_bursts(37, 53, 9, "diffuse", tile=(8, 16), depth=3)
-    thin = jacobi_cuda.BurstPlan(plan.tile, plan.depths, (0,) * len(plan.depths), plan.smem)
-    assert not torch.equal(emulate_diffuse(f, COEFFS, thin),
+# -- H3's wavefront: the planner ------------------------------------------------------
+
+
+def _wave_iters(depth):
+    return sorted({0, 1, depth - 1, depth, depth + 1, 2 * depth + 1, 20, 40} - {-1})
+
+
+def _kept(plan, w, d, n):
+    return jacobi_cuda.strip_spans(w, plan.width, plan.cells, d, n)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=[f"{h}x{w}" for h, w in SHAPES])
+def test_plan_diffuse(shape):
+    h, w = shape
+    for planes in (1, 5, 320):
+        for iters in _wave_iters(D):
+            plan = jacobi_cuda.plan_diffuse(h, w, iters, planes)
+            assert plan.iters == iters and plan.lanes == jacobi_cuda.LANES
+            if iters == 0:
+                # one pass, the splat alone
+                assert plan.depths == (0,) and plan.strips == plan.chunks == (1,)
+                continue
+            npass = math.ceil(iters / D)
+            assert len(plan.depths) == npass and max(plan.depths) <= D
+            assert max(plan.depths) - min(plan.depths) <= 1  # as even as they come
+            assert plan.cells in jacobi_cuda.DIFFUSE_CELLS
+            for d, n, m in zip(plan.depths, plan.strips, plan.chunks):
+                assert _kept(plan, w, d, n) is not None
+                # the fewest strips that keep every column
+                assert n == 1 or _kept(plan, w, d, n - 1) is None or n - 1 < -(-w // plan.width)
+                assert 1 <= m <= h
+
+
+def test_plan_diffuse_at_2048_takes_two_passes():
+    for planes in (2, 5, 11):
+        plan = jacobi_cuda.plan_diffuse(2048, 2048, 20, planes)
+        assert plan.depths == (D, D) and plan.cells == 4
+    # the strips' stale columns (20 strips of 128 for 2048: 1.25x) and the
+    # chunks' lead-in rows (10 chunks: 1.09x) together: 1.37x the cells
+    # kept, computed at about half the trapezoid's instructions a cell
+    plan = jacobi_cuda.plan_diffuse(2048, 2048, 20, 5)
+    assert plan.strips == (20, 20) and plan.chunks == (10, 10)
+    for d, n, m in zip(plan.depths, plan.strips, plan.chunks):
+        cols = n * plan.width / 2048
+        rows = sum(y1 + d - max(y0 - d, 0) for y0, y1 in jacobi_cuda.chunk_rows(2048, m)) / 2048
+        assert cols * rows <= 1.37, (cols, rows)
+        # a block or two on every SM of the card
+        assert jacobi_cuda.SMS * jacobi_cuda.DIFFUSE_WARPS < 5 * n * m <= (
+            jacobi_cuda.SMS * jacobi_cuda.DIFFUSE_WARPS * jacobi_cuda.DIFFUSE_BLOCKS_PER_SM)
+
+
+@pytest.mark.parametrize("cells", [8, 4, 1])
+@pytest.mark.parametrize("d", [1, 3, 8, 10])
+def test_every_column_is_kept_by_one_strip(cells, d):
+    width = jacobi_cuda.LANES * cells
+    a = 4 if cells >= 4 else 1
+    for w in list(range(1, 3 * width, 1 if cells == 1 else 3)) + [960, 2048, 2047, 8192]:
+        if cells >= 4 and w % 4:
+            assert jacobi_cuda.strip_spans(w, width, cells, d, 1) is None
+            continue
+        n = jacobi_cuda._fewest_strips(w, width, cells, d)
+        if n is None:
+            # only a grid narrower than a strip that no lane ends on
+            assert cells > 1 and w < width + 2 * d + 4
+            continue
+        spans = jacobi_cuda.strip_spans(w, width, cells, d, n)
+        seen = np.zeros(w, np.int32)
+        for j, (f, e0, e1) in enumerate(spans):
+            seen[e0:e1] += 1
+            assert e0 % a == 0 and f % a == 0 and 0 <= f <= e0 and e1 <= f + width
+            # d stale columns on each side that is not the grid's edge
+            assert f == 0 or f <= e0 - d
+            assert f + width >= w or e1 + d <= f + width
+            # the grid's edge columns are a lane's first and last cell
+            if f + width >= w:
+                assert (w - f) % cells == 0
+            assert f + width <= w or n == 1
+        assert (seen == 1).all(), (w, n)
+
+
+def test_cells_follow_the_rows_alignment():
+    assert jacobi_cuda.plan_diffuse(512, 512, 20, 5, aligned=False).cells == 1
+    assert jacobi_cuda.plan_diffuse(512, 510, 20, 5).cells == 1
+    assert jacobi_cuda.plan_diffuse(512, 512, 20, 320).cells == 4
+    assert jacobi_cuda.plan_diffuse(64, 8, 20, 5).cells == 1  # one strip: 1 issues least
+    assert jacobi_cuda.plan_diffuse(64, 8, 20, 5, cells=4).cells == 4
+
+
+def test_budgets():
+    # csrc/diffuse.cu: a block of DIFFUSE_WARPS warps holds its rings of
+    # input rows in static shared memory (at most 48 KB, and two blocks an
+    # SM fit its 227 KB), and a lane's DIFFUSE_DEPTH stages hold two rows of
+    # its cells each in registers, under the cap __launch_bounds__ gives
+    # (DIFFUSE_BLOCKS_PER_SM blocks an SM of 65536 registers, 8 at a time,
+    # at most 255) with room for the rest
+    warps, blocks = jacobi_cuda.DIFFUSE_WARPS, jacobi_cuda.DIFFUSE_BLOCKS_PER_SM
+    cap = min(255, 65536 // (jacobi_cuda.LANES * warps * blocks) // 8 * 8)
+    assert cap == 255
+    for cells in jacobi_cuda.DIFFUSE_CELLS:
+        smem = 4 * warps * jacobi_cuda.DIFFUSE_RING * jacobi_cuda.LANES * cells
+        assert smem <= 48 * 1024 and blocks * smem <= 227 * 1024
+        assert 2 * D * cells + 96 <= cap
+
+
+@pytest.mark.parametrize("args,kw", [
+    ((0, 8, 1), {}), ((8, 0, 1), {}), ((8, 8, -1), {}), ((8, 8, 1, 0), {}),
+    ((8, 8, 4), {"depth": D + 1}), ((8, 8, 4), {"depth": 0}), ((8, 8, 4), {"cells": 2}),
+    ((8, 8, 4), {"chunk": 0}), ((8, 510, 4), {"cells": 4})])
+def test_plan_diffuse_rejects_bad_arguments(args, kw):
+    with pytest.raises(ValueError):
+        jacobi_cuda.plan_diffuse(*args, **kw)
+
+
+def test_launcher_rejects_a_plan_for_other_lanes():
+    f = torch.zeros((2, 8, 8))
+    with pytest.raises(ValueError, match="lanes"):
+        jacobi_cuda._plan_for(f, 8, 8, 4, 2, jacobi_cuda.plan_diffuse(8, 8, 4, 2, lanes=8))
+
+
+# -- H3's wavefront, emulated in plain torch ---------------------------------------------
+
+
+def emulate_wave(x, plan, sweep_consts, x_halo=True, lead_in=True):
+    """Run ``plan``'s passes on the (C, H, W) field ``x``: each (strip,
+    chunk) region, the strip's columns by the chunk's rows from ``d`` rows
+    above it (or the grid's first) to ``d`` rows below it, holds the field
+    where the kernel loads it and NaN where it does not (columns past the
+    grid, rows past the grid or the chunk's steps); ``d`` sweeps with taps
+    clamped at the grid's edges and NaN past the region's; then the cells
+    each region keeps.  ``sweep_consts`` = (alpha, inv_beta) per channel.
+    ``x_halo`` / ``lead_in`` False: the control, strips that start on the
+    columns they keep / chunks that load from their first row."""
+    h, w = x.shape[-2:]
+    alpha, inv_beta = (torch.as_tensor(a)[:, None, None, None, None] for a in sweep_consts)
+    for d, n, m in zip(plan.depths, plan.strips, plan.chunks):
+        if d == 0:
+            continue
+        spans = jacobi_cuda.strip_spans(w, plan.width, plan.cells, d, n)
+        if not x_halo:
+            spans = [(e0 if 0 < j < n - 1 else f, e0, e1) for j, (f, e0, e1) in enumerate(spans)]
+        chunks = jacobi_cuda.chunk_rows(h, m)
+        first = torch.tensor([f for f, _, _ in spans])
+        s0 = torch.tensor([max(y0 - d, 0) if lead_in else y0 for y0, _ in chunks])
+        steps = torch.tensor([y1 + d for _, y1 in chunks]) - s0
+        rows = int(steps.max())
+        gy = s0[:, None] + torch.arange(rows)                      # (m, R)
+        gx = first[:, None] + torch.arange(plan.width)             # (n, S)
+        valid = ((gy < h) & (torch.arange(rows) < steps[:, None]))[:, :, None, None] & (gx < w)
+        region = x[:, gy.clamp(max=h - 1)][..., gx.clamp(max=w - 1)]  # (C, m, R, n, S)
+        region = torch.where(valid, region, torch.tensor(float("nan")))
+        gy5, gx5 = gy[None, :, :, None, None], gx[None, None, None]
+        nan_x = region.new_full(region.shape[:-1] + (1,), float("nan"))
+        nan_y = region.new_full(region.shape[:2] + (1,) + region.shape[3:], float("nan"))
+        for _ in range(d):
+            l = torch.where(gx5 == 0, region, torch.cat([nan_x, region[..., :-1]], -1))
+            r = torch.where(gx5 == w - 1, region, torch.cat([region[..., 1:], nan_x], -1))
+            b = torch.where(gy5 == 0, region, torch.cat([nan_y, region[:, :, :-1]], 2))
+            t = torch.where(gy5 == h - 1, region, torch.cat([region[:, :, 1:], nan_y], 2))
+            region = (l + r + b + t + region * alpha) * inv_beta
+        # each cell from the region of the strip and chunk that keep it
+        ky = torch.tensor([k for k, (y0, y1) in enumerate(chunks) for _ in range(y0, y1)])
+        jx = torch.tensor([j for j, (_, e0, e1) in enumerate(spans) for _ in range(e0, e1)])
+        ry = torch.arange(h) - s0[ky]
+        rx = torch.arange(w) - first[jx]
+        x = region[:, ky[:, None], ry[:, None], jx[None, :], rx[None, :]]
+    return x
+
+
+def emulate_diffuse(f, coeffs, plan, splat=None, **control):
+    alpha, inv_beta = ref.diffusion_alphas(DT, coeffs)
+    out = emulate_wave(f, plan, (alpha, inv_beta), **control)
+    return out if splat is None else ref.splat_tail(out, *splat)
+
+
+@pytest.mark.parametrize("plan_name", WAVE_PLANS)
+@pytest.mark.parametrize("shape", WAVE_SHAPES, ids=[f"{h}x{w}" for h, w in WAVE_SHAPES])
+def test_diffuse_schedule_is_bit_equal(rng, shape, plan_name):
+    h, w = shape
+    kw = WAVE_PLANS[plan_name]
+    f, _, _ = _fields(rng, h, w)
+    for iters in _wave_iters(kw.get("depth", D)):
+        plan = jacobi_cuda.plan_diffuse(h, w, iters, 3, **kw)
+        got = emulate_diffuse(f, COEFFS, plan)
+        if iters > 0:
+            assert torch.equal(got, ref.diffuse_multi(f, DT, COEFFS, iters))
+        assert torch.equal(ref.splat_tail(got, *_splat(h, w)),
+                           ref.diffuse_multi_splat(f, DT, COEFFS, iters, *_splat(h, w)))
+
+
+@pytest.mark.parametrize("control", ["x_halo", "lead_in"])
+def test_schedule_without_the_halo_is_wrong(rng, control):
+    # the control: the same strips without their stale columns, or the
+    # same chunks without their lead-in rows, give other values, so the
+    # tests above see the halo at work
+    f, _, _ = _fields(rng, 37, 53)
+    plan = jacobi_cuda.plan_diffuse(37, 53, 9, 3, **WAVE_PLANS["small"])
+    assert len(plan.depths) == 3 and min(plan.strips) > 2 and min(plan.chunks) > 2
+    assert torch.equal(emulate_diffuse(f, COEFFS, plan), ref.diffuse_multi(f, DT, COEFFS, 9))
+    assert not torch.equal(emulate_diffuse(f, COEFFS, plan, **{control: False}),
                            ref.diffuse_multi(f, DT, COEFFS, 9))
 
 
@@ -282,7 +463,7 @@ def test_schedule_vs_pallas(rng, plan_name):
     coeffs = [0.8] * 5
     amps = np.asarray([-3.5, 2.25, 1.0, 0.5, 0.3], np.float32)
     last = np.asarray([70.5, 30.25], np.float32)
-    got = emulate_diffuse(f, coeffs, jacobi_cuda.plan_bursts(h, w, 20, "diffuse", **kw),
+    got = emulate_diffuse(f, coeffs, jacobi_cuda.plan_diffuse(h, w, 20, 5, **WAVE_PLANS[plan_name]),
                           (amps, last, 400.0))
     exp = jacobi_pallas.diffuse_multi_splat(
         jnp.asarray(f.numpy()), DT, jnp.asarray(coeffs, jnp.float32), 20,

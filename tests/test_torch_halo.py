@@ -392,14 +392,14 @@ def test_pressure_solve_schedule_from_init_is_bit_equal(iters, plan_kw):
 @pytest.mark.parametrize("kk", [5, 8, 13])
 def test_h3_on_a_padded_shard_keeps_its_rows_exact(kk, shard):
     # 4 shards of 24 rows; the shard's kk-deep mirror-exchanged view swept
-    # by H3's schedule in bursts of at most 3 sweeps (several launches)
+    # by H3's wavefront in passes of at most 3 sweeps (several launches)
     rng = np.random.default_rng(kk)
     g = torch.from_numpy(rng.standard_normal((5, 96, 40)).astype(np.float32))
     rows = np.arange(shard * 24 - kk, (shard + 1) * 24 + kk)
     mirror = np.where(rows < 0, -1 - rows, np.where(rows >= 96, 2 * 96 - 1 - rows, rows))
     fp = g[:, torch.from_numpy(mirror)].contiguous()
     coeffs = [0.8] * 2 + [0.5] * 3
-    plan = jacobi_cuda.plan_bursts(fp.shape[1], 40, kk, "diffuse", tile=(8, 16), depth=3)
+    plan = jacobi_cuda.plan_diffuse(fp.shape[1], 40, kk, 5, cells=1, lanes=8, depth=3, chunk=7)
     assert len(plan.depths) > 1
     got = emulate_diffuse(fp, coeffs, plan)[:, kk:-kk]
     exp = ref.diffuse_multi(g, DT, coeffs, kk)[:, shard * 24:(shard + 1) * 24]
