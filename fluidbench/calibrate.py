@@ -21,8 +21,7 @@ import sys
 
 import torch
 
-from fluidbench import check, drive, run, spec
-from fluidbench.reference.step import Params
+from fluidbench import check, run, spec
 
 
 def main(argv=None) -> int:
@@ -40,23 +39,26 @@ def main(argv=None) -> int:
     cell = spec.workload(bench, args.workload)
     conf, mix = spec.config(cell["config"]), spec.traffic(cell["traffic"])
     cfg = run.port_config(conf, "cuda")
-    params = Params.from_fluid(conf["fluid"])
+    ref = spec.reference(conf.get("reference"))
+    params = ref.Params.from_fluid(conf["fluid"])
+    make_driver = spec.driver(mix["kind"])
     lower, upper = {}, {}
     for i in range(args.seeds):
         seed = args.first_seed + i
-        driver = drive.DRIVERS[mix["kind"]](cfg, conf["fluid"], mix, seed)
+        driver = make_driver(cfg, conf["fluid"], mix, seed)
         if i == 0:
             driver.units(2)
             torch.cuda.synchronize()
         rec = driver.window(args.seconds, torch.cuda.synchronize)
-        cap = rec["capture"]
-        got = check.judge(cap, params)
+        cap = rec["capture"]  # or a list of captures, one a judged member
+        first = cap[0] if isinstance(cap, (list, tuple)) else cap
+        got = check.judge(cap, params, ref=ref)
         line = {"workload": args.workload, "seed": seed, "units": rec["units"],
-                "probe": cap.unit.probe, "program": got}
+                "probe": first.unit.probe, "program": got}
         for k, v in got.items():
             lower[k] = check.worse(v, lower.get(k, 0.0))
         if i < args.control:
-            ctl = check.judge(cap, params, torch.bfloat16)
+            ctl = check.judge(cap, params, torch.bfloat16, ref)
             line["control"] = ctl
             for k, v in ctl.items():
                 upper[k] = min(upper.get(k, float("inf")), v)

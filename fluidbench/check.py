@@ -24,6 +24,10 @@ themselves:
 
 ``judge(..., dtype=torch.bfloat16)`` puts the reference computed in
 bfloat16 in the program's place: the control, which a sound limit fails.
+``judge(..., ref=module)`` judges against a configuration's own reference
+(``spec.reference``; the parity step by default), and ``judge`` of a list
+of captures (an ensemble's judged members) gives each number as the worst
+over them.
 """
 
 from __future__ import annotations
@@ -34,14 +38,14 @@ from typing import Dict
 import numpy as np
 import torch
 
-from fluidbench.reference import step as ref
+from fluidbench.reference import step as parity
 
 FIELDS = ("u", "v", "dye", "pressure", "vel_stats")
 
 
-def as_reference(state) -> ref.State:
-    """A program state as the reference's input (fields as they are, the
-    host scalars as float32)."""
+def as_reference(state, ref=parity):
+    """A program state as the input of reference ``ref`` (fields as they
+    are, the host scalars as float32)."""
     return ref.State(state.u, state.v, state.dye, state.pressure, state.vel_stats,
                      np.float32(float(state.t)), np.float32(float(state.press_time)),
                      np.float32(float(state.time_since_press)),
@@ -60,39 +64,46 @@ def worse(a: float, b: float) -> float:
     return a if math.isnan(a) or a > b else b
 
 
-def _scalars(s: ref.State) -> np.ndarray:
+def _scalars(s) -> np.ndarray:
     return np.asarray([s.t, s.press_time, s.time_since_press, s.mouse[0], s.mouse[1],
                        s.step], np.float64)
 
 
-def judge(cap, params: ref.Params, dtype=torch.float32) -> Dict[str, float]:
-    """The numbers compared for one unit's capture; with ``dtype`` lower
-    than float32, the control's (the reference in that precision in the
-    program's place)."""
+def judge(cap, params, dtype=torch.float32, ref=parity) -> Dict[str, float]:
+    """The numbers compared for one unit's capture against reference
+    ``ref`` (``params`` its ``Params``); with ``dtype`` lower than float32,
+    the control's (the reference in that precision in the program's
+    place).  For a list of captures, each number is the worst over them."""
+    if isinstance(cap, (list, tuple)):
+        numbers: Dict[str, float] = {}
+        for c in cap:
+            for k, v in judge(c, params, dtype, ref).items():
+                numbers[k] = worse(v, numbers[k]) if k in numbers else v
+        return numbers
     control = dtype != torch.float32
     out = {f"step_{f}": 0.0 for f in FIELDS}
     for n in cap.checked():
-        before = as_reference(cap.states[n - 1])
+        before = as_reference(cap.states[n - 1], ref)
         imp = ref.Impulse(*cap.inputs[n - 1])
         exp = ref.step(params, before, imp)
-        got = ref.step(params, before, imp, dtype) if control else as_reference(cap.states[n])
+        got = ref.step(params, before, imp, dtype) if control else as_reference(cap.states[n], ref)
         for f in FIELDS:
             out[f"step_{f}"] = worse(gap(getattr(got, f), getattr(exp, f)), out[f"step_{f}"])
 
     z = cap.states[0]
-    exp = got = as_reference(z)
+    exp = got = as_reference(z, ref)
     for imp in cap.inputs:
         exp = ref.host_scalars(exp, ref.Impulse(*imp))
         if control:
             got = ref.host_scalars(got, ref.Impulse(*imp), dtype)
     if not control:
-        got = as_reference(cap.states[cap.unit.steps])
+        got = as_reference(cap.states[cap.unit.steps], ref)
     out["counters"] = float(np.abs(_scalars(got) - _scalars(exp)).max())
 
     if cap.images:
         worst = 0
         for n, image in cap.images.items():
-            state = as_reference(cap.states[n])
+            state = as_reference(cap.states[n], ref)
             exp_img = ref.render(params, state).cpu().numpy().astype(np.int32)
             got_img = (ref.render(params, state, dtype).cpu().numpy() if control
                        else np.asarray(image)).astype(np.int32)

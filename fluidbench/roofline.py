@@ -25,7 +25,7 @@ count; at 2048^2 that needs a ~7x cut of the step's device time first.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 # published peaks (NVIDIA's data sheet, SXM part, at its 700 W limit), by
 # the name torch.cuda.get_device_name gives
@@ -34,6 +34,8 @@ PEAKS = {
 }
 
 F32 = 4
+
+Count = Callable[[dict], Dict[str, tuple]]  # fluid -> stage -> (bytes, f32 ops)
 
 
 def stages(fluid: dict) -> Dict[str, tuple]:
@@ -49,11 +51,19 @@ def stages(fluid: dict) -> Dict[str, tuple]:
     }
 
 
-def step_bound_s(fluid: dict, kind: str) -> Optional[float]:
-    """The step's bound in seconds on a card named ``kind`` (None for a
-    card without a row in :data:`PEAKS`)."""
+def stage_bound_s(fluid: dict, kind: str, count: Count = stages) -> Optional[Dict[str, float]]:
+    """Stage -> its bound in seconds on a card named ``kind``, from
+    ``count(fluid)`` (:func:`stages`, or a reference's own count of a step
+    whose work differs); None for a card without a row in :data:`PEAKS`."""
     peak = PEAKS.get(kind)
     if peak is None:
         return None
-    return sum(max(b / peak["bytes_per_s"], ops / peak["f32_ops_per_s"])
-               for b, ops in stages(fluid).values())
+    return {name: max(b / peak["bytes_per_s"], ops / peak["f32_ops_per_s"])
+            for name, (b, ops) in count(fluid).items()}
+
+
+def step_bound_s(fluid: dict, kind: str, count: Count = stages) -> Optional[float]:
+    """The step's bound in seconds on a card named ``kind``: the sum of its
+    stages' (None for a card without a row in :data:`PEAKS`)."""
+    bounds = stage_bound_s(fluid, kind, count)
+    return None if bounds is None else sum(bounds.values())

@@ -8,13 +8,16 @@ limits under ``fluidbench/`` by name (``spec.py``), then:
 
 1. builds the configuration's step (the port's kernels are built by nvcc
    at first use into ``cudafluidsimulation_tpu_torch/build/``, keyed on
-   their sources, so only a checkout's first run compiles) and runs two
-   units of the mix as the warm-up: every shape the window uses;
-2. measures for ``--seconds``: units one after another (``drive.py``),
-   closed by a synchronize; ``setup_s`` is the time from the process's
-   start to the window's start;
+   their sources, so only a checkout's first run compiles) and the mix's
+   driver (``drive.py``, or the kind's own file: ``spec.driver``), and
+   runs two units of the mix as the warm-up: every shape the window uses;
+2. measures for ``--seconds``: units one after another, closed by a
+   synchronize; ``setup_s`` is the time from the process's start to the
+   window's start;
 3. reads the peak device memory, then judges the window's last unit
-   against the plain reference (``check.py``);
+   against the configuration's plain reference (``check.py``,
+   ``spec.reference``), and bounds the step by that reference's count of
+   its stages (``roofline.py``): ``stage_bound_s`` and ``step_bound_s``;
 4. with ``--trace 1``, traces the mix's ``traced_units`` more units
    (``trace.py``) and, for a rollout, times the host's enqueue of 32-step
    segments right after a synchronize;
@@ -42,13 +45,13 @@ import json  # noqa: E402
 import math  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
 from typing import Optional  # noqa: E402
 
 import torch  # noqa: E402
 
 from fluidbench import check, drive, roofline, spec  # noqa: E402
 from fluidbench import trace as tracing  # noqa: E402
-from fluidbench.reference.step import Params  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "cudafluidsimulation_tpu")
 ENQUEUE_SEGMENTS = 24
@@ -111,25 +114,30 @@ def finite(x: float):
 
 
 def run_cell(conf: dict, mix: dict, limits: dict, metrics: list, seed: int, seconds: float,
-             trace: bool, backend: str = "cuda", t0: float = T0) -> dict:
+             trace: bool, backend: str = "cuda", t0: float = T0,
+             root: Path = spec.HERE) -> dict:
     """One run of a cell of configuration ``conf`` and mix ``mix``: the
     result line's object.  ``metrics`` is [(entry, reader)] of the metrics
     to report.  ``backend`` "ref" runs the port's plain ops on the CPU (the
-    tests' way through a run; the command always runs the card)."""
+    tests' way through a run; the command always runs the card).  The
+    configuration's reference and the mix's driver are found under
+    ``root``."""
     cfg = port_config(conf, backend)
+    ref = spec.reference(conf.get("reference"), root)
     on_card = backend != "ref"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    driver = drive.DRIVERS[mix["kind"]](cfg, conf["fluid"], mix, seed)
+    driver = spec.driver(mix["kind"], root)(cfg, conf["fluid"], mix, seed)
+    records = getattr(driver, "records", driver.kind)  # the record the readers know
     # every shape of the window, and the device memory pool as the window
     # holds it: a unit runs while the last one's capture is still held
     driver.units(2)
     sync()
-    rec = {"kind": mix["kind"], "setup_s": time.perf_counter() - t0}
+    rec = {"kind": records, "setup_s": time.perf_counter() - t0}
     rec.update(driver.window(seconds, sync))
     kind = torch.cuda.get_device_name() if on_card else "cpu"
     device = {"platform": "gpu" if on_card else "cpu", "kind": kind, "count": 1,
               "memory_peak_bytes": torch.cuda.max_memory_allocated() if on_card else 0}
-    numbers = check.judge(rec.pop("capture"), Params.from_fluid(conf["fluid"]))
+    numbers = check.judge(rec.pop("capture"), ref.Params.from_fluid(conf["fluid"]), ref=ref)
 
     breakdown = None
     if trace:
@@ -138,12 +146,14 @@ def run_cell(conf: dict, mix: dict, limits: dict, metrics: list, seed: int, seco
         if summary is not None:
             rec["trace"] = summary
             rec["traced_steps"] = n * int(mix["steps_per_unit"])
-            rec["traced_frames"] = rec["traced_steps"] if mix["kind"] == "frames" else 0
+            rec["traced_frames"] = rec["traced_steps"] if records == "frames" else 0
             breakdown = {"device_ops": summary["device_ops"], "idle_gaps": summary["idle_gaps"]}
             device.update(busy_s=summary["busy_s"], window_s=summary["window_s"])
-        if mix["kind"] == "rollout":
+        if isinstance(driver, drive.Rollout):  # one Simulation to enqueue on
             rec["enqueue_ms"] = host_enqueue_ms(driver, sync)
-    rec["step_bound_s"] = roofline.step_bound_s(conf["fluid"], kind)
+    stages = roofline.stage_bound_s(conf["fluid"], kind, getattr(ref, "stages", roofline.stages))
+    rec["stage_bound_s"] = stages
+    rec["step_bound_s"] = None if stages is None else sum(stages.values())
     if on_card:
         device["smi"] = power_limit()
     ok = check.verdict(numbers, limits)

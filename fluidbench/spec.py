@@ -5,22 +5,47 @@ and traffic mix and each metric; the harness finds them as files of their
 own under ``fluidbench/``:
 
 - ``configs/<config>.json``: the preset, its overrides and every physical
-  parameter as run (``fluid``), its source, ``reduced`` and ``assumed``;
+  parameter as run (``fluid``), its source, ``reduced`` and ``assumed``,
+  and optionally ``reference``, the name of its plain reference;
+- ``reference/<module>.py``: the plain reference a configuration names
+  (``step``, the gpu-parity step, where it names none), loaded by its path
+  (:func:`reference`).  It imports nothing of the program and gives what
+  ``check.py`` and ``run.py`` use: ``Params`` with
+  ``Params.from_fluid(fluid)`` (raising for a configuration it does not
+  write), ``State``, ``Impulse``, ``init(p, device, dtype)``,
+  ``step(p, s, imp, dtype)``, ``host_scalars(s, imp, dtype)`` and
+  ``render(p, s, dtype)``; and, where the step's work is not the parity
+  step's, ``stages(fluid) -> {stage: (bytes, f32_ops)}``, the count that
+  ``roofline.py`` bounds (``roofline.stages`` where it gives none).  A
+  stage is named as the port's span of it without ``fluid.step.``;
 - ``traffic/<traffic>.json``: the parameters of a mix, read by the one
-  generator (``generator.py``);
+  generator (``generator.py``); its ``kind`` names its driver: one of
+  ``drive.DRIVERS``, or else ``drivers/<kind>.py``, whose ``DRIVER`` is a
+  ``drive.Driver`` subclass (:func:`driver`).  The driver's ``records``
+  (its ``kind`` where it has none) names the record its window gives, on
+  which the readers under ``metrics/`` branch: "rollout" (``units``,
+  ``steps``, ``cells``, ``window_s``: the headless readers) or "frames"
+  (and ``frame_s``: the live ones); a ``drive.Rollout`` subclass is also
+  timed for its host enqueue.  A driver's window may hand ``check.judge``
+  a list of captures (an ensemble's judged members): each number is then
+  the worst over them;
 - ``limits/<workload>.json``: the limit of each number ``correct``
   compares in that cell;
 - ``metrics/<metric>.py``: a reader of the run's records with a
   ``read(records)`` that returns the metric or None.
 
-A later cell, mix or metric is a new file and a new entry, never an edit.
+A later cell, mix, reference, driver or metric is a new file and a new
+entry, never an edit.
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import re
+import sys
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, List, Optional
 
 HERE = Path(__file__).resolve().parent
@@ -30,6 +55,19 @@ BENCHMARK = HERE.parent / "BENCHMARK.json"
 def load_json(path: Path) -> dict:
     with open(path) as f:
         return json.load(f)
+
+
+def _load(path: Path, prefix: str) -> ModuleType:
+    """The module at ``path`` (a file name may hold dots and dashes, so it
+    is loaded by its path, under a name made from it)."""
+    name = f"fluidbench_{prefix}_" + re.sub(r"\W", "_", path.stem)
+    spec = importlib.util.spec_from_file_location(name, path)
+    if spec is None or spec.loader is None or not path.is_file():
+        raise FileNotFoundError(path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module  # classes and dataclasses find their module
+    spec.loader.exec_module(module)
+    return module
 
 
 def workload(bench: dict, name: str) -> dict:
@@ -53,15 +91,24 @@ def limits(name: str, root: Path = HERE) -> dict:
 
 
 def reader(name: str, root: Path = HERE) -> Callable[[dict], Optional[float]]:
-    """``read`` of ``metrics/<name>.py`` (a metric's name may hold dots,
-    so the file is loaded by its path)."""
-    path = root / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location("fluidbench_metric_" + name.replace(".", "_"), path)
-    if spec is None or spec.loader is None:
-        raise FileNotFoundError(path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    """``read`` of ``metrics/<name>.py``."""
+    return _load(root / "metrics" / f"{name}.py", "metric").read
+
+
+def reference(name: Optional[str] = None, root: Path = HERE) -> ModuleType:
+    """The plain reference ``reference/<name>.py`` (``step`` for None: a
+    configuration file without a ``reference`` key)."""
+    return _load(root / "reference" / f"{name or 'step'}.py", "reference")
+
+
+def driver(kind: str, root: Path = HERE) -> type:
+    """The driver of a mix of ``kind``: ``drive.DRIVERS[kind]``, or else
+    ``DRIVER`` of ``drivers/<kind>.py``."""
+    from fluidbench import drive
+
+    if kind in drive.DRIVERS:
+        return drive.DRIVERS[kind]
+    return _load(root / "drivers" / f"{kind}.py", "driver").DRIVER
 
 
 def metrics_for(bench: dict, cell: str, trace: bool) -> List[dict]:

@@ -10,13 +10,19 @@ work and none lies inside it; a lossy trace is taken again, up to three
 times.  Every number below comes from that one window: the window's
 length is the span's, and a device operation counts for the part of it
 that lies inside the span.
+
+The port's own spans (``fluid.*``, operator ranges on the host) are
+summarized by name: how often they ran, their host time and the device
+time of the operations launched inside them.  A device operation's span is
+found from its launch: the CPU event whose ``kernels`` list it, then up
+``cpu_parent`` to the first ``fluid.*`` event, the innermost span.
 """
 
 from __future__ import annotations
 
 import bisect
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -24,6 +30,7 @@ import torch
 MARKERS = 32
 TRIES = 3
 SPAN = "fluidbench.window"
+PORT = "fluid."  # the port's spans
 MARKER = "spin_kernel"
 TOP = 10
 NAME_CHARS = 160  # a device operation's name as the breakdown gives it
@@ -56,10 +63,16 @@ def is_readback(name: str) -> bool:
 
 
 def summarize(window: Interval, device: Sequence[Tuple[str, float, float]],
-              host: Sequence[Tuple[str, float, float]]) -> dict:
+              host: Sequence[tuple],
+              links: Optional[Sequence[Optional[int]]] = None) -> dict:
     """The traced window's numbers from its events, times in seconds:
     ``device`` and ``host`` are (name, start, end) of the device operations
-    (markers excluded) and of the host's spans and calls.
+    (markers excluded) and of the host's spans and calls; a host event may
+    carry a fourth element, the index in ``host`` of its parent (or None).
+    ``links[i]``, where given, is the index in ``host`` of the event that
+    launched device operation ``i`` (or None).  A device operation named
+    ``fluid.*`` is a port span projected onto the device's timeline, not
+    device work, and is left out.
 
     ``busy_s``: the union of the device operations inside the window;
     ``kernel_s``: the kernels' time (copies and memsets excluded);
@@ -67,13 +80,17 @@ def summarize(window: Interval, device: Sequence[Tuple[str, float, float]],
     device time by operation name, largest first; ``idle_gaps``: the idle
     time of the device by what the host was doing at the gap's middle (its
     innermost span or call, or "host python between calls"), largest
-    first."""
+    first; ``spans``: for each port span (``fluid.*``) inside the window,
+    {``count``, ``host_s``, ``device_s``}, ``device_s`` being the device
+    time of the operations whose launch lies in it and in no inner port
+    span (0 without ``links``)."""
     lo, hi = window
-    inside = []
-    for name, a, b in device:
+    inside, launched = [], []
+    for i, (name, a, b) in enumerate(device):
         iv = clip((a, b), lo, hi)
-        if iv:
+        if iv and not name.startswith(PORT):
             inside.append((name, iv))
+            launched.append(links[i] if links is not None else None)
     busy = union([iv for _, iv in inside])
     by_name: Dict[str, float] = defaultdict(float)
     for name, (a, b) in inside:
@@ -83,7 +100,7 @@ def summarize(window: Interval, device: Sequence[Tuple[str, float, float]],
         if a > at:
             gaps.append((at, a))
         at = max(at, b)
-    calls = sorted((a, b, name) for name, a, b in host if name != SPAN)
+    calls = sorted((a, b, name) for name, a, b, *_ in host if name != SPAN)
     starts = [a for a, _, _ in calls]
     idle: Dict[str, float] = defaultdict(float)
     for a, b in gaps:
@@ -96,6 +113,18 @@ def summarize(window: Interval, device: Sequence[Tuple[str, float, float]],
                 break
         idle[what] += b - a
 
+    spans: Dict[str, dict] = defaultdict(lambda: {"count": 0, "host_s": 0.0, "device_s": 0.0})
+    for name, a, b, *_ in host:
+        iv = clip((a, b), lo, hi) if name.startswith(PORT) else None
+        if iv:
+            spans[name]["count"] += 1
+            spans[name]["host_s"] += iv[1] - iv[0]
+    for (_, (a, b)), j in zip(inside, launched):
+        while j is not None and not host[j][0].startswith(PORT):
+            j = host[j][3] if len(host[j]) > 3 else None
+        if j is not None:
+            spans[host[j][0]]["device_s"] += b - a
+
     def top(d):
         return [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:TOP]]
 
@@ -106,7 +135,24 @@ def summarize(window: Interval, device: Sequence[Tuple[str, float, float]],
         "readback_s": sum(b - a for name, (a, b) in inside if is_readback(name)),
         "device_ops": top(by_name),
         "idle_gaps": top(idle),
+        "spans": dict(spans),
     }
+
+
+def launches(cpu: Sequence, dev: Sequence) -> List[Optional[int]]:
+    """For each device event of ``dev`` (in start order), the index in
+    ``cpu`` (in start order) of the event whose ``kernels`` list it, or
+    None.  A ``kernels`` entry names its operation's name, device and
+    duration; operations alike in all three are paired in order."""
+    waiting: Dict[tuple, deque] = defaultdict(deque)
+    for j, e in enumerate(cpu):
+        for k in e.kernels:
+            waiting[(k.name, k.device, k.duration)].append(j)
+    out: List[Optional[int]] = []
+    for e in dev:
+        q = waiting.get((e.name, e.device_index, e.time_range.elapsed_us()))
+        out.append(q.popleft() if q else None)
+    return out
 
 
 def _markers() -> None:
@@ -142,9 +188,11 @@ def traced(work: Callable[[], object]) -> Optional[dict]:
             continue
         us = 1e-6
         span = spans[0].time_range
-        device = [(e.name, e.time_range.start * us, e.time_range.end * us)
-                  for e, m in zip(dev, marker) if not m]
-        host = [(e.name, e.time_range.start * us, e.time_range.end * us) for e in events
-                if e.device_type == torch.autograd.DeviceType.CPU]
-        return summarize((span.start * us, span.end * us), device, host)
+        ops = [e for e, m in zip(dev, marker) if not m]
+        device = [(e.name, e.time_range.start * us, e.time_range.end * us) for e in ops]
+        cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+        index = {id(e): j for j, e in enumerate(cpu)}
+        host = [(e.name, e.time_range.start * us, e.time_range.end * us,
+                 index.get(id(e.cpu_parent))) for e in cpu]
+        return summarize((span.start * us, span.end * us), device, host, launches(cpu, ops))
     return None
