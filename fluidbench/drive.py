@@ -50,7 +50,18 @@ class Capture:
 
 
 class Driver:
-    """A mix's units on one configuration; ``unit(k)`` runs unit k."""
+    """A mix's units on one configuration; ``unit(k)`` runs unit k.
+
+    ``step_factory`` names, as (module, attribute), the factory the
+    driver's step is built by, so that the harness's tests can plant a
+    broken step there: ``Rollout`` builds its step when it is made,
+    ``Frames`` in each unit, both through the port's ``Simulation``.  The
+    module is one ``importlib.import_module`` finds by its dotted name,
+    never a driver's own file (``spec`` loads that anew each time).  A
+    driver that builds its step elsewhere (an ensemble's batched step)
+    names its own.  No run reads it."""
+
+    step_factory = ("cudafluidsimulation_tpu_torch.models.simulation", "make_step")
 
     def __init__(self, config, fluid: dict, mix: dict, seed: int):
         self.config = config

@@ -35,7 +35,56 @@ own under ``fluidbench/``:
   ``read(records)`` that returns the metric or None.
 
 A later cell, mix, reference, driver or metric is a new file and a new
-entry, never an edit.
+entry, never an edit.  A new cell brings:
+
+- its files: ``configs/<config>.json`` (naming its ``reference`` where its
+  step is not the parity step), that ``reference/<module>.py``,
+  ``traffic/<traffic>.json``, ``limits/<workload>.json``, a reader
+  ``metrics/<metric>.py`` for each metric no reader reads yet, and
+  ``drivers/<kind>.py`` where no driver runs its mix;
+- its entries in ``BENCHMARK.json``: the configuration under ``configs``
+  (its ``source`` that of its file), the cell under ``workloads``, and
+  each metric it reports under ``end_to_end`` or ``per_layer``;
+- its name in the ``workloads`` of each end-to-end metric it reports
+  besides ``setup_s`` (``setup_s`` lists none: every cell reports it),
+  of at least one such metric, and of ``build.load_s``, a per-layer
+  metric every cell reports;
+- in a driver of its own, ``step_factory``: the (module, attribute) of
+  the factory that builds its step, where the harness's tests plant a
+  broken step.  The module is imported by its dotted name
+  (``importlib.import_module``), so it is never the driver's own file,
+  which :func:`driver` loads anew on each call.  ``drive.Driver`` names
+  the factory of the port's ``Simulation``; a driver whose step comes
+  from elsewhere (an ensemble's batched step) names that one.
+
+The harness's per-cell tests (``tests/``) take the cell's reference, that
+reference's ``Params`` and the driver by name, as a run does, so a cell
+that brings the above goes through them with no edit.  They hold every
+cell to this, and a new cell has to meet it:
+
+- ``chips`` 1, and its configuration's ``reduced`` empty;
+- a run at 40 x 32 cells, units of 10 steps, on the port's plain ops
+  (``tests/small.py``): ``correct``, every end-to-end metric above 0, and
+  every compared number exactly 0, so its reference has to agree with the
+  port's plain ops bit for bit at that size;
+- the same with the reference named in the configuration or left to its
+  default, and its ``step_bound_s`` the sum of the bounds of its own
+  ``stages`` (``roofline.stages`` where it has none);
+- on one unit of its driver at that size, its reference judges the
+  capture within its limits, which hold ``step_u`` and ``step_dye``, and
+  the reference computed in bfloat16 in the program's place (the
+  control) reads above both;
+- a step that returns its state unchanged, and one that adds
+  0.01 x max(1, max|u|) to one cell of each member's velocity, each
+  planted in the driver's ``step_factory``, give ``correct`` false.
+
+A stage whose repeats vary from step to step, such as a V-cycle stopped by
+a residual test, is counted once for each occurrence: ``stages(fluid)``
+gives one occurrence under a name of its own, and a new reader multiplies
+it by the traced count of the span that marks each occurrence (for a step
+stopped after k cycles, ``fluid.mg.stopping_read`` counts k + 1).  The
+``step_bound_s`` of such a cell then bounds no step, so
+``kernel_roofline_share.headless``, which reads it, does not list the cell.
 """
 
 from __future__ import annotations

@@ -38,8 +38,12 @@ def test_build_load_is_none_for_a_port_without_counters(tmp_path):
     assert out.stdout.strip() == "None"
 
 
+def reports_build_load_when_traced(workload, bench=small.BENCH):
+    traced = [m["name"] for m in spec.metrics_for(bench, workload, True)]
+    untraced = [m["name"] for m in spec.metrics_for(bench, workload, False)]
+    assert "build.load_s" in traced and "build.load_s" not in untraced
+
+
 @pytest.mark.parametrize("workload", [c["name"] for c in small.BENCH["workloads"]])
 def test_every_cell_reports_build_load_when_traced(workload):
-    traced = [m["name"] for m in spec.metrics_for(small.BENCH, workload, True)]
-    untraced = [m["name"] for m in spec.metrics_for(small.BENCH, workload, False)]
-    assert "build.load_s" in traced and "build.load_s" not in untraced
+    reports_build_load_when_traced(workload)

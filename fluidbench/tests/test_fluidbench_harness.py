@@ -174,23 +174,24 @@ def test_forbidden_modules_compare_whole_top_level_names(monkeypatch):
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 
 
-def test_benchmark_json_names_files_that_exist():
-    b = small.BENCH
+def benchmark_json_names_files_that_exist(b=small.BENCH, root=HERE):
+    """``b`` (a benchmark's table) names files that exist under ``root``
+    and holds every cell to what each cell reports."""
     assert set(b) == {"command", "paths", "run_seconds", "configs", "workloads",
                       "end_to_end", "per_layer"}
     for c in b["configs"]:
-        assert NAME.fullmatch(c["name"]) and Path(HERE.parent / c["file"]).is_file()
+        assert NAME.fullmatch(c["name"]) and Path(root.parent / c["file"]).is_file()
         assert set(c) == {"name", "source", "file", "reduced", "why"}
-        assert spec.config(c["name"])["source"] == c["source"]
+        assert spec.config(c["name"], root)["source"] == c["source"]
     pairs = set()
     for w in b["workloads"]:
         assert NAME.fullmatch(w["name"]) and w["chips"] == 1 and len(w["why"]) <= 200
         assert (w["config"], w["traffic"]) not in pairs
         pairs.add((w["config"], w["traffic"]))
-        spec.traffic(w["traffic"])
-        spec.limits(w["name"])
+        spec.traffic(w["traffic"], root)
+        spec.limits(w["name"], root)
     for m in b["end_to_end"] + b["per_layer"]:
-        assert NAME.fullmatch(m["name"]) and (HERE / "metrics" / f"{m['name']}.py").is_file()
+        assert NAME.fullmatch(m["name"]) and (root / "metrics" / f"{m['name']}.py").is_file()
         assert set(m["workloads"]) <= {w["name"] for w in b["workloads"]} if "workloads" in m \
             else True
     for m in b["end_to_end"]:
@@ -201,23 +202,38 @@ def test_benchmark_json_names_files_that_exist():
         assert spec.metrics_for(b, w["name"], True)
 
 
-@pytest.mark.parametrize("name", [c["name"] for c in small.BENCH["configs"]])
-def test_each_config_is_its_preset_as_run(name):
-    conf = spec.config(name)
+def test_benchmark_json_names_files_that_exist():
+    benchmark_json_names_files_that_exist()
+
+
+def config_is_its_preset_as_run(name, root=HERE):
+    conf = spec.config(name, root)
     cfg = run.port_config(conf, "ref")
     assert cfg.nx == conf["fluid"]["nx"] and conf["reduced"] == []
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in small.BENCH["configs"]])
+def test_each_config_is_its_preset_as_run(name):
+    config_is_its_preset_as_run(name)
 
 
 # -- whole runs on the CPU ----------------------------------------------------
 
 
-@pytest.mark.parametrize("workload", CELLS)
-def test_a_small_run_is_correct_and_reports_its_metrics(workload):
-    res = small.run_small(workload)
+def small_run_is_correct(workload, root=spec.HERE, bench=small.BENCH):
+    """A whole small run of the cell, its parts under ``root``: correct,
+    with every end-to-end metric of the cell; the result for the caller."""
+    res = small.run_small(workload, root=root, bench=bench)
     assert res["correct"] is True, res["checks"]
     assert res["attempted"] >= 1 and res["failed"] == 0
     assert list(res)[-1] == "checks"
-    e2e = {m["name"] for m in spec.metrics_for(small.BENCH, workload, False)}
+    e2e = {m["name"] for m in spec.metrics_for(bench, workload, False)}
     assert set(res["metrics"]) == e2e
     assert all(v["value"] > 0 for v in res["metrics"].values())
     assert all(c["value"] == 0 for c in res["checks"].values())  # plain ops both sides
+    return res
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_a_small_run_is_correct_and_reports_its_metrics(workload):
+    small_run_is_correct(workload)

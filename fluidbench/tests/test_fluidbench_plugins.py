@@ -3,12 +3,16 @@ reference of its own with its own count of the step's stages
 (``reference/<module>.py``, named by the configuration's ``reference``),
 a driver of its own (``drivers/<kind>.py``, named by the mix's ``kind``),
 captures judged member by member, and the port's spans in the traced
-summary with the per-stage roofline that reads them."""
+summary with the per-stage roofline that reads them.  A cell whose
+reference has a ``Params`` of its own and whose driver names a step
+factory of its own goes through the harness's per-cell test bodies (the
+control, the broken steps, the small run) as new files only."""
 
 import copy
 import json
 import math
 import shutil
+import sys
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -18,6 +22,9 @@ import torch
 from fluidbench import check, drive, roofline, run, spec, trace
 from fluidbench.reference import step as parity
 from fluidbench.tests import small
+from fluidbench.tests import test_fluidbench_control as control
+from fluidbench.tests import test_fluidbench_counters as counters
+from fluidbench.tests import test_fluidbench_harness as harness
 
 HERE = Path(__file__).resolve().parent.parent
 CELLS = [c["name"] for c in small.BENCH["workloads"]]
@@ -149,19 +156,196 @@ def test_a_missing_reference_or_driver_raises(tmp_path):
     assert spec.reference(None).__file__ == parity.__file__
 
 
-@pytest.mark.parametrize("workload", CELLS)
-def test_the_step_reference_named_or_not_reads_the_same(workload, cpu_peaks):
-    _, conf, mix, limits = small.parts(workload)
-    named = dict(copy.deepcopy(conf), reference="step")
-    res_a, rec_a = _run(conf, mix, limits, seed=2 ** 31 + 11)
-    res_b, rec_b = _run(named, mix, limits, seed=2 ** 31 + 11)
+# -- a cell with its own Params and step factory, through the per-cell bodies --
+
+
+def step_reference_named_or_not_reads_the_same(workload, root=spec.HERE, bench=small.BENCH):
+    """The cell run as its configuration names its reference and with that
+    name written out (``step`` where it names none) reads the same, and its
+    step is bounded by that reference's own count of its stages; the first
+    run's records for the caller."""
+    _, conf, mix, limits = small.parts(workload, root=root, bench=bench)
+    named = dict(copy.deepcopy(conf), reference=conf.get("reference") or "step")
+    res_a, rec_a = _run(conf, mix, limits, root, seed=2 ** 31 + 11)
+    res_b, rec_b = _run(named, mix, limits, root, seed=2 ** 31 + 11)
     assert res_a["correct"] is True and res_a["checks"] == res_b["checks"]
     assert rec_a["step_bound_s"] == rec_b["step_bound_s"]
     assert rec_a["stage_bound_s"] == rec_b["stage_bound_s"]
     fluid = conf["fluid"]
-    assert rec_a["step_bound_s"] == roofline.step_bound_s(fluid, H100)  # bit for bit
+    count = getattr(spec.reference(conf.get("reference"), root), "stages", roofline.stages)
+    assert rec_a["step_bound_s"] == roofline.step_bound_s(fluid, H100, count)  # bit for bit
     assert rec_a["step_bound_s"] == sum(
-        max(b / 3.35e12, ops / 67e12) for b, ops in roofline.stages(fluid).values())
+        max(b / 3.35e12, ops / 67e12) for b, ops in count(fluid).values())
+    return rec_a
+
+
+OWN = "own-2048.orbit"
+
+OWN_REFERENCE = '''"""The parity step under a Params of its own, with its own count of the
+step's stages (three times the parity's); notes its calls in a log."""
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+
+from fluidbench import roofline
+from fluidbench.reference import step as base
+from fluidbench.reference.step import Impulse, State, host_scalars  # noqa
+
+LOG = Path(__file__).with_suffix(".log")
+
+
+def _note(what):
+    with open(LOG, "a") as f:
+        f.write(what + "\\n")
+
+
+class Params(NamedTuple):
+    parity: base.Params
+
+    @staticmethod
+    def from_fluid(fluid):
+        _note("from_fluid")
+        return Params(base.Params.from_fluid(fluid))
+
+
+def init(p, device, dtype=torch.float32):
+    return base.init(p.parity, device, dtype)
+
+
+def step(p, s, imp, dtype=torch.float32):
+    _note("step")
+    return base.step(p.parity, s, imp, dtype)
+
+
+def render(p, s, dtype=torch.float32):
+    return base.render(p.parity, s, dtype)
+
+
+def stages(fluid):
+    _note("stages")
+    return {k: (3 * b, 3 * ops) for k, (b, ops) in roofline.stages(fluid).items()}
+'''
+
+OWN_STEPS = '''"""The port's step factory, wrapped: notes its calls beside this file."""
+from pathlib import Path
+
+from cudafluidsimulation_tpu_torch.models import pipelines
+
+LOG = Path(__file__).with_suffix(".log")
+
+
+def make_step(config, ops=None):
+    with open(LOG, "a") as f:
+        f.write("make_step\\n")
+    return pipelines.make_step(config, ops)
+'''
+
+OWN_DRIVER = '''"""Headless rollouts whose step the factory of ``steps_own`` builds."""
+import importlib
+
+from fluidbench import drive
+
+
+class Stepped(drive.Rollout):
+    kind = "stepped"
+    records = "rollout"
+    step_factory = ("steps_own", "make_step")
+
+    def __init__(self, config, fluid, mix, seed):
+        super().__init__(config, fluid, mix, seed)
+        module, name = self.step_factory
+        self.sim.step_fn = getattr(importlib.import_module(module), name)(config, self.sim.ops)
+
+
+DRIVER = Stepped
+'''
+
+
+def _own_cell(tmp_path, monkeypatch):
+    """A harness root and a benchmark table with one more cell, ``OWN``:
+    the parity configuration naming the reference ``own`` (a ``Params`` and
+    a count of stages of its own), and the orbit mix of kind ``stepped``
+    (a driver whose step comes from the factory of ``steps_own``, a module
+    of that root on the import path), each a new file."""
+    root = tmp_path / "fluidbench"
+    for d in ("configs", "traffic", "limits", "metrics"):
+        shutil.copytree(HERE / d, root / d)
+    for path, text in (("reference/own.py", OWN_REFERENCE), ("steps/steps_own.py", OWN_STEPS),
+                       ("drivers/stepped.py", OWN_DRIVER)):
+        (root / path).parent.mkdir(exist_ok=True)
+        (root / path).write_text(text)
+    monkeypatch.syspath_prepend(str(root / "steps"))
+    monkeypatch.delitem(sys.modules, "steps_own", raising=False)  # an earlier root's
+    conf = dict(spec.config("parity-2048"), reference="own")
+    mix = dict(spec.traffic("orbit-headless"), kind="stepped")
+    (root / "configs" / "own-2048.json").write_text(json.dumps(conf))
+    (root / "traffic" / "stepped-orbit.json").write_text(json.dumps(mix))
+    shutil.copy(root / "limits" / "parity-2048.orbit.json", root / "limits" / f"{OWN}.json")
+    bench = copy.deepcopy(small.BENCH)
+    bench["configs"].append({"name": "own-2048", "source": conf["source"],
+                             "file": "fluidbench/configs/own-2048.json", "reduced": [],
+                             "why": "its own Params and count of stages"})
+    bench["workloads"].append({"name": OWN, "config": "own-2048", "traffic": "stepped-orbit",
+                               "chips": 1, "why": "its own Params and step factory"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "parity-2048.orbit" in m.get("workloads", []):
+            m["workloads"].append(OWN)
+    return root, bench
+
+
+def _notes(root):
+    """What the cell's reference and its step factory noted."""
+    logs = (root / "reference" / "own.log", root / "steps" / "steps_own.log")
+    return [log.read_text().split() if log.exists() else [] for log in logs]
+
+
+# Every body that fluidbench/tests runs over the cells or configurations of
+# BENCHMARK.json, and the check of the table itself: the reference's Params
+# made, the factory's calls and its stages counted (once a whole run) in each.
+OWN_BODIES = {
+    "control": (1, 1, 0),         # correct in float32, not in bfloat16
+    "unchanged": (1, 0, 1),       # correct false; the fault's factory calls no other
+    "altered": (1, 1, 1),         # correct false
+    "small_run": (1, 1, 1),       # correct, every check 0
+    "step_reference": (2, 2, 4),  # named or not, the same; bounded by its own stages
+    "build_load": (0, 0, 0),
+    "preset": (0, 0, 0),
+    "benchmark_json": (0, 0, 0),
+}
+
+
+@pytest.mark.parametrize("body", list(OWN_BODIES))
+def test_a_cells_own_reference_and_driver_are_the_ones_its_tests_run(tmp_path, monkeypatch,
+                                                                      cpu_peaks, body):
+    root, bench = _own_cell(tmp_path, monkeypatch)
+    if body == "control":
+        control.control_is_not_correct(OWN, 5, root, bench)
+    elif body in control.FAULTS:
+        control.broken_step_is_not_correct(OWN, control.FAULTS[body], monkeypatch, root, bench)
+    elif body == "small_run":
+        res = harness.small_run_is_correct(OWN, root, bench)
+        assert set(res["metrics"]) == {"gcell_per_s", "setup_s"}
+    elif body == "step_reference":
+        rec = step_reference_named_or_not_reads_the_same(OWN, root, bench)
+        fluid = small.parts(OWN, root=root, bench=bench)[1]["fluid"]
+        assert rec["step_bound_s"] == pytest.approx(3 * roofline.step_bound_s(fluid, H100))
+    elif body == "build_load":
+        counters.reports_build_load_when_traced(OWN, bench)
+    elif body == "preset":
+        harness.config_is_its_preset_as_run("own-2048", root)
+    else:
+        harness.benchmark_json_names_files_that_exist(bench, root)
+    made, built, runs = OWN_BODIES[body]
+    reference, factory = _notes(root)
+    assert reference.count("from_fluid") == made and reference[:1] == ["from_fluid"][:made]
+    assert ("step" in reference) == (made > 0) and reference.count("stages") == runs
+    assert factory == ["make_step"] * built
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_the_step_reference_named_or_not_reads_the_same(workload, cpu_peaks):
+    step_reference_named_or_not_reads_the_same(workload)
 
 
 def test_the_stage_bounds_at_2048_sum_to_the_step_bound():
