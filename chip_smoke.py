@@ -31,12 +31,12 @@ caught:
    (9 is two bursts), every H6 entry held to 0; then, at 540x960, the dye's NaN
    saturation, the cpu variant's flags (vorticity sign and epsilon, full
    divergence, 2-channel diffusion), 0, 1 and 2 iterations, and H4's
-   standalone ``pressure_solve`` at 0, 1, 2 and 40 sweeps; H4 at k - 1,
-   k, k + 1 and 2k + 1 sweeps (k the planner's burst depth) and H3 at
-   those and at d - 1, d, d + 1 and 2d + 1 (d its pass depth) at 16x16,
-   4x8, 135x240 and 2049x2047 (ragged tiles and strips; an odd width
-   takes H3's one cell a lane), where H4, its solve and H3 without the
-   splat must be bit-identical; H7 (separable
+   standalone ``pressure_solve`` at 0, 1, 2 and 40 sweeps; H4's solve at
+   k - 1, k, k + 1 and 2k + 1 sweeps (k the planner's burst depth), and
+   H3 and H4 at those and at d - 1, d, d + 1 and 2d + 1 (d their pass
+   depth) at 16x16, 4x8, 135x240 and 2049x2047 (ragged tiles and strips;
+   an odd width takes one cell a lane), where H4, its solve and H3 without
+   the splat must be bit-identical; H7 (separable
    diffusion) with and without the splat (without it held to 0), at 5 and
    2 channels, at 2048x2048, 540x960, 16x16 and 4x8 (where radius 5
    reflects more than once), its generic kernel on another design's radii,
@@ -51,7 +51,7 @@ caught:
    that run — then one driven step held against ``backend="ref"`` on the
    card, and bit for bit against the same step with the 5-channel pack
    built by ``torch.cat`` (:func:`cat_form`), and the device operations
-   of one step (10, none a ``cat``); H1's one launch a step and neither of
+   of one step (8, none a ``cat``); H1's one launch a step and neither of
    its passes, and both rollouts bit for bit against the same rollouts
    through H1's two passes (a namespace without ``advect_both``);
    ``run_scan_render`` for 4 steps, bit for bit against the step and the
@@ -78,7 +78,7 @@ caught:
    launch counts read around them (H7 and H8 launched, H1 and H3 not), one
    driven step against the same step on the plain versions of every
    kernel on the card and against the ``torch.cat`` pack, the device
-   operations of one step (10, none a ``cat``), that step's distance from the exact parity step
+   operations of one step (8, none a ``cat``), that step's distance from the exact parity step
    and of its advected velocity from the exact one (information), and one
    step under ``torch.cuda.set_sync_debug_mode("error")``, which shows
    that the step reads nothing back;
@@ -205,8 +205,8 @@ caught:
    the parity, quality and fast paths, the fixed-cycle path's ms/step, the
    plain versions' ms/step on the card, the device launches one H3, one H4
    and each H6 call of the quality path make (``torch.profiler``; one each
-   for H6), H3 under other chunkings and H4 under a few other burst
-   plans (information), and each kernel's ms at its path's shapes (by CUDA
+   for H6), H3 and H4 under other chunkings, and H4 at 540x960
+   (information), and each kernel's ms at its path's shapes (by CUDA
    events over 10 calls, and its device ms by ``torch.profiler``, which
    differ where a kernel is shorter than its wrapper's host cost) beside
    its plain version's and its bound: the larger of its bytes (each input
@@ -218,7 +218,7 @@ caught:
    single and batched, information); the ensemble's member-steps/s batched and
    with the same members run one after another as single-member steps,
    and the batched kernels' rows (``H1 batched`` ... ``H4 batched``, each
-   asserted to make one device launch a stage or a burst for all members);
+   asserted to make one device launch a stage or a pass for all members);
    the same for the fast ensemble and the quality sweep over their last 25
    steps (batched, one member at a time and the device trace, all from the
    state each rollout reached before them), and the rows ``H5 batched``,
@@ -307,14 +307,14 @@ VORT_SHAPES = CHECK_SHAPES + ((2049, 2047), (2050, 2046), (135, 240), (16, 16), 
                               (3, 5), (1, 1))
 # device operations of one driven 2048² step: the kernels' launches and
 # the memsets of their velocity bounds, no copy into the 5-channel pack
-# (parity: H1's one launch, H2, H3's 2 passes, H4's memset and 5 bursts;
-# fast: H8's two passes, H2, H7, H4's 6; quality at its 2 V-cycles: each of
+# (parity: H1's one launch, H2, H3's 2 passes, H4's 4 passes; fast: H8's
+# two passes, H2, H7, H4's 4; quality at its 2 V-cycles: each of
 # its 3 stopping tests is the two passes of H6 mean_square and a read).
 # H1 and H8 bound the velocity without a memset since their redesign
-STEP_DEVICE_OPS = {"parity": 10, "fast": 10, "quality": 46}
+STEP_DEVICE_OPS = {"parity": 8, "fast": 8, "quality": 46}
 QUALITY_STEP_VCYCLES = 2  # the V-cycles of the quality step counted
 # the most device launches one entry call may make at 2048²
-MAX_DEVICE_LAUNCHES = {"H3": 5, "H4": 8, "H4 solve": 8,
+MAX_DEVICE_LAUNCHES = {"H3": 5, "H4": 4, "H4 solve": 8,
                        "H6 smooth_res_restrict": 1, "H6 first_smooth_res_restrict": 1,
                        "H6 prolong_smooth": 1, "H6 smooth_damped": 1}
 # marker kernels launched before and after the work a profiler session
@@ -345,14 +345,13 @@ ENS_B, ENS_N, ENS_STEPS = 64, 512, 200
 ENS_SHAPES = ((ENS_B, ENS_N, ENS_N), (3, 540, 960), (5, 135, 240), (7, 4, 8))
 ENS_JITTER = 32.0  # each member's orbit centre moves by up to this many cells
 # device operations of one batched step: one copy of the members'
-# parameters, then the parity step's 10 (H1's one launch, H2, H3's 2
-# passes, H4's memset and 5 bursts)
-ENS_STEP_DEVICE_OPS = 11
+# parameters, then the parity step's 8 (H1's one launch, H2, H3's 2
+# passes, H4's 4 passes)
+ENS_STEP_DEVICE_OPS = 9
 # device launches one call of each batched entry makes at 64 x 512²: one a
-# stage (a pass for H3, a burst for H4) for all 64 members, with H4's memset of
-# its velocity bound
+# stage (a pass for H3 and H4) for all 64 members
 ENS_CALL_LAUNCHES = {"H1 batched": 1, "H1 batched velocity pass": 1, "H1 batched dye pass": 1,
-                     "H2 batched": 1, "H3 batched": 2, "H4 batched": 6}
+                     "H2 batched": 1, "H3 batched": 2, "H4 batched": 4}
 ENS_CPU_B, ENS_CPU_STEPS = 8, 10
 # phase 9, the fast and multigrid ensembles on batched H5-H8: H6's ends with
 # the grid transfers at these level pairs (even extents: 64 x 512² -> 256²,
@@ -363,8 +362,8 @@ ENS_MG_PAIRS = ((ENS_B, ENS_N, ENS_N), (3, 540, 960), (5, 32, 32), (2, 2050, 204
 ZWALK_B = 65537
 # device operations of one batched fast step: the parameter copy, H8's
 # velocity and dye passes, H2, H7 (one launch for every member's 5
-# planes), H4's memset and 5 bursts
-ENS_FAST_STEP_DEVICE_OPS = 11
+# planes), H4's 4 passes
+ENS_FAST_STEP_DEVICE_OPS = 9
 
 
 def ens_quality_step_ops(k, levels):
@@ -1741,12 +1740,12 @@ CLI_BUCKETS = {
 
 def _cli_kernels_per_call():
     """Device kernels one entry call of the parity rollout launches at N²:
-    H1 and H2 one, H3 a pass and H4 a burst each (the planners' plans for
+    H1 and H2 one, H3 and H4 a pass each (the planners' plans for
     20 diffusion and 40 pressure sweeps; memsets are not kernels)."""
     from cudafluidsimulation_tpu_torch.ops import jacobi_cuda
 
     return {"H1": 1, "H2": 1, "H3": len(jacobi_cuda.plan_diffuse(N, N, 20, 5).depths),
-            "H4": len(jacobi_cuda.plan_bursts(N, N, 40, "project").depths)}
+            "H4": len(jacobi_cuda.plan_pressure(N, N, 40).depths)}
 
 
 def _cli_report(text):
@@ -3413,10 +3412,11 @@ def main() -> int:
             "p", jacobi_cuda.pressure_solve(div, iters), ref.pressure_solve(div, iters))])
     del u, v, dye, fields, sat, push, got, exp, p, rhs, div
 
-    # H4 around the burst depth k: one burst short of k, exactly k, one
-    # sweep into a second burst, and 2k + 1 (three bursts); H3 at those and
-    # around its pass depth d; one tile or strip, a grid narrower than one
-    # 16-byte load, odd and ragged tiles and strips
+    # H4's solve around the burst depth k: one burst short of k, exactly k,
+    # one sweep into a second burst, and 2k + 1 (three bursts); H3 and H4 at
+    # those and around their pass depth d (one pass short of d, exactly d,
+    # one sweep into a second pass, three passes); one tile or strip, a
+    # grid narrower than one 16-byte load, odd and ragged tiles and strips
     k, d = jacobi_cuda.DEPTH, jacobi_cuda.DIFFUSE_DEPTH
     for h, w in BURST_SHAPES:
         u, v = randn(h, w, scale=200.0), randn(h, w, scale=200.0)
@@ -3431,12 +3431,12 @@ def main() -> int:
             _check(worst, "H3", f"splat {tag}", [(
                 "fields", jacobi_cuda.diffuse_multi_splat(fields, dt, coeffs, iters, amps, last, 400.0),
                 ref.diffuse_multi_splat(fields, dt, coeffs, iters, amps, last, 400.0))])
-            if iters not in (k - 1, k, k + 1, 2 * k + 1):
-                continue
             for half in (True, False):
                 got = jacobi_cuda.pressure_project(u, v, iters, half, return_stats=True)
                 exp = ref.pressure_project(u, v, iters, half, return_stats=True)
                 _check(worst, "H4", f"half={half} {tag}", zip(("u", "v", "p", "stats"), got, exp))
+            if iters not in (k - 1, k, k + 1, 2 * k + 1):
+                continue
             _check(worst, "H4 solve", tag, [(
                 "p", jacobi_cuda.pressure_solve(div, iters), ref.pressure_solve(div, iters))])
     del u, v, fields, div, got, exp
@@ -3877,7 +3877,7 @@ def main() -> int:
     # and each H6 entry the quality path calls (the bottom at 16²)
     device_launches = {k: _device_kernels(cases[k][0]) for k in MAX_DEVICE_LAUNCHES}
     plans = {"H3": jacobi_cuda.plan_diffuse(N, N, 20, 5),
-             "H4": jacobi_cuda.plan_bursts(N, N, 40, "project"),
+             "H4": jacobi_cuda.plan_pressure(N, N, 40),
              "H4 solve": jacobi_cuda.plan_bursts(N, N, 40, "solve"),
              "H6 smooth_res_restrict": jacobi_cuda.plan_bursts(N, N, 2, "smooth_res"),
              "H6 first_smooth_res_restrict": jacobi_cuda.plan_bursts(N, N, 2, "smooth_res"),
@@ -3889,23 +3889,31 @@ def main() -> int:
                "grid": "x".join(map(str, rhs16.shape if k == "H6 smooth_damped" else (N, N))),
                "launches": n, "by_name": counts, "plan_depths": plans[k].depths,
                **({"plan_cells": plans[k].cells, "plan_strips": plans[k].strips,
-                   "plan_chunks": plans[k].chunks} if k == "H3" else
+                   "plan_chunks": plans[k].chunks} if k in ("H3", "H4") else
                   {"plan_tile": plans[k].tile, "plan_smem": plans[k].smem})})
         if not 0 < n <= MAX_DEVICE_LAUNCHES[k]:
             raise AssertionError(f"{k}: {n} device launches in one call")
 
-    # information: H3 under other chunkings and H4 under other burst plans,
-    # against the defaults
+    # information: H3 and H4 under other chunkings, against the defaults,
+    # and H4 at the reference grid
     def plan_ms(fn):
         return statistics.median(per_call(fn, iters=5, warmup=1))
 
     plan_rows = []
-    for tile, depth in ((jacobi_cuda.TILE, jacobi_cuda.DEPTH), ((32, 112), 8), ((40, 112), 8),
-                        ((42, 112), 8), ((26, 112), 8), ((48, 104), 10), ((40, 104), 10)):
-        pp = jacobi_cuda.plan_bursts(N, N, 40, "project", tile=tile, depth=depth)
+    for chunk in (None, 24, 41, 64, 128):
+        pp = jacobi_cuda.plan_pressure(N, N, 40, chunk=chunk)
         plan_rows.append({
-            "tile": tile, "depth": depth, "H4_depths": pp.depths, "H4_smem": max(pp.smem),
+            "H4_chunk_rows": chunk, "H4_depths": pp.depths, "H4_cells": pp.cells,
+            "H4_strips": pp.strips, "H4_chunks": pp.chunks,
             "H4_ms": plan_ms(lambda: jacobi_cuda._pressure_project(u, v, 40, True, plan=pp))})
+    ru, rv = randn(540, 960, scale=200.0), randn(540, 960, scale=200.0)
+    rp = jacobi_cuda.plan_pressure(540, 960, 40)
+    plan_rows.append({
+        "H4_grid": "540x960", "H4_strips": rp.strips, "H4_chunks": rp.chunks,
+        "H4_ms": plan_ms(lambda: jacobi_cuda.pressure_project(ru, rv, 40, True, return_stats=True)),
+        "H4_device_ms": _device_ms(lambda: jacobi_cuda.pressure_project(ru, rv, 40, True,
+                                                                       return_stats=True))})
+    del ru, rv
     for chunk in (None, 128, 171, 256):
         hp = jacobi_cuda.plan_diffuse(N, N, 20, 5, chunk=chunk)
         plan_rows.append({

@@ -26,7 +26,7 @@
 // vertical taps cost nothing) and the two outer horizontal taps by shuffle.
 // No shared-memory traffic or barrier is left in the sweep loop; shared
 // memory holds only the input rows in flight (cp.async, a ring of
-// DIFFUSE_RING rows a warp).  A strip's outer columns are its only halo:
+// WAVE_RING rows a warp; csrc/wave.cuh).  A strip's outer columns are its only halo:
 // they go stale one column a sweep, so a strip of 32 V columns keeps the
 // 32 V - 2d in the middle (at a physical edge the clamp is true, so nothing
 // is lost there), and a chunk starts d rows early and ends d rows late.
@@ -45,14 +45,7 @@
 // bit-identical without the splat, and the splat is the trapezoid design's
 // own expression.
 //
-// Strips and chunks (shared with ops/jacobi_cuda.py strip_spans): strip j
-// of n keeps the columns [exact(j), exact(j + 1)), each a multiple of the
-// alignment (4 with 4 cells a lane, else 1), the last ending at w; its
-// lane 0 starts at column first(j): 0 for the first strip, w - 32 V for the
-// last (so column w - 1 is a lane's last cell and column 0 a lane's first
-// wherever a strip holds them, where the clamp is one select), and
-// exact(j) - d rounded down to the alignment between (at least 0, at most
-// w - 32 V).  Chunk k of m keeps the rows [k h / m, (k+1) h / m).
+// Strips and chunks: csrc/wave.cuh (ops/jacobi_cuda.py strip_spans).
 //
 // Planes: a launch sweeps n planes, plane z = blockIdx.z (and every
 // gridDim.z after it), with no cap on n.  A batch of B members of C
@@ -60,9 +53,7 @@
 // 1/beta and amp of its own and the splat centre of its member from row
 // z / C of a device array, so a sweep over viscosities is one launch a
 // pass.  A single call of at most 8 planes takes them by value instead.
-#include <stdint.h>
-
-#include "fluid_common.cuh"
+#include "wave.cuh"
 
 #define FLUID_MAX_CHANNELS 8
 // the pipeline's stages: the most sweeps one pass carries
@@ -71,10 +62,6 @@
 // the registers are sized for (255 a thread: 4 cells a lane take ~200)
 #define DIFFUSE_WARPS 4
 #define DIFFUSE_BLOCKS_PER_SM 2
-// input rows in flight ahead of the one a step consumes, and the ring a
-// warp keeps them in: a slot is refilled two steps after it was read
-#define DIFFUSE_AHEAD 3
-#define DIFFUSE_RING (DIFFUSE_AHEAD + 2)
 
 // The by-value parameters of a call of at most FLUID_MAX_CHANNELS planes.
 struct DiffuseParams {
@@ -112,76 +99,12 @@ __device__ __forceinline__ float splat_tail(float val, int gx, int gy,
   return val + q.amp * expf(-d2 / radius);
 }
 
-// -- strips -------------------------------------------------------------------
-
-static __host__ __device__ __forceinline__ int diffuse_align(int cells) {
-  return cells >= 4 ? 4 : 1;
-}
-
-// First column strip j of n keeps (j = n: the grid's width).
-static __host__ __device__ __forceinline__ int diffuse_exact(int j, int n, int w, int cells) {
-  if (j >= n) return w;
-  const int a = diffuse_align(cells);
-  return static_cast<int>(static_cast<long long>(j) * w / n) / a * a;
-}
-
-// Column of strip j's first cell (lane 0's).
-static __host__ __device__ __forceinline__ int diffuse_first(int j, int n, int w, int width,
-                                                            int d, int cells) {
-  if (j == 0) return 0;
-  if (j == n - 1) return w - width;
-  const int a = diffuse_align(cells);
-  const int l = diffuse_exact(j, n, w, cells) - d;
-  const int f = l > 0 ? l / a * a : 0;
-  return f < w - width ? f : w - width;
-}
-
-// Whether n strips of 32 * cells columns keep every column exactly at depth
-// d: each strip's span nonempty and inside the grid, d stale columns on
-// each side that is not the grid's edge (ops/jacobi_cuda.py strip_spans).
-static bool diffuse_strips_ok(int w, int cells, int d, int n) {
-  const int width = 32 * cells;
-  if (n < 1 || (cells >= 4 && w % 4 != 0)) return false;
-  if (n == 1) return w <= width && w % cells == 0;
-  if (w < width) return false;
-  for (int j = 0; j < n; ++j) {
-    const int e0 = diffuse_exact(j, n, w, cells), e1 = diffuse_exact(j + 1, n, w, cells);
-    const int f = diffuse_first(j, n, w, width, d, cells);
-    if (e1 <= e0 || f < 0 || f + width > w) return false;
-    if ((f > 0 && f > e0 - d) || (f + width < w && f + width < e1 + d)) return false;
-  }
-  return true;
-}
-
-// -- the ring of input rows -----------------------------------------------------
-
-template <int BYTES>
-__device__ __forceinline__ void diffuse_cp_async(float* s, const float* g, bool on) {
-  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
-  const int n = on ? BYTES : 0;  // 0: fill with zeros, read nothing
-  if (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa), "l"(g), "r"(n)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sa), "l"(g), "r"(n)
-                 : "memory");
-}
-
-__device__ __forceinline__ void diffuse_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void diffuse_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // One warp's strip and chunk of one plane.
 template <int V>
 struct Wave {
   const float* src;
   float* dst;
-  float* ring;      // DIFFUSE_RING slots of 32 * V floats
+  float* ring;      // WAVE_RING slots of 32 * V floats
   int h, w, d;
   int x0;           // this lane's first column
   int e0, e1;       // the columns the strip keeps
@@ -195,57 +118,21 @@ struct Wave {
 };
 
 // Start the copy of input row r (zeros past the grid) into a ring slot.
-// A lane's V floats sit as V / 4 16-byte pieces, piece k of every lane
-// together, so the warp's reads and copies touch distinct banks.
 template <int V>
-__device__ __forceinline__ void wave_load(const Wave<V>& c, int r, int slot, int lane) {
+__device__ __forceinline__ void diffuse_load(const Wave<V>& c, int r, int slot, int lane) {
   const bool on = c.lane_in && r < c.h;
-  const float* g = c.src + (on ? static_cast<size_t>(r) * c.w + c.x0 : 0);
-  float* s = c.ring + slot * 32 * V;
-  if constexpr (V == 1) {
-    diffuse_cp_async<4>(s + lane, g, on);
-  } else {
-#pragma unroll
-    for (int k = 0; k < V / 4; ++k) diffuse_cp_async<16>(s + (k * 32 + lane) * 4, g + 4 * k, on);
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void wave_read(const Wave<V>& c, int slot, float (&v)[V], int lane) {
-  const float* s = c.ring + slot * 32 * V;
-  if constexpr (V == 1) {
-    v[0] = s[lane];
-  } else {
-#pragma unroll
-    for (int k = 0; k < V / 4; ++k) {
-      const float4 q = *reinterpret_cast<const float4*>(s + (k * 32 + lane) * 4);
-      v[4 * k] = q.x;
-      v[4 * k + 1] = q.y;
-      v[4 * k + 2] = q.z;
-      v[4 * k + 3] = q.w;
-    }
-  }
+  wave_load<V>(c.ring + slot * 32 * V, c.src + (on ? static_cast<size_t>(r) * c.w + c.x0 : 0),
+               on, lane);
 }
 
 // The last stage's row gy, with the splat, into the columns the strip keeps.
 template <int V>
-__device__ __forceinline__ void wave_store(const Wave<V>& c, float (&o)[V], int gy) {
+__device__ __forceinline__ void diffuse_store(const Wave<V>& c, float (&o)[V], int gy) {
   if (c.splat) {
 #pragma unroll
     for (int i = 0; i < V; ++i) o[i] = splat_tail(o[i], c.x0 + i, gy, c.q, c.radius);
   }
-  float* p = c.dst + static_cast<size_t>(gy) * c.w + c.x0;
-  if constexpr (V == 1) {
-    if (c.x0 >= c.e0 && c.x0 < c.e1) p[0] = o[0];
-  } else {
-#pragma unroll
-    for (int k = 0; k < V / 4; ++k) {
-      const int x = c.x0 + 4 * k;
-      if (x >= c.e0 && x + 4 <= c.e1)
-        *reinterpret_cast<float4*>(p + 4 * k) =
-            make_float4(o[4 * k], o[4 * k + 1], o[4 * k + 2], o[4 * k + 3]);
-    }
-  }
+  wave_store<V>(c.dst + static_cast<size_t>(gy) * c.w + c.x0, o, c.x0, c.e0, c.e1);
 }
 
 // Where stage S writes its row: the next stage's newest slot, or o.
@@ -263,7 +150,7 @@ __device__ __forceinline__ auto& stage_out(float (&W)[D][3][V], float (&o)[V]) {
 // (FULL false) hand their input on unchanged.  CHECK: some stage of this
 // step may meet the grid's first or last row, whose B or T tap is itself.
 template <int S, int V, int D, bool FULL, int PHASE, bool CHECK>
-__device__ __forceinline__ void wave_stages(const Wave<V>& c, float (&W)[D][3][V],
+__device__ __forceinline__ void diffuse_stages(const Wave<V>& c, float (&W)[D][3][V],
                                             float (&o)[V], int r) {
   if constexpr (S < D) {
     auto& out = stage_out<S, V, D, PHASE>(W, o);
@@ -274,11 +161,8 @@ __device__ __forceinline__ void wave_stages(const Wave<V>& c, float (&W)[D][3][V
       const float(&a)[V] = W[S][(PHASE + 1) % 3];
       const float(&b)[V] = W[S][(PHASE + 2) % 3];
       const float(&t)[V] = W[S][PHASE];
-      // a lane at a strip's edge takes a neighbour's stale column or its own
-      float left = __shfl_up_sync(0xffffffffu, b[V - 1], 1);
-      float right = __shfl_down_sync(0xffffffffu, b[0], 1);
-      left = c.at_left ? b[0] : left;
-      right = c.at_right ? b[V - 1] : right;
+      float left, right;
+      wave_sides<V>(b, c.at_left, c.at_right, left, right);
       bool top = false, bot = false;
       if constexpr (CHECK) {
         const int row = r - (S + 1);
@@ -294,32 +178,32 @@ __device__ __forceinline__ void wave_stages(const Wave<V>& c, float (&W)[D][3][V
         out[i] = (L + R + B + T + b[i] * c.alpha) * c.inv_beta;
       }
     }
-    wave_stages<S + 1, V, D, FULL, PHASE, CHECK>(c, W, o, r);
+    diffuse_stages<S + 1, V, D, FULL, PHASE, CHECK>(c, W, o, r);
   }
 }
 
 // Step t: input row r = s0 + t from the ring into W[0], the copy of row
-// r + DIFFUSE_AHEAD started, every stage, and the last stage's row r - d
+// r + WAVE_AHEAD started, every stage, and the last stage's row r - d
 // stored when the chunk keeps it.
 template <int V, int D, bool FULL, int PHASE, bool CHECK>
-__device__ __forceinline__ void wave_step(const Wave<V>& c, float (&W)[D][3][V], int t,
+__device__ __forceinline__ void diffuse_step(const Wave<V>& c, float (&W)[D][3][V], int t,
                                           int lane) {
   const int r = c.s0 + t;
-  diffuse_wait<DIFFUSE_AHEAD - 1>();
-  wave_read<V>(c, t % DIFFUSE_RING, W[0][PHASE], lane);
-  wave_load<V>(c, r + DIFFUSE_AHEAD, (t + DIFFUSE_AHEAD) % DIFFUSE_RING, lane);
-  diffuse_commit();
+  wave_wait<WAVE_AHEAD - 1>();
+  wave_read<V>(c.ring + t % WAVE_RING * 32 * V, W[0][PHASE], lane);
+  diffuse_load<V>(c, r + WAVE_AHEAD, (t + WAVE_AHEAD) % WAVE_RING, lane);
+  wave_commit();
   float o[V];
-  wave_stages<0, V, D, FULL, PHASE, CHECK>(c, W, o, r);
+  diffuse_stages<0, V, D, FULL, PHASE, CHECK>(c, W, o, r);
   const int gy = r - c.d;
-  if (gy >= c.y0 && gy < c.y1) wave_store<V>(c, o, gy);
+  if (gy >= c.y0 && gy < c.y1) diffuse_store<V>(c, o, gy);
 }
 
 // One strip and chunk of one plane: steps three at a time (the slots'
 // rotation), a triple with no stage at the grid's first or last row on the
 // path without the clamp's row checks.
 template <int V, bool FULL>
-__device__ __forceinline__ void wave_plane(const Wave<V>& c, int lane) {
+__device__ __forceinline__ void diffuse_plane(const Wave<V>& c, int lane) {
   constexpr int D = DIFFUSE_DEPTH;
   float W[D][3][V];
 #pragma unroll
@@ -330,24 +214,24 @@ __device__ __forceinline__ void wave_plane(const Wave<V>& c, int lane) {
       for (int i = 0; i < V; ++i) W[s][k][i] = 0.f;
   const int steps = c.y1 + c.d - c.s0;
 #pragma unroll
-  for (int k = 0; k < DIFFUSE_AHEAD; ++k) {
-    wave_load<V>(c, c.s0 + k, k, lane);
-    diffuse_commit();
+  for (int k = 0; k < WAVE_AHEAD; ++k) {
+    diffuse_load<V>(c, c.s0 + k, k, lane);
+    wave_commit();
   }
 #pragma unroll 1
   for (int t = 0; t < steps; t += 3) {
     const int r = c.s0 + t;
     if (t + 3 <= steps && r - c.d >= 1 && r + 2 <= c.h - 1) {
-      wave_step<V, D, FULL, 0, false>(c, W, t, lane);
-      wave_step<V, D, FULL, 1, false>(c, W, t + 1, lane);
-      wave_step<V, D, FULL, 2, false>(c, W, t + 2, lane);
+      diffuse_step<V, D, FULL, 0, false>(c, W, t, lane);
+      diffuse_step<V, D, FULL, 1, false>(c, W, t + 1, lane);
+      diffuse_step<V, D, FULL, 2, false>(c, W, t + 2, lane);
     } else {
-      wave_step<V, D, FULL, 0, true>(c, W, t, lane);
-      if (t + 1 < steps) wave_step<V, D, FULL, 1, true>(c, W, t + 1, lane);
-      if (t + 2 < steps) wave_step<V, D, FULL, 2, true>(c, W, t + 2, lane);
+      diffuse_step<V, D, FULL, 0, true>(c, W, t, lane);
+      if (t + 1 < steps) diffuse_step<V, D, FULL, 1, true>(c, W, t + 1, lane);
+      if (t + 2 < steps) diffuse_step<V, D, FULL, 2, true>(c, W, t + 2, lane);
     }
   }
-  diffuse_wait<0>();  // the ring, before the next plane refills it
+  wave_wait<0>();  // the ring, before the next plane refills it
 }
 
 // One pass of d sweeps over planes blockIdx.z, blockIdx.z + gridDim.z, ...
@@ -358,19 +242,19 @@ __global__ void __launch_bounds__(32 * DIFFUSE_WARPS, DIFFUSE_BLOCKS_PER_SM)
 diffuse_wave_kernel(const float* __restrict__ src, float* __restrict__ dst, int n, int h,
                     int w, int d, int strips, int chunks, DiffuseParams p, DiffuseRows rows,
                     int splat) {
-  __shared__ __align__(16) float ring[DIFFUSE_WARPS * DIFFUSE_RING * 32 * V];
+  __shared__ __align__(16) float ring[DIFFUSE_WARPS * WAVE_RING * 32 * V];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long task = static_cast<long long>(blockIdx.x) * DIFFUSE_WARPS + warp;
   if (task >= static_cast<long long>(strips) * chunks) return;  // the whole warp
   const int j = static_cast<int>(task % strips), k = static_cast<int>(task / strips);
   Wave<V> c;
-  c.ring = ring + warp * DIFFUSE_RING * 32 * V;
+  c.ring = ring + warp * WAVE_RING * 32 * V;
   c.h = h;
   c.w = w;
   c.d = d;
-  c.x0 = diffuse_first(j, strips, w, 32 * V, d, V) + V * lane;
-  c.e0 = diffuse_exact(j, strips, w, V);
-  c.e1 = diffuse_exact(j + 1, strips, w, V);
+  c.x0 = wave_first(j, strips, w, 32 * V, d, V) + V * lane;
+  c.e0 = wave_exact(j, strips, w, V);
+  c.e1 = wave_exact(j + 1, strips, w, V);
   c.y0 = static_cast<int>(static_cast<long long>(k) * h / chunks);
   c.y1 = static_cast<int>(static_cast<long long>(k + 1) * h / chunks);
   c.s0 = max(c.y0 - d, 0);
@@ -387,7 +271,7 @@ diffuse_wave_kernel(const float* __restrict__ src, float* __restrict__ dst, int 
     c.inv_beta = c.q.inv_beta;
     c.src = src + z * hw;
     c.dst = dst + z * hw;
-    wave_plane<V, FULL>(c, lane);
+    diffuse_plane<V, FULL>(c, lane);
   }
 }
 
@@ -429,10 +313,6 @@ static cudaError_t diffuse_dispatch(int cells, const float* src, float* dst, int
              : diffuse_pass<4, false>(src, dst, n, h, w, d, strips, chunks, p, rows, splat, s);
 }
 
-static bool diffuse_aligned(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 // in, out, scratch: n (h, w) planes; scratch is needed when npasses >= 2.
 // cells: columns a lane (4 or 1; 4 takes 16-byte rows: w a multiple of 4
 // and the planes 16-byte aligned); depths, strips, chunks:
@@ -457,14 +337,14 @@ FLUID_API int fluid_diffuse(const float* in, float* out, float* scratch, int n, 
                      : (chans < 1 || n % chans != 0 || prm_stride < 3 * chans + 2))
     return cudaErrorInvalidValue;
   if (npasses >= 2 && scratch == nullptr) return cudaErrorInvalidValue;
-  if (cells == 4 && (w % 4 != 0 || !diffuse_aligned(in) || !diffuse_aligned(out) ||
-                     (scratch != nullptr && !diffuse_aligned(scratch))))
+  if (cells == 4 && (w % 4 != 0 || !wave_aligned(in) || !wave_aligned(out) ||
+                     (scratch != nullptr && !wave_aligned(scratch))))
     return cudaErrorInvalidValue;
   for (int j = 0; j < npasses; ++j) {
     const int d = depths[j];
     if (d < 0 || d > DIFFUSE_DEPTH || (d == 0 && (npasses > 1 || !splat)))
       return cudaErrorInvalidValue;
-    if (d > 0 && (chunks[j] < 1 || chunks[j] > h || !diffuse_strips_ok(w, cells, d, strips[j])))
+    if (d > 0 && (chunks[j] < 1 || chunks[j] > h || !wave_strips_ok(w, cells, d, strips[j])))
       return cudaErrorInvalidValue;
   }
   DiffuseParams p = {};

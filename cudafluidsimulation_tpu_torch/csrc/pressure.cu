@@ -1,6 +1,7 @@
 // H4: pressure projection — divergence, Jacobi sweeps from p = 0, gradient
-// subtraction and the velocity bound — and its standalone solve, both
-// temporally blocked; H5: the standalone divergence and projection.
+// subtraction and the velocity bound — as a row-streaming wavefront, and its
+// standalone solve in trapezoid bursts; H5: the standalone divergence and
+// projection.
 //
 // H4 replaces cudafluidsimulation_tpu/ops/jacobi_pallas.py pressure_project
 // -> _single_pressure_kernel, _first_pressure_kernel, _pressure_kernel,
@@ -15,25 +16,50 @@
 //
 // What bounds it on an H100: a sweep reads p and div and writes p, so one
 // launch per sweep (the first design, 0.96 ms for 40 sweeps at 2048²) is
-// bound by device memory and launches.  Here each launch is a burst of
-// `depth` sweeps on a tile + halo in shared memory (burst.cuh), fused as
-// the Pallas kernels are: the first burst computes the divergence of its
-// region from u and v, keeps it in shared memory beside p, and sweeps from
-// p = 0 (the first sweep is (0 - div) * 0.25, no p to read); middle bursts
-// load p and div; the last burst runs with halo depth + 1, so p is exact
-// one ring beyond the tile, then subtracts the gradient and emits
-// [max|u'|, max|v'|] by a block max and an atomic max.  40 sweeps are 5
-// launches; the bound is then the instruction issue and shared-memory
-// traffic of the sweeps (each row reads p above, div and writes p, 16
-// bytes a thread) and the halo's redundant cells: 0.385 ms at 2048² on an
-// NVIDIA H100 80GB HBM3 at 700 W.
-// Arithmetic order is the plain version's, without FMA contraction:
-// bit-identical.
+// bound by device memory and launches.  Trapezoid bursts of up to 8 sweeps
+// on a tile + halo in shared memory (burst.cuh; 5 launches and a memset,
+// 0.37 ms) moved the bound to the SMs' issue: every sweep paid shared
+// loads and stores of p and div and a block barrier, over a tile and halo
+// 1.4x the cells kept.
 //
-// H4 also takes a batch of independent members (ensembles) in the same
-// launches: member b = blockIdx.z (and every gridDim.z after it) reads u and
-// v at b times their member strides and every other plane, and its 2-float
-// stats slot, at b times its own size.  A single call is the case B = 1.
+// The projection now (fluid_pressure_project) is H3's design (diffuse.cu,
+// wave.cuh): a pass carries d <= PRESSURE_DEPTH sweeps down a column strip
+// in one warp's registers, stage k computing sweep k one row behind stage
+// k - 1 from the three rows of sweep k - 1 it keeps and the outer
+// horizontal taps by shuffle.  Stage k also needs div of its own row, k
+// rows behind the input row: a register delay line of it (D x V floats)
+// pushed the last pass past 255 registers into spills, so div rows sit in
+// a ring of their own in shared memory (PRESSURE_DIV_RING rows a warp,
+// each lane reading back only its own columns: no barrier), one 16-byte
+// read a stage.  Input rows arrive through cp.async rings.  The first pass
+// computes div = (uR - uL) + (vT - vB) from u and v as their rows stream
+// in (it reaches as far as a sweep), sweeps from p = 0 (the first sweep is
+// (0 - div) * 0.25, no p to read), writes div once for the later passes
+// and zeroes the velocity bound's slot (the last pass runs after it on the
+// stream).  Middle passes read p and div and write p.  The last pass runs
+// one stage more: the gradient at the row its last sweep finishes (one
+// more stale column and row), u and v read there through the ring, and
+// writes p, u', v' and the [max|u'|, max|v'|] of its kept cells by a warp
+// max and an atomic max.  A block is 2 warps, 4 blocks an SM (8 warps, as
+// H3's), so the last pass's rings fit the 48 KB of static shared memory.
+// 40 sweeps at 2048² are 4 passes, 17 plane-passes of device traffic.
+// What bounds it now is the SMs' issue over 1.5x the cells kept (128-column
+// strips keep 108; 50 chunks of 41 rows, each with 20 lead rows), as H3's;
+// the last pass, with two more input rows and three output rows a step,
+// takes 1.8x a middle one.  Measured 0.172 ms device for 40 sweeps at
+// 2048² (4 launches: 0.040, 2 x 0.035, 0.062), 0.547 ms for 64 x 512², on
+// an NVIDIA H100 80GB HBM3 at 700 W.  Arithmetic order is the plain
+// version's, built without FMA contraction: bit-identical.
+//
+// The standalone solve (fluid_pressure_solve) keeps the trapezoid bursts:
+// the sharded rollout's callers continue it from an iterate (init) across
+// halo exchanges whose depth is a burst's halo (parallel/).
+//
+// Members: the projection takes a batch of independent members
+// (ensembles) in the same launches: member b = blockIdx.z (and every
+// gridDim.z after it) reads u and v at b times their member strides and
+// every other plane, and its 2-float stats slot, at b times its own size.
+// A single call is the case B = 1.
 //
 // H5 replaces jacobi_pallas.py divergence -> _divergence_kernel and
 // project -> _project_kernel: one launch each (fluid_divergence,
@@ -42,27 +68,451 @@
 // (B, 5, H, W) pack), compiled apart from the single call (BATCH).
 #include "burst.cuh"
 #include "projection.cuh"
+#include "wave.cuh"
 
-struct PressureBurst {
-  const float* u;       // velocity, read when from_uv or project
+// -- the projection: a row-streaming wavefront ------------------------------------
+
+// the pipeline's stages: the most sweeps one pass carries
+#define PRESSURE_DEPTH 10
+// warps a block, each on a strip and chunk of its own, and the blocks an SM
+// the registers are sized for (255 a thread)
+#define PRESSURE_WARPS 2
+#define PRESSURE_BLOCKS_PER_SM 4
+// div's ring: row r - k for stage k, held until the last stage reads it, and
+// the copies in flight ahead of the first
+#define PRESSURE_DIV_RING (PRESSURE_DEPTH + WAVE_AHEAD)
+
+// One launch (one pass of d sweeps).  Member b's u and v at b * u_ms and
+// b * v_ms floats, its other planes at b * h * w, its stats at 2b.
+struct PressurePass {
+  const float* u;       // FIRST: the divergence's; LAST: the projection's
   const float* v;
-  const float* div_in;  // read unless from_uv
-  const float* p_in;    // read unless from_zero
-  float* div_out;       // written (the tile) when not null
-  float* p_out;         // the tile
-  float* u2;            // projected velocity, when project
+  const float* p_in;    // read unless FIRST
+  const float* div_in;  // read unless FIRST
+  float* p_out;
+  float* div_out;       // FIRST, when a later pass reads it
+  float* u2;            // LAST
   float* v2;
-  float* stats;         // [max|u'|, max|v'|] when project
-  int h, w, tile_h, tile_w, depth, half, from_uv, from_zero, project;
-  int nb;               // members; u and v member b at b * u_ms, b * v_ms,
-  long long u_ms, v_ms;  // the rest at b * h * w (stats at 2b)
+  float* stats;         // LAST: [max|u'|, max|v'|]; FIRST and not LAST: zeroed
+  int h, w, d, strips, chunks, half, nb;
+  long long u_ms, v_ms;
 };
 
-// One member's burst: depth sweeps with halo depth (+1 when project).
-// Shared memory: two iterates a, b and the divergence, each tile +- halo.
-__device__ __forceinline__ void pressure_burst_member(const PressureBurst& k, float4* smem4) {
+// One warp's strip and chunk of one member.  Its rings in shared memory:
+// `ring`, WAVE_RING slots a row apart of the rows a step reads (FIRST: u
+// and v at the input row; else p; LAST adds u and v at the gradient's row,
+// reach rows behind), and `dring`, PRESSURE_DIV_RING slots of div (row
+// s0 + t - 1 in slot t mod PRESSURE_DIV_RING).
+template <int V>
+struct PWave {
+  const float* u;
+  const float* v;
+  const float* p_in;
+  const float* div_in;
+  float* p_out;
+  float* div_out;
+  float* u2;
+  float* v2;
+  float* ring;
+  float* dring;
+  int h, w, d, reach, half;
+  int x0;           // this lane's first column
+  int e0, e1;       // the columns the strip keeps
+  int y0, y1, s0;   // the rows the chunk keeps, and the first row it reads
+  bool lane_in;     // the lane's columns lie in the grid
+  bool at_left;     // its first column is the grid's first
+  bool at_right;    // its last column is the grid's last
+};
+
+// The rings' floats a warp holds: the row rings, then div's.
+template <int V, bool FIRST, bool LAST>
+struct PWaveRings {
+  static constexpr int rows = (FIRST ? 2 : 1) + (LAST ? 2 : 0);
+  static constexpr int slot = 32 * V;
+  static constexpr int floats = (rows * WAVE_RING + PRESSURE_DIV_RING) * slot;
+};
+
+// Start the copies that step t reads, into its slots: row r of u and v
+// (FIRST) or of p and row r - 1 of div (into div's slot t); LAST, row
+// r - reach of u and v, where the chunk keeps it (the gradient's other
+// rows are never stored).  Rows outside the grid read as zeros.
+template <int V, bool FIRST, bool LAST>
+__device__ __forceinline__ void pw_load(const PWave<V>& c, int t, int lane) {
+  using R = PWaveRings<V, FIRST, LAST>;
+  const int r = c.s0 + t;
+  float* s = c.ring + t % WAVE_RING * R::slot;
+  auto one = [&](float* slot, const float* plane, int row, int y0, int y1) {
+    const bool on = c.lane_in && row >= y0 && row < y1;
+    wave_load<V>(slot, plane + (on ? static_cast<size_t>(row) * c.w + c.x0 : 0), on, lane);
+  };
+  if constexpr (FIRST) {
+    one(s, c.u, r, 0, c.h);
+    one(s + WAVE_RING * R::slot, c.v, r, 0, c.h);
+  } else {
+    one(s, c.p_in, r, 0, c.h);
+    one(c.dring + t % PRESSURE_DIV_RING * R::slot, c.div_in, r - 1, 0, c.h);
+  }
+  if constexpr (LAST) {
+    constexpr int k = FIRST ? 2 : 1;
+    one(s + k * WAVE_RING * R::slot, c.u, r - c.reach, c.y0, c.y1);
+    one(s + (k + 1) * WAVE_RING * R::slot, c.v, r - c.reach, c.y0, c.y1);
+  }
+}
+
+// Where stage S writes its row: the next stage's newest slot, or o.
+template <int S, int V, int D, int PHASE>
+__device__ __forceinline__ auto& pw_stage_out(float (&W)[D][3][V], float (&o)[V]) {
+  if constexpr (S + 1 < D)
+    return W[S + 1][PHASE];
+  else
+    return o;
+}
+
+// Stage S + 1 of step t: sweep S + 1 at row r - (S + 1), from the rows
+// r - S - 2 (a), r - S - 1 (b) and r - S (c) of sweep S in W[S] (the slots
+// rotate with the step, PHASE = t mod 3) and div of its row, in div's slot
+// dt - S (dt = t mod PRESSURE_DIV_RING; d1: FIRST's div of row r - 1, for
+// its stage 1, the sweep from p = 0, (0 - div) / 4).  Stages past a pass's depth (FULL false) hand
+// their input on unchanged.  CHECK: some stage of this step may meet the
+// grid's first or last row, whose B or T tap is itself.
+template <int S, int V, int D, bool FULL, bool FIRST, int PHASE, bool CHECK>
+__device__ __forceinline__ void pw_stages(const PWave<V>& c, float (&W)[D][3][V],
+                                          const float (&d1)[V], int dt, float (&o)[V], int r,
+                                          int lane) {
+  if constexpr (S < D) {
+    constexpr int SLOT = 32 * V;
+    auto& out = pw_stage_out<S, V, D, PHASE>(W, o);
+    if (!FULL && S >= c.d) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) out[i] = W[S][PHASE][i];
+    } else if constexpr (FIRST && S == 0) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) out[i] = (0.f - d1[i]) * 0.25f;
+    } else {
+      // div's slot of row r - S - 1, S slots before row r - 1's
+      const int ds = dt >= S ? dt - S : dt - S + PRESSURE_DIV_RING;
+      float dv[V];
+      wave_read<V>(c.dring + ds * SLOT, dv, lane);
+      const float(&a)[V] = W[S][(PHASE + 1) % 3];
+      const float(&b)[V] = W[S][(PHASE + 2) % 3];
+      const float(&t)[V] = W[S][PHASE];
+      float left, right;
+      wave_sides<V>(b, c.at_left, c.at_right, left, right);
+      bool top = false, bot = false;
+      if constexpr (CHECK) {
+        const int row = r - (S + 1);
+        top = row == 0;
+        bot = row == c.h - 1;
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float L = i == 0 ? left : b[i > 0 ? i - 1 : 0];
+        const float R = i == V - 1 ? right : b[i < V - 1 ? i + 1 : i];
+        const float B = top ? b[i] : a[i];
+        const float T = bot ? b[i] : t[i];
+        out[i] = (L + R + B + T - dv[i]) * 0.25f;
+      }
+    }
+    pw_stages<S + 1, V, D, FULL, FIRST, PHASE, CHECK>(c, W, d1, dt, o, r, lane);
+  }
+}
+
+// A pass's registers: W[S] the three newest rows of sweep S (W[0] the input
+// p), G the three newest rows of the last sweep (LAST), U and Vv the three
+// newest input rows of u and v (FIRST).
+template <int V, int D>
+struct PWaveRegs {
+  float W[D][3][V];
+  float G[3][V];
+  float U[3][V];
+  float Vv[3][V];
+};
+
+// Step t: the rows of input row r = s0 + t from the ring, the copies step
+// t + WAVE_AHEAD reads started; FIRST: div of row r - 1 into div's ring
+// (and to device memory where the chunk keeps it, when a later pass reads
+// it); every stage; then the last stage's row r - d written where the
+// chunk keeps it, or LAST: the gradient at row r - d - 1 from the last
+// sweep's rows, and p, u' and v' written there, with the maxima of |u'|
+// and |v'| over the kept cells.
+template <int V, int D, bool FULL, bool FIRST, bool LAST, int PHASE, bool CHECK>
+__device__ __forceinline__ void pw_step(const PWave<V>& c, PWaveRegs<V, D>& g, int t, int lane,
+                                        float& mu, float& mv) {
+  using R = PWaveRings<V, FIRST, LAST>;
+  const int r = c.s0 + t;
+  wave_wait<WAVE_AHEAD - 1>();
+  const float* s = c.ring + t % WAVE_RING * R::slot;
+  const int dt = t % PRESSURE_DIV_RING;
+  if constexpr (FIRST) {
+    wave_read<V>(s, g.U[PHASE], lane);
+    wave_read<V>(s + WAVE_RING * R::slot, g.Vv[PHASE], lane);
+  } else {
+    wave_read<V>(s, g.W[0][PHASE], lane);
+  }
+  // LAST: u and v of the gradient's row, read from the slot after the
+  // stages (step t's copies into it were waited for above, and the next
+  // copy into it starts two steps on)
+  pw_load<V, FIRST, LAST>(c, t + WAVE_AHEAD, lane);
+  wave_commit();
+  float d1[V];
+  if constexpr (FIRST) {
+    // (uR - uL) + (vT - vB) at row r - 1, times 0.5 when half
+    const float(&ub)[V] = g.U[(PHASE + 2) % 3];
+    const float(&va)[V] = g.Vv[(PHASE + 1) % 3];
+    const float(&vb)[V] = g.Vv[(PHASE + 2) % 3];
+    const float(&vt)[V] = g.Vv[PHASE];
+    float left, right;
+    wave_sides<V>(ub, c.at_left, c.at_right, left, right);
+    bool top = false, bot = false;
+    if constexpr (CHECK) {
+      top = r - 1 == 0;
+      bot = r - 1 == c.h - 1;
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float ul = i == 0 ? left : ub[i > 0 ? i - 1 : 0];
+      const float ur = i == V - 1 ? right : ub[i < V - 1 ? i + 1 : i];
+      const float vo = top ? vb[i] : va[i];
+      const float vn = bot ? vb[i] : vt[i];
+      const float dd = (ur - ul) + (vn - vo);
+      d1[i] = c.half ? 0.5f * dd : dd;
+    }
+    wave_put<V>(c.dring + dt * R::slot, d1, lane);
+    const int gy = r - 1;
+    if (c.div_out != nullptr && gy >= c.y0 && gy < c.y1)
+      wave_store<V>(c.div_out + static_cast<size_t>(gy) * c.w + c.x0, d1, c.x0, c.e0, c.e1);
+  }
+  float ol[V];
+  float(&o)[V] = LAST ? g.G[PHASE] : ol;
+  pw_stages<0, V, D, FULL, FIRST, PHASE, CHECK>(c, g.W, d1, dt, o, r, lane);
+  if constexpr (!LAST) {
+    const int gy = r - c.d;
+    if (gy >= c.y0 && gy < c.y1)
+      wave_store<V>(c.p_out + static_cast<size_t>(gy) * c.w + c.x0, o, c.x0, c.e0, c.e1);
+  } else {
+    // u' = u - 0.5 (pR - pL), v' = v - 0.5 (pT - pB) at row r - reach
+    const float(&pa)[V] = g.G[(PHASE + 1) % 3];
+    const float(&pb)[V] = g.G[(PHASE + 2) % 3];
+    const float(&pt)[V] = g.G[PHASE];
+    float left, right;
+    wave_sides<V>(pb, c.at_left, c.at_right, left, right);
+    const int gy = r - c.reach;
+    bool top = false, bot = false;
+    if constexpr (CHECK) {
+      top = gy == 0;
+      bot = gy == c.h - 1;
+    }
+    constexpr int k = FIRST ? 2 : 1;
+    float uu[V], vv[V], u2[V], v2[V];
+    wave_read<V>(s + k * WAVE_RING * R::slot, uu, lane);
+    wave_read<V>(s + (k + 1) * WAVE_RING * R::slot, vv, lane);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float pl = i == 0 ? left : pb[i > 0 ? i - 1 : 0];
+      const float pr = i == V - 1 ? right : pb[i < V - 1 ? i + 1 : i];
+      const float pB = top ? pb[i] : pa[i];
+      const float pT = bot ? pb[i] : pt[i];
+      u2[i] = uu[i] - 0.5f * (pr - pl);
+      v2[i] = vv[i] - 0.5f * (pT - pB);
+    }
+    if (gy >= c.y0 && gy < c.y1) {
+      const size_t row = static_cast<size_t>(gy) * c.w + c.x0;
+      wave_store<V>(c.p_out + row, pb, c.x0, c.e0, c.e1);
+      wave_store<V>(c.u2 + row, u2, c.x0, c.e0, c.e1);
+      wave_store<V>(c.v2 + row, v2, c.x0, c.e0, c.e1);
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        if (c.x0 + i >= c.e0 && c.x0 + i < c.e1) {
+          mu = fluid_nanmax(fabsf(u2[i]), mu);
+          mv = fluid_nanmax(fabsf(v2[i]), mv);
+        }
+    }
+  }
+}
+
+// One strip and chunk of one member: steps three at a time (the slots'
+// rotation), a triple whose stages meet neither the grid's first nor its
+// last row on the path without the clamp's row checks.
+template <int V, bool FULL, bool FIRST, bool LAST>
+__device__ __forceinline__ void pw_plane(const PWave<V>& c, int lane, float& mu, float& mv) {
+  constexpr int D = PRESSURE_DEPTH;
+  PWaveRegs<V, D> g;
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+#pragma unroll
+      for (int s = 0; s < D; ++s) g.W[s][k][i] = 0.f;
+      g.G[k][i] = g.U[k][i] = g.Vv[k][i] = 0.f;
+    }
+  const int steps = c.y1 + c.reach - c.s0;
+#pragma unroll
+  for (int k = 0; k < WAVE_AHEAD; ++k) {
+    pw_load<V, FIRST, LAST>(c, k, lane);
+    wave_commit();
+  }
+#pragma unroll 1
+  for (int t = 0; t < steps; t += 3) {
+    const int r = c.s0 + t;
+    if (t + 3 <= steps && r - c.reach >= 1 && r + 2 <= c.h - 1) {
+      pw_step<V, D, FULL, FIRST, LAST, 0, false>(c, g, t, lane, mu, mv);
+      pw_step<V, D, FULL, FIRST, LAST, 1, false>(c, g, t + 1, lane, mu, mv);
+      pw_step<V, D, FULL, FIRST, LAST, 2, false>(c, g, t + 2, lane, mu, mv);
+    } else {
+      pw_step<V, D, FULL, FIRST, LAST, 0, true>(c, g, t, lane, mu, mv);
+      if (t + 1 < steps) pw_step<V, D, FULL, FIRST, LAST, 1, true>(c, g, t + 1, lane, mu, mv);
+      if (t + 2 < steps) pw_step<V, D, FULL, FIRST, LAST, 2, true>(c, g, t + 2, lane, mu, mv);
+    }
+  }
+  wave_wait<0>();  // the rings, before the next member refills them
+}
+
+// One pass over members blockIdx.z, blockIdx.z + gridDim.z, ... < nb; warp
+// task = (strip, chunk), strips fastest.  FULL: d is PRESSURE_DEPTH.
+template <int V, bool FULL, bool FIRST, bool LAST>
+__global__ void __launch_bounds__(32 * PRESSURE_WARPS, PRESSURE_BLOCKS_PER_SM)
+pressure_wave_kernel(PressurePass k) {
+  using R = PWaveRings<V, FIRST, LAST>;
+  __shared__ __align__(16) float ring[PRESSURE_WARPS * R::floats];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (FIRST && !LAST && blockIdx.x == 0 && threadIdx.x == 0) {
+    // the last pass, later on the stream, takes the maxima into these
+    for (int b = blockIdx.z; b < k.nb; b += gridDim.z) k.stats[2 * b] = k.stats[2 * b + 1] = 0.f;
+  }
+  const long long task = static_cast<long long>(blockIdx.x) * PRESSURE_WARPS + warp;
+  if (task >= static_cast<long long>(k.strips) * k.chunks) return;  // the whole warp
+  const int j = static_cast<int>(task % k.strips), m = static_cast<int>(task / k.strips);
+  PWave<V> c;
+  c.ring = ring + warp * R::floats;
+  c.dring = c.ring + R::rows * WAVE_RING * R::slot;
+  c.h = k.h;
+  c.w = k.w;
+  c.d = k.d;
+  c.reach = k.d + (LAST ? 1 : 0);
+  c.half = k.half;
+  c.x0 = wave_first(j, k.strips, k.w, 32 * V, c.reach, V) + V * lane;
+  c.e0 = wave_exact(j, k.strips, k.w, V);
+  c.e1 = wave_exact(j + 1, k.strips, k.w, V);
+  c.y0 = static_cast<int>(static_cast<long long>(m) * k.h / k.chunks);
+  c.y1 = static_cast<int>(static_cast<long long>(m + 1) * k.h / k.chunks);
+  c.s0 = max(c.y0 - c.reach, 0);
+  c.lane_in = c.x0 < k.w;
+  c.at_left = c.x0 == 0;
+  c.at_right = c.x0 + V - 1 == k.w - 1;
+  const size_t hw = static_cast<size_t>(k.h) * k.w;
+#pragma unroll 1
+  for (int b = blockIdx.z; b < k.nb; b += gridDim.z) {
+    c.u = fluid_shift(k.u, b * k.u_ms);
+    c.v = fluid_shift(k.v, b * k.v_ms);
+    c.p_in = fluid_shift(k.p_in, b * hw);
+    c.div_in = fluid_shift(k.div_in, b * hw);
+    c.p_out = fluid_shift(k.p_out, b * hw);
+    c.div_out = fluid_shift(k.div_out, b * hw);
+    c.u2 = fluid_shift(k.u2, b * hw);
+    c.v2 = fluid_shift(k.v2, b * hw);
+    float mu = 0.f, mv = 0.f;
+    pw_plane<V, FULL, FIRST, LAST>(c, lane, mu, mv);
+    if constexpr (LAST) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        mu = fluid_nanmax(mu, __shfl_xor_sync(0xffffffffu, mu, off));
+        mv = fluid_nanmax(mv, __shfl_xor_sync(0xffffffffu, mv, off));
+      }
+      // |x| >= 0 (or NaN with the sign bit clear): int order is float order
+      if (lane == 0) {
+        atomicMax(reinterpret_cast<int*>(k.stats) + 2 * b, __float_as_int(mu));
+        atomicMax(reinterpret_cast<int*>(k.stats) + 2 * b + 1, __float_as_int(mv));
+      }
+    }
+  }
+}
+
+template <int V, bool FULL, bool FIRST, bool LAST>
+static cudaError_t pressure_pass(const PressurePass& k, cudaStream_t s) {
+  const long long tasks = static_cast<long long>(k.strips) * k.chunks;
+  const dim3 grid(static_cast<unsigned>((tasks + PRESSURE_WARPS - 1) / PRESSURE_WARPS), 1,
+                  fluid_grid_z(k.nb));
+  pressure_wave_kernel<V, FULL, FIRST, LAST><<<grid, 32 * PRESSURE_WARPS, 0, s>>>(k);
+  return cudaGetLastError();
+}
+
+template <bool FIRST, bool LAST>
+static cudaError_t pressure_dispatch(int cells, const PressurePass& k, cudaStream_t s) {
+  if (cells == 1) return pressure_pass<1, false, FIRST, LAST>(k, s);
+  return k.d == PRESSURE_DEPTH ? pressure_pass<4, true, FIRST, LAST>(k, s)
+                               : pressure_pass<4, false, FIRST, LAST>(k, s);
+}
+
+// u, v in; u2, v2, p out; div, scratch: (h, w) work planes, used when
+// npasses >= 2; stats: 2 floats.  cells: columns a lane (4 or 1; 4 takes
+// 16-byte rows: w a multiple of 4, the planes 16-byte aligned and the
+// member strides multiples of 4); depths, strips, chunks: npasses host
+// ints, each pass's sweeps and its strips and chunks (ops/jacobi_cuda.py
+// plan_pressure; the last pass reaches one column and row further, for the
+// gradient); one pass of depth 0 for iters = 0.  Pass j writes p when
+// (npasses-1-j) is even, else scratch, so the last lands in p.  nb members:
+// member b's u and v at b * u_ms and b * v_ms floats, its u2, v2, p, div
+// and scratch at b * h * w, its stats at 2b.
+FLUID_API int fluid_pressure_project(const float* u, const float* v, float* u2, float* v2,
+                                     float* p, float* div, float* scratch, float* stats, int h,
+                                     int w, int cells, const int* depths, const int* strips,
+                                     const int* chunks, int npasses, int half, int nb,
+                                     long long u_ms, long long v_ms, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (h < 1 || w < 1 || nb < 1 || npasses < 1 || depths == nullptr || strips == nullptr ||
+      chunks == nullptr || (cells != 1 && cells != 4))
+    return cudaErrorInvalidValue;
+  if (npasses >= 2 && (div == nullptr || scratch == nullptr)) return cudaErrorInvalidValue;
+  if (cells == 4) {
+    const float* planes[] = {u, v, u2, v2, p, div, scratch};
+    for (const float* q : planes)
+      if (q != nullptr && !wave_aligned(q)) return cudaErrorInvalidValue;
+    if (w % 4 != 0 || u_ms % 4 != 0 || v_ms % 4 != 0) return cudaErrorInvalidValue;
+  }
+  for (int j = 0; j < npasses; ++j) {
+    const int d = depths[j], reach = d + (j == npasses - 1 ? 1 : 0);
+    if (d < 0 || d > PRESSURE_DEPTH || (d == 0 && npasses > 1) || chunks[j] < 1 ||
+        chunks[j] > h || !wave_strips_ok(w, cells, reach, strips[j]))
+      return cudaErrorInvalidValue;
+  }
+  if (npasses == 1) {
+    // no first pass before the last to zero the maxima
+    const cudaError_t e = cudaMemsetAsync(stats, 0, 2 * sizeof(float) * nb, s);
+    if (e != cudaSuccess) return e;
+  }
+  PressurePass k = {u, v, nullptr, div, nullptr, nullptr, u2, v2, stats,
+                    h, w, 0, 0, 0, half, nb, u_ms, v_ms};
+  for (int j = 0; j < npasses; ++j) {
+    const bool first = j == 0, last = j == npasses - 1;
+    k.d = depths[j];
+    k.strips = strips[j];
+    k.chunks = chunks[j];
+    k.p_out = ((npasses - 1 - j) % 2 == 0) ? p : scratch;
+    k.div_out = first && !last ? div : nullptr;
+    const cudaError_t e = first ? (last ? pressure_dispatch<true, true>(cells, k, s)
+                                        : pressure_dispatch<true, false>(cells, k, s))
+                                : (last ? pressure_dispatch<false, true>(cells, k, s)
+                                        : pressure_dispatch<false, false>(cells, k, s));
+    if (e != cudaSuccess) return e;
+    k.p_in = k.p_out;
+  }
+  return cudaSuccess;
+}
+
+// -- the standalone solve: trapezoid bursts ------------------------------------
+
+struct PressureBurst {
+  const float* div_in;
+  const float* p_in;    // read unless from_zero
+  float* p_out;         // the tile
+  int h, w, tile_h, tile_w, depth, from_zero;
+};
+
+// One burst: depth sweeps with halo depth.  Shared memory: two iterates a,
+// b and the divergence, each tile +- halo.
+__device__ __forceinline__ void pressure_burst_tile(const PressureBurst& k, float4* smem4) {
   const int h = k.h, w = k.w;
-  const int halo = k.depth + (k.project ? 1 : 0);
+  const int halo = k.depth;
   const BurstTile t = burst_tile(h, w, k.tile_h, k.tile_w, halo);
   const int st = t.stride;
   const int nbuf = burst_rows(h, k.tile_h, halo) * st;
@@ -72,50 +522,25 @@ __device__ __forceinline__ void pressure_burst_member(const PressureBurst& k, fl
   auto op = [](float l, float r, float bo, float to, float, float d) {
     return (l + r + bo + to - d) * 0.25f;
   };
-  if (k.from_uv) {
-    // u into a, v into b, then the divergence over tile +- (halo - 1): the
-    // first sweep needs p there, and no later one reads div further out
-    burst_fill(a, k.u, w, t);
-    burst_fill(b, k.v, w, t);
-    __syncthreads();
-    const float* vb = b;
-    const int rlo = -t.y0, rhi = h - 1 - t.y0, half = k.half;
-    burst_visit(a, h, w, t, halo - 1,
-                [&](int r, int c, bool on, float4 ul, float4 ur, float4, float4, float4) {
-                  if (!on) return;
-                  const float4 vo = burst_ld4(vb + max(r - 1, rlo) * st + c);
-                  const float4 vt = burst_ld4(vb + min(r + 1, rhi) * st + c);
-                  float4 d = make_float4((ur.x - ul.x) + (vt.x - vo.x), (ur.y - ul.y) + (vt.y - vo.y),
-                                         (ur.z - ul.z) + (vt.z - vo.z), (ur.w - ul.w) + (vt.w - vo.w));
-                  if (half) d = make_float4(0.5f * d.x, 0.5f * d.y, 0.5f * d.z, 0.5f * d.w);
-                  burst_st4(div + r * st + c, d);
-                });
-  } else {
-    burst_fill(div, k.div_in, w, t);
-  }
+  burst_fill(div, k.div_in, w, t);
   if (!k.from_zero) burst_fill(a, k.p_in, w, t);
   __syncthreads();
-  if (k.div_out != nullptr) burst_copy_tile(k.div_out, div, w, t);
   int first = 1;
   if (k.from_zero) {
-    // the first sweep from p = 0 (every tap zero) over tile +- (halo - 1);
-    // iters = 0 leaves p = 0 over the whole region
-    const BurstSpan sp = burst_span(t, h, w, k.depth > 0 ? halo - 1 : halo);
+    // the first sweep from p = 0 (every tap zero) over tile +- (halo - 1)
+    const BurstSpan sp = burst_span(t, h, w, halo - 1);
     for (int r = sp.r0 + threadIdx.y; r < sp.r1; r += BURST_NY)
       for (int c = (sp.c0 & ~3) + 4 * threadIdx.x; c < sp.c1; c += 128) {
         const float4 d = burst_ld4(div + r * st + c);
-        burst_st4(a + r * st + c,
-                  k.depth > 0 ? make_float4((0.f - d.x) * 0.25f, (0.f - d.y) * 0.25f,
-                                            (0.f - d.z) * 0.25f, (0.f - d.w) * 0.25f)
-                              : make_float4(0.f, 0.f, 0.f, 0.f));
+        burst_st4(a + r * st + c, make_float4((0.f - d.x) * 0.25f, (0.f - d.y) * 0.25f,
+                                              (0.f - d.z) * 0.25f, (0.f - d.w) * 0.25f));
       }
     __syncthreads();
     first = 2;
   }
-  // sweeps first..depth-1 in shared memory; the last one too when project
+  // sweeps first..depth-1 in shared memory
   const float* dv = div;
-  const int last_in_smem = k.project ? k.depth : k.depth - 1;
-  for (int j = first; j <= last_in_smem; ++j) {
+  for (int j = first; j <= k.depth - 1; ++j) {
     float* dst = b;
     burst_visit(a, h, w, t, halo - j,
                 [&](int r, int c, bool on, float4 l, float4 rt, float4 bo, float4 to, float4 ce) {
@@ -127,161 +552,33 @@ __device__ __forceinline__ void pressure_burst_member(const PressureBurst& k, fl
     b = a;
     a = dst;
   }
-  if (!k.project) {
-    // the last sweep, the tile only, to device memory (depth 1 from zero
-    // has done it: copy the tile)
-    if (k.depth >= first) {
-      burst_visit(a, h, w, t, 0,
-                  [&](int r, int c, bool on, float4 l, float4 rt, float4 bo, float4 to, float4 ce) {
-                    if (on)
-                      burst_store_tile(k.p_out, w, t, t.y0 + r, t.ox + c,
-                                       burst_map4(op, l, rt, bo, to, ce, burst_ld4(dv + r * st + c)));
-                  });
-    } else {
-      burst_copy_tile(k.p_out, a, w, t);
-    }
-    return;
+  // the last sweep, the tile only, to device memory (depth 1 from zero has
+  // done it: copy the tile)
+  if (k.depth >= first) {
+    burst_visit(a, h, w, t, 0,
+                [&](int r, int c, bool on, float4 l, float4 rt, float4 bo, float4 to, float4 ce) {
+                  if (on)
+                    burst_store_tile(k.p_out, w, t, t.y0 + r, t.ox + c,
+                                     burst_map4(op, l, rt, bo, to, ce, burst_ld4(dv + r * st + c)));
+                });
+  } else {
+    burst_copy_tile(k.p_out, a, w, t);
   }
-  // p holds one ring beyond the tile: u' = u - 0.5 (pR - pL),
-  // v' = v - 0.5 (pT - pB) on the tile; write p, u', v' and the maxima
-  float mu = 0.f, mv = 0.f;
-  burst_visit(a, h, w, t, 0,
-              [&](int r, int c, bool on, float4 pl, float4 pr, float4 pb, float4 pt, float4 pc) {
-                if (!on) return;
-                const int gx = t.ox + c, gy = t.y0 + r;
-                const float4 u = burst_load_tile(k.u, w, t, gy, gx);
-                const float4 v = burst_load_tile(k.v, w, t, gy, gx);
-                const float4 u2 = make_float4(u.x - 0.5f * (pr.x - pl.x), u.y - 0.5f * (pr.y - pl.y),
-                                              u.z - 0.5f * (pr.z - pl.z), u.w - 0.5f * (pr.w - pl.w));
-                const float4 v2 = make_float4(v.x - 0.5f * (pt.x - pb.x), v.y - 0.5f * (pt.y - pb.y),
-                                              v.z - 0.5f * (pt.z - pb.z), v.w - 0.5f * (pt.w - pb.w));
-                burst_store_tile(k.u2, w, t, gy, gx, u2);
-                burst_store_tile(k.v2, w, t, gy, gx, v2);
-                burst_store_tile(k.p_out, w, t, gy, gx, pc);
-                const float au[4] = {u2.x, u2.y, u2.z, u2.w}, av[4] = {v2.x, v2.y, v2.z, v2.w};
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                  if (gx + j < t.tx1) {
-                    mu = fluid_nanmax(fabsf(au[j]), mu);
-                    mv = fluid_nanmax(fabsf(av[j]), mv);
-                  }
-              });
-  fluid_block_max2_atomic(mu, mv, k.stats);
 }
 
 __global__ void __launch_bounds__(BURST_THREADS, 2)
 pressure_burst_kernel(PressureBurst k) {
   extern __shared__ float4 smem4[];
-  const size_t hw = static_cast<size_t>(k.h) * k.w;
-  // one member at a time, the body's shape opaque (fluid_opaque)
-#pragma unroll 1
-  for (int b = blockIdx.z; b < k.nb; b += gridDim.z) {
-    PressureBurst m = k;
-    m.u = fluid_shift(k.u, b * k.u_ms);
-    m.v = fluid_shift(k.v, b * k.v_ms);
-    m.div_in = fluid_shift(k.div_in, b * hw);
-    m.p_in = fluid_shift(k.p_in, b * hw);
-    m.div_out = fluid_shift(k.div_out, b * hw);
-    m.p_out = fluid_shift(k.p_out, b * hw);
-    m.u2 = fluid_shift(k.u2, b * hw);
-    m.v2 = fluid_shift(k.v2, b * hw);
-    m.stats = fluid_shift(k.stats, 2 * static_cast<size_t>(b));
-    m.h = fluid_opaque(k.h);
-    m.w = fluid_opaque(k.w);
-    m.tile_h = fluid_opaque(k.tile_h);
-    m.tile_w = fluid_opaque(k.tile_w);
-    m.depth = fluid_opaque(k.depth);
-    pressure_burst_member(m, smem4);
-    __syncthreads();  // shared memory, before the next member's fill
-  }
-}
-
-// Launch the bursts: depths[j] sweeps each (sum = iters); burst j writes p
-// when (nbursts-1-j) is even, else scratch, so the last lands in p.
-static cudaError_t pressure_bursts(PressureBurst k, const int* depths,
-                                   int nbursts, float* p, float* scratch,
-                                   float* div, cudaStream_t s) {
-  if (k.h < 1 || k.w < 1 || k.tile_h < 1 || k.tile_w < 1 || nbursts < 1 ||
-      k.nb < 1 || depths == nullptr)
-    return cudaErrorInvalidValue;
-  if (nbursts >= 2 && (scratch == nullptr || (k.from_uv && div == nullptr)))
-    return cudaErrorInvalidValue;
-  const int project = k.project;
-  size_t smem = 0;
-  for (int j = 0; j < nbursts; ++j) {
-    if (depths[j] < 0 || (depths[j] == 0 && (nbursts > 1 || !project)))
-      return cudaErrorInvalidValue;
-    const int halo = depths[j] + (project && j == nbursts - 1 ? 1 : 0);
-    const size_t b = burst_smem_bytes(3, k.h, k.w, k.tile_h, k.tile_w, halo);
-    if (b > smem) smem = b;
-  }
-  cudaError_t e = burst_allow_smem(pressure_burst_kernel, smem);
-  if (e != cudaSuccess) return e;
-  if (project) {
-    e = cudaMemsetAsync(k.stats, 0, 2 * sizeof(float) * k.nb, s);
-    if (e != cudaSuccess) return e;
-  }
-  const int from_uv = k.from_uv;
-  for (int j = 0; j < nbursts; ++j) {
-    const int last = j == nbursts - 1;
-    PressureBurst b = k;
-    b.depth = depths[j];
-    b.from_uv = from_uv && j == 0;
-    b.from_zero = j == 0 && k.p_in == nullptr;  // else the first burst continues from p_in
-    b.project = project && last;
-    b.div_out = (from_uv && j == 0 && !last) ? div : nullptr;
-    if (j > 0) b.div_in = from_uv ? div : k.div_in;
-    b.p_out = ((nbursts - 1 - j) % 2 == 0) ? p : scratch;
-    const int halo = b.depth + (b.project ? 1 : 0);
-    pressure_burst_kernel<<<burst_grid(k.h, k.w, k.tile_h, k.tile_w, fluid_grid_z(k.nb)),
-                            dim3(32, BURST_NY),
-                            burst_smem_bytes(3, k.h, k.w, k.tile_h, k.tile_w, halo),
-                            s>>>(b);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    k.p_in = b.p_out;
-  }
-  return cudaSuccess;
-}
-
-// u, v in; u2, v2, p out; div, scratch: (h, w) work planes (used when
-// nbursts >= 2); stats: 2 floats.  tile_h x tile_w: a block's output tile;
-// depths: nbursts host ints (ops/jacobi_cuda.py plan_bursts), one burst
-// of depth 0 for iters = 0.  nb members: member b's u and v at b * u_ms and
-// b * v_ms floats, its u2, v2, p, div and scratch at b * h * w, its stats
-// at 2b.
-FLUID_API int fluid_pressure_project(const float* u, const float* v,
-                                     float* u2, float* v2, float* p,
-                                     float* div, float* scratch,
-                                     float* stats, int h, int w, int tile_h,
-                                     int tile_w, const int* depths,
-                                     int nbursts, int half, int nb,
-                                     long long u_ms, long long v_ms, void* stream) {
-  PressureBurst k = {};
-  k.nb = nb;
-  k.u_ms = u_ms;
-  k.v_ms = v_ms;
-  k.u = u;
-  k.v = v;
-  k.u2 = u2;
-  k.v2 = v2;
-  k.stats = stats;
-  k.h = h;
-  k.w = w;
-  k.tile_h = tile_h;
-  k.tile_w = tile_w;
-  k.half = half;
-  k.from_uv = 1;
-  k.project = 1;
-  return pressure_bursts(k, depths, nbursts, p, scratch, div,
-                         static_cast<cudaStream_t>(stream));
+  pressure_burst_tile(k, smem4);
 }
 
 // div in; p out; scratch: (h, w), used when nbursts >= 2.  init: the
 // (h, w) iterate the sweeps continue from (the sharded rollout chains its
 // bursts across halo exchanges, as jacobi_pallas.py pressure_solve's init
 // does), or null to start from p = 0 with the first sweep's shortcut.
-// nbursts = 0 (iters = 0) zeroes p, or copies init into it.
+// depths: nbursts host ints (ops/jacobi_cuda.py plan_bursts, kind "solve"),
+// burst j writing p when (nbursts-1-j) is even, else scratch, so the last
+// lands in p.  nbursts = 0 (iters = 0) zeroes p, or copies init into it.
 FLUID_API int fluid_pressure_solve(const float* div, float* p, float* scratch,
                                    int h, int w, int tile_h, int tile_w,
                                    const int* depths, int nbursts,
@@ -292,15 +589,27 @@ FLUID_API int fluid_pressure_solve(const float* div, float* p, float* scratch,
     return init == nullptr
                ? cudaMemsetAsync(p, 0, sizeof(float) * h * w, s)
                : cudaMemcpyAsync(p, init, sizeof(float) * h * w, cudaMemcpyDeviceToDevice, s);
-  PressureBurst k = {};
-  k.nb = 1;
-  k.p_in = init;
-  k.div_in = div;
-  k.h = h;
-  k.w = w;
-  k.tile_h = tile_h;
-  k.tile_w = tile_w;
-  return pressure_bursts(k, depths, nbursts, p, scratch, nullptr, s);
+  if (tile_h < 1 || tile_w < 1 || depths == nullptr || (nbursts >= 2 && scratch == nullptr))
+    return cudaErrorInvalidValue;
+  size_t smem = 0;
+  for (int j = 0; j < nbursts; ++j) {
+    if (depths[j] < 1) return cudaErrorInvalidValue;
+    const size_t b = burst_smem_bytes(3, h, w, tile_h, tile_w, depths[j]);
+    if (b > smem) smem = b;
+  }
+  cudaError_t e = burst_allow_smem(pressure_burst_kernel, smem);
+  if (e != cudaSuccess) return e;
+  const float* p_in = init;
+  for (int j = 0; j < nbursts; ++j) {
+    PressureBurst b = {div, p_in, ((nbursts - 1 - j) % 2 == 0) ? p : scratch,
+                       h, w, tile_h, tile_w, depths[j], p_in == nullptr};
+    pressure_burst_kernel<<<burst_grid(h, w, tile_h, tile_w), dim3(32, BURST_NY),
+                            burst_smem_bytes(3, h, w, tile_h, tile_w, depths[j]), s>>>(b);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    p_in = b.p_out;
+  }
+  return cudaSuccess;
 }
 
 template <bool BATCH>

@@ -31,26 +31,30 @@ passes, the columns a lane, the strips and the chunks of rows.
 
 **H4 pressure** (``csrc/pressure.cu``) replaces ``pressure_project`` →
 ``_single_pressure_kernel``, ``_first_pressure_kernel``,
-``_pressure_kernel``, ``_last_pressure_kernel`` (and the tiled twins), in
-bursts of trapezoid temporal blocking (``csrc/burst.cuh``: a block loads
-its tile plus a ring as deep as the burst into shared memory, sweeps
-there, and writes the tile): the first computes the divergence of its region from u
-and v and sweeps from p = 0, the last runs one ring deeper, subtracts the
-gradient and emits [max|u'|, max|v'|].  Its standalone entry
-``pressure_solve`` (``PRESSURE_SOLVE``, its own launch count) replaces
-``jacobi_pallas.pressure_solve`` → ``_pressure_kernel``: the same bursts
-over a given ``div``, from p = 0 or, as JAX's ``init``, from a given
-iterate.  40 sweeps at 2048²: 0.385 ms, against 0.96 ms one
-launch a sweep (same card); the solve alone 0.32 ms.
+``_pressure_kernel``, ``_last_pressure_kernel`` (and the tiled twins).
+Like H3 it runs passes of up to :data:`PRESSURE_DEPTH` sweeps as a
+row-streaming wavefront: the first pass computes the divergence from u and
+v as the rows stream in (and writes it once for the later passes) and
+sweeps from p = 0; the last runs one stage more, the gradient subtraction
+on the rows its last sweep finishes, and emits [max|u'|, max|v'|].  40
+sweeps at 2048² are 4 passes over device memory, 0.172 ms (the trapezoid
+bursts before them: 5 launches and a memset, 0.37 ms).  :func:`plan_pressure`
+chooses the passes, the columns a lane, the strips and the chunks of rows.
+Its standalone entry ``pressure_solve`` (``PRESSURE_SOLVE``, its own launch
+count) replaces ``jacobi_pallas.pressure_solve`` → ``_pressure_kernel``:
+trapezoid bursts (``csrc/burst.cuh``: a block loads its tile plus a ring
+as deep as the burst into shared memory, sweeps there, and writes the
+tile) over a given ``div``, from p = 0 or, as JAX's ``init``, from a given
+iterate, whose halo contract the sharded rollout's exchanges keep; the
+solve alone 0.32 ms for 40 sweeps at 2048².
 
-:func:`plan_bursts` chooses H4's (and H6's) tile and the sweeps of each
-burst: fewer, deeper bursts trade device-memory round trips and launches
-for redundant halo work, (TX + 2k)(TY + 2k) / (TX·TY) cells computed per
-cell kept, and for shared memory per block.  A grid inside one tile runs
-every sweep in one launch.  The default, 48 × 112 tiles and bursts of at
-most 8 sweeps, makes a shared row 128 floats (one warp's width) and runs
-40 sweeps in 5 launches; other tiles and depths measured within a few
-percent.
+:func:`plan_bursts` chooses the solve's (and H6's) tile and the sweeps of
+each burst: fewer, deeper bursts trade device-memory round trips and
+launches for redundant halo work, (TX + 2k)(TY + 2k) / (TX·TY) cells
+computed per cell kept, and for shared memory per block.  A grid inside one
+tile runs every sweep in one launch.  The default, 48 × 112 tiles and
+bursts of at most 8 sweeps, makes a shared row 128 floats (one warp's
+width) and runs 40 sweeps in 5 launches.
 
 **H5 divergence and projection** (``csrc/pressure.cu``, ``STENCIL``)
 replaces ``divergence`` → ``_divergence_kernel`` and ``project`` →
@@ -92,9 +96,12 @@ VORTICITY = Kernel("vorticity", _VORTICITY)
 _DIFFUSE = {"fluid_diffuse": [_P] * 3 + [_I] * 4 + [_P] * 3 + [_I] + [_P] * 3 + [_F] * 3
             + [_I, _P, _I, _I, _P]}
 DIFFUSE = Kernel("diffuse", _DIFFUSE)
-# fluid_pressure_project(u, v, u2, v2, p, div, scratch, stats, h, w, tile_h,
-#                        tile_w, depths*, nbursts, half, nb, u_ms, v_ms, stream)
-_PRESSURE = {"fluid_pressure_project": [_P] * 8 + [_I] * 4 + [_P] + [_I] * 3 + [_L] * 2 + [_P]}
+# fluid_pressure_project(u, v, u2, v2, p, div, scratch, stats, h, w, cells,
+#                        depths*, strips*, chunks*, npasses, half, nb, u_ms,
+#                        v_ms, stream); depths, strips and chunks are host
+#                        pointers
+_PRESSURE = {"fluid_pressure_project": [_P] * 8 + [_I] * 3 + [_P] * 3 + [_I] * 3 + [_L] * 2
+             + [_P]}
 PRESSURE = Kernel("pressure", _PRESSURE)
 # the same entries, B members a launch (their own launch counts)
 VORTICITY_BATCHED = Kernel("vorticity", _VORTICITY)
@@ -126,21 +133,19 @@ SMEM_LIMIT = 227 * 1024 - 1024
 # halos up to 8 a shared row is 128 floats, one warp's 4 columns a lane
 TILE = (48, 112)
 DEPTH = 8
-# shared buffers a block holds: two iterates, and the divergence for H4 or
-# the right-hand side for H6's "smooth" (sweeps only) and "smooth_res"
-# (sweeps, then a residual or a gradient on the tile) bursts
-_BUFFERS = {"project": 3, "solve": 3, "smooth": 3, "smooth_res": 3}
+# shared buffers a block holds: two iterates, and the divergence for H4's
+# solve or the right-hand side for H6's "smooth" (sweeps only) and
+# "smooth_res" (sweeps, then a residual or a gradient on the tile) bursts
+_BUFFERS = {"solve": 3, "smooth": 3, "smooth_res": 3}
 # kinds whose last burst runs one ring deeper, for a tail that reads p
 # beyond the tile
-_RING = ("project", "smooth_res")
+_RING = ("smooth_res",)
 
 
 @dataclass(frozen=True)
 class BurstPlan:
-    """The launches of one H4 (or H6) call: each burst's sweeps, the halo
-    a block loads around its tile, and its dynamic shared memory.  The C
-    entry puts H4's divergence on the first burst and its projection on the
-    last."""
+    """The launches of one H4 solve (or H6) call: each burst's sweeps, the
+    halo a block loads around its tile, and its dynamic shared memory."""
 
     tile: Tuple[int, int]
     depths: Tuple[int, ...]
@@ -166,15 +171,13 @@ def burst_smem(kind: str, h: int, w: int, tile, halo: int) -> int:
 def plan_bursts(h: int, w: int, iters: int, kind: str, *,
                 tile: Optional[Tuple[int, int]] = None,
                 depth: Optional[int] = None) -> BurstPlan:
-    """Split ``iters`` sweeps of a ``kind`` call ("project", "solve", or
-    H6's "smooth" and "smooth_res") into bursts of at most
-    ``depth`` sweeps, as even as they come, one launch each; the whole of
-    them in one launch when the grid fits in one tile (no halo to
-    recompute).  The last "project" or "smooth_res" burst runs one ring
-    deeper (the gradient or the residual reads p beyond the tile).
-    ``iters`` = 0 is one burst of no sweeps for "project" (p = 0 and the
-    projection), or none for "solve" and H6.  A depth whose shared memory
-    exceeds :data:`SMEM_LIMIT` is lowered."""
+    """Split ``iters`` sweeps of a ``kind`` call (H4's "solve", or H6's
+    "smooth" and "smooth_res") into bursts of at most ``depth`` sweeps, as
+    even as they come, one launch each; the whole of them in one launch
+    when the grid fits in one tile (no halo to recompute).  The last
+    "smooth_res" burst runs one ring deeper (the gradient or the residual
+    reads p beyond the tile).  ``iters`` = 0 is no burst.  A depth whose
+    shared memory exceeds :data:`SMEM_LIMIT` is lowered."""
     if kind not in _BUFFERS:
         raise ValueError(f"kind must be one of {sorted(_BUFFERS)}, got {kind!r}")
     if h < 1 or w < 1 or iters < 0:
@@ -183,16 +186,16 @@ def plan_bursts(h: int, w: int, iters: int, kind: str, *,
     depth = depth or DEPTH
     if min(tile) < 1 or depth < 1:
         raise ValueError(f"bad tile or depth: {tile}, {depth}")
-    project = kind in _RING
+    deeper = kind in _RING
     while True:
         if iters == 0:
-            depths = (0,) if kind == "project" else ()
+            depths = ()
         elif h <= tile[0] and w <= tile[1]:
             depths = (iters,)
         else:
             n = math.ceil(iters / depth)
             depths = tuple(iters // n + (j < iters % n) for j in range(n))
-        halos = tuple(d + (project and j == len(depths) - 1)
+        halos = tuple(d + (deeper and j == len(depths) - 1)
                       for j, d in enumerate(depths))
         smem = tuple(burst_smem(kind, h, w, tile, a) for a in halos)
         if max(smem, default=0) <= SMEM_LIMIT:
@@ -203,20 +206,26 @@ def plan_bursts(h: int, w: int, iters: int, kind: str, *,
     return BurstPlan(tile, depths, halos, smem)
 
 
-# -- H3's wavefront planner -------------------------------------------------------
+# -- H3's and H4's wavefront planners ----------------------------------------------
 
-# csrc/diffuse.cu: the most sweeps a pass carries (DIFFUSE_DEPTH), the lanes
-# of a warp (a strip is LANES x cells columns wide), the cells a lane the
-# kernel takes (4 needs 16-byte rows: a width that is a multiple of 4 and a
-# 16-byte aligned plane; 1 takes any), the warps of a block (each its own
-# strip and chunk), the blocks an SM its registers are sized for, and the
-# rows in each warp's ring of input rows in flight
+# csrc/diffuse.cu and csrc/pressure.cu: the most sweeps a pass carries
+# (DIFFUSE_DEPTH, PRESSURE_DEPTH), the lanes of a warp (a strip is LANES x
+# cells columns wide), the cells a lane the kernels take (4 needs 16-byte
+# rows: a width that is a multiple of 4 and 16-byte aligned planes; 1
+# takes any), the warps of a block (each its own strip and chunk), the
+# blocks an SM their registers are sized for, and the rows in each warp's
+# ring of input rows in flight (csrc/wave.cuh)
 DIFFUSE_DEPTH = 10
+PRESSURE_DEPTH = 10
 LANES = 32
 DIFFUSE_CELLS = (4, 1)
 DIFFUSE_WARPS = 4
 DIFFUSE_BLOCKS_PER_SM = 2
+PRESSURE_WARPS = 2
+PRESSURE_BLOCKS_PER_SM = 4
 DIFFUSE_RING = 5
+# H4's ring of div rows: one for each stage and the copies in flight
+PRESSURE_DIV_RING = PRESSURE_DEPTH + DIFFUSE_RING - 2
 # the chunks: the count whose pass takes the fewest steps, as waves of
 # blocks over an H100's 132 SMs times the steps of a chunk (its rows and
 # 2 d lead-in rows).  A wave is WAVE_SHARE of the DIFFUSE_BLOCKS_PER_SM
@@ -228,22 +237,25 @@ SMS = 132
 WAVE_SHARE = 0.95
 
 
-def _chunks(h: int, d: int, tasks_a_row: int) -> int:
+def _chunks(h: int, d: int, tasks_a_row: int, warps: int = DIFFUSE_WARPS,
+            blocks_per_sm: int = DIFFUSE_BLOCKS_PER_SM) -> int:
     """The chunks of a pass whose strips and planes make ``tasks_a_row``
-    warp tasks a chunk (see :data:`SMS`)."""
+    warp tasks a chunk, in blocks of ``warps`` (see :data:`SMS`)."""
     def steps(m):
-        blocks = -(-tasks_a_row * m // DIFFUSE_WARPS)
-        waves = -(-blocks // int(SMS * DIFFUSE_BLOCKS_PER_SM * WAVE_SHARE))
+        blocks = -(-tasks_a_row * m // warps)
+        waves = -(-blocks // int(SMS * blocks_per_sm * WAVE_SHARE))
         return waves * (-(-h // m) + 2 * d)
 
     return min(range(1, h + 1), key=lambda m: (steps(m), m))
 
 
 @dataclass(frozen=True)
-class DiffusePlan:
-    """The launches of one H3 call: each pass's sweeps (a depth of 0 is the
-    splat alone), its strips and its chunks of rows, and the cells a lane
-    of every pass.  The C entry puts the splat on the last pass."""
+class WavePlan:
+    """The launches of one H3 or H4 call: each pass's sweeps (a depth of 0
+    is H3's splat alone, or H4's projection of p = 0), its strips and its
+    chunks of rows, and the cells a lane of every pass.  H3's C entry puts
+    the splat on the last pass; H4's puts the divergence on the first and
+    the projection on the last."""
 
     cells: int
     depths: Tuple[int, ...]
@@ -267,10 +279,11 @@ def _align(cells: int) -> int:
 
 def strip_spans(w: int, width: int, cells: int, d: int, n: int):
     """[(first, e0, e1)] of ``n`` strips ``width`` columns wide
-    (``csrc/diffuse.cu`` ``diffuse_first``, ``diffuse_exact``): strip j's
-    first column, and the columns [e0, e1) it keeps after ``d`` sweeps; or
-    None where some strip would keep a column its stale edges reach, or
-    would reach past the grid.  A strip starts at column 0 or ends at ``w``
+    (``csrc/wave.cuh`` ``wave_first``, ``wave_exact``): strip j's first
+    column, and the columns [e0, e1) it keeps when its stale edges reach
+    ``d`` columns in (``d`` sweeps; one more for H4's gradient); or None
+    where some strip would keep a column its stale edges reach, or would
+    reach past the grid.  A strip starts at column 0 or ends at ``w``
     wherever it reaches the grid's edge, so the edge columns are a lane's
     first and last cell, where the kernel's clamp is one select."""
     a = _align(cells)
@@ -315,31 +328,20 @@ def _fewest_strips(w: int, width: int, cells: int, d: int) -> Optional[int]:
     return None
 
 
-@functools.lru_cache(maxsize=256)
-def plan_diffuse(h: int, w: int, iters: int, planes: int = 1, *,
-                 cells: Optional[int] = None, lanes: int = LANES,
-                 depth: Optional[int] = None, chunk: Optional[int] = None,
-                 aligned: bool = True) -> DiffusePlan:
-    """Split ``iters`` sweeps of ``planes`` (h, w) planes into passes of at
-    most ``depth`` (default :data:`DIFFUSE_DEPTH`) sweeps, as even as they
-    come, one launch each; ``iters`` = 0 is one pass of the splat alone.
-    Each pass takes the fewest strips that keep every column; ``cells``
-    (default: the one of :data:`DIFFUSE_CELLS` that issues the least a row,
-    4 where the rows are 16-byte aligned and its strips fit, else 1) sets a
-    strip's width, ``lanes`` x ``cells`` (``lanes`` other than 32 only for
-    emulation).  The chunks: ``chunk`` rows each where given, else as
-    :func:`_chunks` spreads them over the card."""
-    if h < 1 or w < 1 or iters < 0 or planes < 1:
-        raise ValueError(f"bad shape, planes or iters: {h}x{w}, {planes}, {iters}")
-    depth = DIFFUSE_DEPTH if depth is None else depth
-    if not 1 <= depth <= DIFFUSE_DEPTH or lanes < 1 or (chunk is not None and chunk < 1):
-        raise ValueError(f"bad depth, lanes or chunk: {depth}, {lanes}, {chunk}")
-    if cells is not None and cells not in DIFFUSE_CELLS:
-        raise ValueError(f"cells must be one of {DIFFUSE_CELLS}, got {cells}")
-    if iters == 0:
-        return DiffusePlan(cells or 1, (0,), (1,), (1,), lanes)
+def _passes(iters: int, depth: int) -> Tuple[int, ...]:
+    """``iters`` sweeps in passes of at most ``depth``, as even as they come."""
     npass = math.ceil(iters / depth)
-    depths = tuple(iters // npass + (j < iters % npass) for j in range(npass))
+    return tuple(iters // npass + (j < iters % npass) for j in range(npass))
+
+
+def _wave_plan(h: int, w: int, depths, reaches, planes: int, cells: Optional[int],
+               lanes: int, chunk: Optional[int], aligned: bool,
+               blocks=(DIFFUSE_WARPS, DIFFUSE_BLOCKS_PER_SM)) -> WavePlan:
+    """Each pass's fewest strips that keep every column at its reach; the
+    cells a lane (``cells``, or the one of :data:`DIFFUSE_CELLS` that issues
+    the least a row: 4 where the rows are 16-byte aligned and its strips
+    fit, else 1); and the chunks: ``chunk`` rows each where given, else as
+    :func:`_chunks` spreads them over the card."""
     if cells is not None:
         choices = (cells,)
     elif aligned and w % 4 == 0:
@@ -348,7 +350,7 @@ def plan_diffuse(h: int, w: int, iters: int, planes: int = 1, *,
         choices = (1,)
     best = None
     for v in choices:
-        strips = tuple(_fewest_strips(w, lanes * v, v, d) for d in depths)
+        strips = tuple(_fewest_strips(w, lanes * v, v, a) for a in reaches)
         if None in strips:
             continue
         # issue a row: lane-columns x (6 flops and the two shuffles and
@@ -358,17 +360,70 @@ def plan_diffuse(h: int, w: int, iters: int, planes: int = 1, *,
             best = (cost, v, strips)
     if best is None:
         raise ValueError(f"no strips of {choices} cells a lane keep a {w}-wide grid "
-                         f"at depth {max(depths)}")
+                         f"at reach {max(reaches)}")
     _, v, strips = best
     chunks = []
-    for d, n in zip(depths, strips):
-        m = math.ceil(h / chunk) if chunk is not None else _chunks(h, d, planes * n)
+    for a, n in zip(reaches, strips):
+        m = math.ceil(h / chunk) if chunk is not None else _chunks(h, a, planes * n, *blocks)
         chunks.append(max(1, min(m, h)))
-    return DiffusePlan(v, depths, strips, tuple(chunks), lanes)
+    return WavePlan(v, tuple(depths), strips, tuple(chunks), lanes)
+
+
+def _check_wave_args(h, w, iters, planes, depth, top, cells, lanes, chunk):
+    if h < 1 or w < 1 or iters < 0 or planes < 1:
+        raise ValueError(f"bad shape, planes or iters: {h}x{w}, {planes}, {iters}")
+    if not 1 <= depth <= top or lanes < 1 or (chunk is not None and chunk < 1):
+        raise ValueError(f"bad depth, lanes or chunk: {depth}, {lanes}, {chunk}")
+    if cells is not None and cells not in DIFFUSE_CELLS:
+        raise ValueError(f"cells must be one of {DIFFUSE_CELLS}, got {cells}")
+
+
+@functools.lru_cache(maxsize=256)
+def plan_diffuse(h: int, w: int, iters: int, planes: int = 1, *,
+                 cells: Optional[int] = None, lanes: int = LANES,
+                 depth: Optional[int] = None, chunk: Optional[int] = None,
+                 aligned: bool = True) -> WavePlan:
+    """Split ``iters`` sweeps of ``planes`` (h, w) planes into passes of at
+    most ``depth`` (default :data:`DIFFUSE_DEPTH`) sweeps, as even as they
+    come, one launch each; ``iters`` = 0 is one pass of the splat alone.
+    Each pass takes the fewest strips that keep every column; ``cells``
+    sets a strip's width, ``lanes`` x ``cells`` (``lanes`` other than 32
+    only for emulation); the chunks as :func:`_wave_plan` gives them."""
+    depth = DIFFUSE_DEPTH if depth is None else depth
+    _check_wave_args(h, w, iters, planes, depth, DIFFUSE_DEPTH, cells, lanes, chunk)
+    if iters == 0:
+        return WavePlan(cells or 1, (0,), (1,), (1,), lanes)
+    depths = _passes(iters, depth)
+    return _wave_plan(h, w, depths, depths, planes, cells, lanes, chunk, aligned)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_pressure(h: int, w: int, iters: int, planes: int = 1, *,
+                  cells: Optional[int] = None, lanes: int = LANES,
+                  depth: Optional[int] = None, chunk: Optional[int] = None,
+                  aligned: bool = True) -> WavePlan:
+    """H4's passes: ``iters`` sweeps of ``planes`` members' (h, w) pressure
+    in passes of at most ``depth`` (default :data:`PRESSURE_DEPTH`), as even
+    as they come, one launch each; ``iters`` = 0 is one pass of no sweep
+    (p = 0, and the projection).  The first pass's divergence reaches as
+    far as a sweep; the last pass reaches one column and one row further,
+    for the gradient (:func:`pressure_reaches`).  Strips, cells and chunks
+    as :func:`plan_diffuse`."""
+    depth = PRESSURE_DEPTH if depth is None else depth
+    _check_wave_args(h, w, iters, planes, depth, PRESSURE_DEPTH, cells, lanes, chunk)
+    depths = _passes(iters, depth) if iters else (0,)
+    return _wave_plan(h, w, depths, pressure_reaches(depths), planes, cells, lanes, chunk,
+                      aligned, (PRESSURE_WARPS, PRESSURE_BLOCKS_PER_SM))
+
+
+def pressure_reaches(depths) -> Tuple[int, ...]:
+    """How far each H4 pass's stale edges reach in: its sweeps, and one
+    more on the last pass (the gradient reads p beside each cell)."""
+    return tuple(d + (j == len(depths) - 1) for j, d in enumerate(depths))
 
 
 def _depths(plan: BurstPlan):
-    """(host int array, count) of the plan's depths for the C entry."""
+    """(host int array, count) of a burst plan's depths for the C entry."""
     depths = np.ascontiguousarray(plan.depths, np.int32)
     return depths, (depths.ctypes.data if depths.size else None), int(depths.size)
 
@@ -407,7 +462,7 @@ _STATS_LOCK = threading.Lock()
 
 
 def _plan_for(fields, h: int, w: int, iters: int, planes: int,
-              plan: Optional[DiffusePlan]) -> DiffusePlan:
+              plan: Optional[WavePlan]) -> WavePlan:
     if plan is None:
         plan = plan_diffuse(h, w, iters, planes, aligned=fields.data_ptr() % 16 == 0)
     if plan.iters != iters:
@@ -418,7 +473,7 @@ def _plan_for(fields, h: int, w: int, iters: int, planes: int,
 
 
 @functools.lru_cache(maxsize=256)
-def _plan_ints(plan: DiffusePlan):
+def _plan_ints(plan: WavePlan):
     """The plan's depths, strips and chunks as host int arrays for the C
     entry, and their addresses (the arrays kept alive with the plan)."""
     ints = tuple(np.ascontiguousarray(a, np.int32)
@@ -426,7 +481,7 @@ def _plan_ints(plan: DiffusePlan):
     return ints, tuple(a.ctypes.data for a in ints)
 
 
-def _launch_diffuse(kern: Kernel, fields, planes: int, plan: DiffusePlan, host, lx, ly,
+def _launch_diffuse(kern: Kernel, fields, planes: int, plan: WavePlan, host, lx, ly,
                     radius, splat: bool, params, chans: int):
     """One H3 call: ``plan``'s passes over ``planes`` planes of ``fields``
     into a new tensor, parameters by value (``host``: alpha, inv_beta,
@@ -452,7 +507,7 @@ def _launch_diffuse(kern: Kernel, fields, planes: int, plan: DiffusePlan, host, 
 
 
 def _diffuse(fields, dt, coeffs, iters: int, splat=None,
-             plan: Optional[DiffusePlan] = None):
+             plan: Optional[WavePlan] = None):
     """Shared launcher: ``fields`` (C, H, W) on the card, ``coeffs`` one per
     channel, ``splat`` = (amps, last, radius) or None; ``plan`` defaults to
     :func:`plan_diffuse`'s.  Up to :data:`MAX_CHANNELS` planes take their
@@ -489,7 +544,7 @@ def _diffuse(fields, dt, coeffs, iters: int, splat=None,
 
 
 def _diffuse_rows(fields, iters: int, splat: bool, radius, params,
-                  plan: Optional[DiffusePlan] = None, kern: Kernel = DIFFUSE):
+                  plan: Optional[WavePlan] = None, kern: Kernel = DIFFUSE):
     """H3 over (B, C, H, W) ``fields``, B*C planes a launch a pass, each
     plane's alpha, 1/beta and amp and its member's splat centre from the
     device rows ``params`` (``member_params.diffuse_cols``'s layout)."""
@@ -533,31 +588,55 @@ def diffuse_multi_splat(fields, dt, coeffs, iters: int, amps, last, radius):
     return _diffuse(fields, dt, coeffs, iters, splat=(amps, last, radius))
 
 
-def _pressure_project(u, v, iters: int, half: bool,
-                      plan: Optional[BurstPlan] = None):
-    """Launcher of H4's projection on the card: (u', v', p, vel_stats)."""
-    h, w = u.shape
-    check_f32("u", u, (h, w))
-    check_f32("v", v, (h, w))
-    plan = plan or plan_bursts(h, w, iters, "project")
+# H4's counters (``utils.trace.counters``): wrapper calls on the card, and
+# the passes over device memory (launches) they made
+PRESSURE_STATS = {"pressure_calls": 0, "pressure_passes": 0}
+
+
+def _launch_pressure(kern: Kernel, u, v, n: Optional[int], iters: int, half: bool,
+                     plan: Optional[WavePlan]):
+    """One H4 call on the card: ``plan``'s passes (default
+    :func:`plan_pressure`'s) over ``u``, ``v`` (H, W), or (B, H, W) with
+    ``n`` = B members at any member stride; (u', v', p, vel_stats)."""
+    h, w = u.shape[-2:]
+    lead = () if n is None else (n,)
+    ms = (0, 0) if n is None else (u.stride(0), v.stride(0))
+    if plan is None:
+        aligned = (u.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
+                   and ms[0] % 4 == 0 and ms[1] % 4 == 0)
+        plan = plan_pressure(h, w, iters, n or 1, aligned=aligned)
     if plan.iters != iters:
         raise ValueError(f"plan runs {plan.iters} sweeps, not {iters}")
-    depths, depths_ptr, nbursts = _depths(plan)
+    if plan.lanes != LANES:
+        raise ValueError(f"plan has {plan.lanes} lanes a strip; the card's warps have {LANES}")
+    npass = len(plan.depths)
+    _, ptrs = _plan_ints(plan)
     dev = u.device
-    uv2 = torch.empty((2, h, w), dtype=torch.float32, device=dev)
-    p = torch.empty((h, w), dtype=torch.float32, device=dev)
-    div, scratch = (torch.empty((2, h, w), dtype=torch.float32, device=dev)
-                    if nbursts >= 2 else (None, None))
-    stats = torch.empty((2,), dtype=torch.float32, device=dev)
+    uv2 = torch.empty((2,) + lead + (h, w), dtype=torch.float32, device=dev)
+    p = torch.empty(lead + (h, w), dtype=torch.float32, device=dev)
+    div, scratch = (torch.empty((2,) + lead + (h, w), dtype=torch.float32, device=dev)
+                    if npass >= 2 else (None, None))
+    stats = torch.empty(lead + (2,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        PRESSURE.launch(
+        kern.launch(
             "fluid_pressure_project", u.data_ptr(), v.data_ptr(),
             uv2[0].data_ptr(), uv2[1].data_ptr(), p.data_ptr(),
             div.data_ptr() if div is not None else None,
             scratch.data_ptr() if scratch is not None else None,
-            stats.data_ptr(), h, w, *plan.tile, depths_ptr, nbursts,
-            int(bool(half)), 1, 0, 0, stream_of(u))
+            stats.data_ptr(), h, w, plan.cells, *ptrs, npass, int(bool(half)), n or 1,
+            *ms, stream_of(u))
+    with _STATS_LOCK:
+        PRESSURE_STATS["pressure_calls"] += 1
+        PRESSURE_STATS["pressure_passes"] += npass
     return uv2[0], uv2[1], p, stats
+
+
+def _pressure_project(u, v, iters: int, half: bool, plan: Optional[WavePlan] = None):
+    """Launcher of H4's projection on the card: (u', v', p, vel_stats)."""
+    h, w = u.shape
+    check_f32("u", u, (h, w))
+    check_f32("v", v, (h, w))
+    return _launch_pressure(PRESSURE, u, v, None, iters, half, plan)
 
 
 def pressure_project(u, v, iters: int, half: bool, *,
@@ -725,23 +804,7 @@ def pressure_project_batched(u, v, iters: int, half: bool, *, return_stats: bool
     n, h, w = u.shape
     check_planes("u", u, (n, h, w))
     check_planes("v", v, (n, h, w))
-    plan = plan_bursts(h, w, iters, "project")
-    depths, depths_ptr, nbursts = _depths(plan)
-    dev = u.device
-    uv2 = torch.empty((2, n, h, w), dtype=torch.float32, device=dev)
-    p = torch.empty((n, h, w), dtype=torch.float32, device=dev)
-    div, scratch = (torch.empty((2, n, h, w), dtype=torch.float32, device=dev)
-                    if nbursts >= 2 else (None, None))
-    stats = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        PRESSURE_BATCHED.launch(
-            "fluid_pressure_project", u.data_ptr(), v.data_ptr(),
-            uv2[0].data_ptr(), uv2[1].data_ptr(), p.data_ptr(),
-            div.data_ptr() if div is not None else None,
-            scratch.data_ptr() if scratch is not None else None,
-            stats.data_ptr(), h, w, *plan.tile, depths_ptr, nbursts,
-            int(bool(half)), n, u.stride(0), v.stride(0), stream_of(u))
-    out = (uv2[0], uv2[1], p, stats)
+    out = _launch_pressure(PRESSURE_BATCHED, u, v, n, iters, half, None)
     return out if return_stats else out[:3]
 
 

@@ -17,7 +17,7 @@ prolonged coarse correction).
 Each wrapper takes its plain version (``ops/multigrid.py``) for CPU
 tensors and launches the kernel or raises for CUDA tensors; each entry has
 its own launch count.  Every entry runs one kernel, temporally blocked as
-H3 and H4 are (``csrc/burst.cuh``): a launch is a burst of sweeps on a tile
+H4's solve is (``csrc/burst.cuh``): a launch is a burst of sweeps on a tile
 plus a halo in shared memory, planned by ``jacobi_cuda.plan_bursts`` (kind
 "smooth", or "smooth_res" when the tail reads p beyond the tile).  At the
 quality path's shapes (2 sweeps, or 20 at the 16² bottom) every call is one

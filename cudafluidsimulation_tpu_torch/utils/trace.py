@@ -21,9 +21,10 @@ records shapes (``record_shapes=True``).
 
 ``counters()`` reads the seconds and counts of building and loading the
 hand-written kernels' libraries (``ops._build.BUILD_STATS``), which a
-library adds to once per process, and H3's calls on the card and the passes
-over device memory they made (``ops.jacobi_cuda.DIFFUSE_STATS``), which its
-wrapper adds to at each call: plain counters, always on.
+library adds to once per process, and H3's and H4's calls on the card and
+the passes over device memory they made (``ops.jacobi_cuda.DIFFUSE_STATS``,
+``PRESSURE_STATS``), which their wrappers add to at each call: plain
+counters, always on.
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ def span(name: str, ident=None):
 def counters() -> dict:
     """A snapshot, all in this process: ``build_s`` (seconds spent hashing
     sources, compiling and loading libraries), ``builds`` (libraries
-    compiled), ``loads`` (libraries loaded), ``diffuse_calls`` (H3 wrapper
-    calls on the card) and ``diffuse_passes`` (the launches of a pass over
-    device memory those calls made)."""
-    return {**_build.BUILD_STATS, **jacobi_cuda.DIFFUSE_STATS}
+    compiled), ``loads`` (libraries loaded), ``diffuse_calls`` and
+    ``pressure_calls`` (H3's and H4's wrapper calls on the card, single and
+    batched) and ``diffuse_passes`` and ``pressure_passes`` (the launches of
+    a pass over device memory those calls made)."""
+    return {**_build.BUILD_STATS, **jacobi_cuda.DIFFUSE_STATS, **jacobi_cuda.PRESSURE_STATS}
