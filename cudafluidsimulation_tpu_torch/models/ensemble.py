@@ -4,9 +4,10 @@ The JAX package runs a parameter sweep as one vmapped rollout
 (BASELINE.json config 4: 64 × 512² on one chip).  Here the batch dimension
 is written out: the state's fields carry a leading member axis, and each
 stage of a step is one call for the whole batch
-(``models/pipelines.make_batched_step``), one launch (or one burst plan)
-of the kernels on the card with each member's scalars in device memory:
-H1–H4 for the parity step, H8 and H7 for the fast modes, H5 and H6 for
+(``models/pipelines.make_batched_step``, the single step's own body), on
+the card the kernels over every member at once, with each member's scalars
+in device memory: H1–H4 for the parity step (H3's diffusion and H4's
+pressure as wavefront passes), H8 and H7 for the fast modes, H5 and H6 for
 multigrid pressure, where each member stops at its own V-cycle count as
 under a vmapped while-loop.  The rollout is a Python loop over time, as
 ``Simulation.run`` is.  ``backend="ref"`` runs every configuration on the

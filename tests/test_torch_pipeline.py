@@ -11,9 +11,14 @@
   and a few steps carry that along.
 - Rendered frames (uint8) are equal.
 - ``backend="cuda"`` without a card raises.
+- ``make_step`` and ``make_batched_step`` (B = 1 and 2) call the same ops
+  in the same order, with the same iteration counts and ``out=`` planes,
+  over the kernels' namespaces in every branch of the step, and only the
+  batched step uploads per-member scalars, once a step.
 """
 
 import dataclasses
+import types
 
 import jax
 import numpy as np
@@ -27,8 +32,10 @@ import oracle
 
 from cudafluidsimulation_tpu_torch import FluidConfig, Simulation, interop
 from cudafluidsimulation_tpu_torch.config import PALETTE
-from cudafluidsimulation_tpu_torch.models.pipelines import make_render, make_step
-from cudafluidsimulation_tpu_torch.ops import backend, cuda_kernels
+from cudafluidsimulation_tpu_torch.models import ensemble
+from cudafluidsimulation_tpu_torch.models.pipelines import (make_batched_step, make_render,
+                                                            make_step)
+from cudafluidsimulation_tpu_torch.ops import backend, cuda_kernels, member_params
 from cudafluidsimulation_tpu_torch.utils import impulse as timp
 
 torch.set_num_threads(1)
@@ -188,3 +195,70 @@ def test_backend_cuda_raises_without_a_card():
         backend.get_ops(cfg)
     with pytest.raises(RuntimeError, match="CUDA device"):
         Simulation(dataclasses.replace(cfg, backend="ref")).benchmark(steps=2)
+
+
+BRANCHES = {
+    "gpu": lambda: FluidConfig.gpu_reference(nx=32, ny=32, backend="ref"),
+    "cpu": lambda: FluidConfig.cpu_reference(nx=32, ny=32, backend="ref"),
+    "cpu_color": lambda: FluidConfig.cpu_reference(nx=32, ny=32, backend="ref",
+                                                   color_diffusion_enabled=True),
+    "cpu_no_diffusion": lambda: FluidConfig.cpu_reference(nx=32, ny=32, backend="ref",
+                                                          diffusion_iters=0),
+    "no_color": lambda: FluidConfig.gpu_reference(nx=32, ny=32, backend="ref",
+                                                  color_diffusion_enabled=False),
+    "no_diffusion": lambda: FluidConfig.gpu_reference(nx=32, ny=32, backend="ref",
+                                                      diffusion_iters=0),
+    "multigrid_fixed": lambda: FluidConfig.gpu_reference(nx=32, ny=32, backend="ref",
+                                                         pressure_solver="multigrid"),
+    "quality": lambda: FluidConfig.quality(nx=32, ny=32, backend="ref"),
+    "fast": lambda: FluidConfig.gpu_reference(nx=32, ny=32, backend="ref", fast_dye=True,
+                                              fast_velocity=True, fast_diffuse=True),
+}
+
+
+def _spied(ns, calls):
+    """``ns`` with every op recording its call: its name, its int arguments
+    (iteration counts, radii, rows), its keywords but ``params`` and its
+    ``out=`` planes without a member axis.  The colour is left out: the
+    single step takes it from the namespace, the batched one from
+    ``cycle_color_batched``."""
+    spy = types.SimpleNamespace()
+    for name, fn in vars(ns).items():
+        def op(*args, _fn=fn, _name=name, **kw):
+            if _name != "cycle_color":
+                out = kw.get("out")
+                calls.append((_name,
+                              tuple(a for a in list(args) + list(kw.values()) if type(a) is int),
+                              tuple(sorted(k for k in kw if k != "params")),
+                              None if out is None else tuple(out.shape[-3:])))
+            return _fn(*args, **kw)
+
+        setattr(spy, name, op)
+    return spy
+
+
+@pytest.mark.parametrize("branch", list(BRANCHES))
+def test_single_and_batched_steps_make_the_same_calls(branch, monkeypatch):
+    cfg = BRANCHES[branch]()
+    uploads = []
+    upload = member_params.upload
+    monkeypatch.setattr(member_params, "upload",
+                        lambda *a, **k: (uploads.append(1), upload(*a, **k))[1])
+    imp = timp.orbit_impulse(2, cfg.dt, center=(16.0, 16.0), radius=4.0, omega=3.0)
+    seqs = {}
+    calls = []
+    step = make_step(cfg, _spied(backend.kernel_ops(cfg), calls))
+    state = Simulation(cfg).init()
+    for i in range(2):
+        state = step(state, timp.slice_step(imp, i))
+    seqs["single"] = calls
+    assert not uploads, "the single step passes its scalars as launch arguments"
+    for b in (1, 2):
+        calls = []
+        step = make_batched_step(cfg, _spied(backend.kernel_ops(cfg, batched=True), calls))
+        state, bimp = ensemble.batched_state(cfg, b, device="cpu"), ensemble.batched_impulse(imp, b)
+        for i in range(2):
+            state = step(state, ensemble.step_of(bimp, i))
+        seqs[f"B={b}"] = calls
+    assert len(uploads) == 4, "one upload a batched step"
+    assert seqs["single"] and seqs["B=1"] == seqs["single"] and seqs["B=2"] == seqs["single"]
