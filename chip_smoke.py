@@ -228,7 +228,17 @@ caught:
    ``H8 window``, ``H3 sharded``, ``H4 solve init``, ``H7 sharded``; and
    ``H1 window unbounded`` on a (2, 2) shard of (b)'s 8192² state and
    ``H8 window unbounded`` on one of (c)'s fast 2048² state (bound: the
-   rows the realized displacement reaches).
+   rows the realized displacement reaches);
+15. the single step's prepared launches (``models/pipelines.py``): at
+   2048², 540x960 and 2049x2047 (an odd width: one cell a lane, planes off
+   16 bytes) a 200-step orbit with the press toggling every 7 steps, bit
+   for bit against the same rollout on the wrappers (the same namespace,
+   no op offering its prepared launch), with the port's counters read
+   around each (every step on the card, 4 prepared stages a step against
+   none, H3's and H4's calls and passes alike); the device operations of
+   one 2048² step each way (the same, 8); and the host's enqueue of 32
+   steps right after a synchronize, ms a step, prepared and wrappers in
+   alternating turns in this one process.
 
 Every ``torch.profiler`` trace runs marker kernels before and after the
 work it counts, and is taken again when it lost device records.
@@ -3066,6 +3076,98 @@ def entry_phase(reset_counts, read_counts, dev):
            "example_seconds": seconds})
 
 
+# phase 15, the single step's prepared launches: the shapes of its
+# rollouts (the north star, the reference grid, an odd width), the press
+# toggled every PREP_PRESS steps, and the turns of the host-enqueue
+# comparison, ENQUEUE_STEPS steps each after a synchronize
+PREP_SHAPES = ((2048, 2048), (540, 960), (2049, 2047))
+PREP_PRESS = 7
+PREP_TURNS = 40
+ENQUEUE_STEPS = 32
+
+
+def _wrappers_only(ops):
+    """``ops`` with the same wrappers, none offering a prepared launch."""
+    from cudafluidsimulation_tpu_torch.models import pipelines
+
+    ns = types.SimpleNamespace(**vars(ops))
+    for name in pipelines._PREPARED:
+        if hasattr(ns, name):
+            setattr(ns, name, functools.partial(getattr(ns, name)))
+    return ns
+
+
+def _quartiles(xs):
+    q1, q2, q3 = statistics.quantiles(xs, n=4)
+    return {"median": q2, "q1": q1, "q3": q3, "min": min(xs)}
+
+
+def prepared_phase(smi):
+    """Phase 15 (the module docstring)."""
+    from cudafluidsimulation_tpu_torch import FluidConfig, Simulation
+    from cudafluidsimulation_tpu_torch.utils import trace
+    from cudafluidsimulation_tpu_torch.utils.impulse import orbit_impulse, slice_step
+
+    t0 = time.perf_counter()
+    keys = ("step_calls", "planned_stages", "diffuse_calls", "diffuse_passes",
+            "pressure_calls", "pressure_passes")
+    for h, w in PREP_SHAPES:
+        cfg = FluidConfig.gpu_reference(nx=w, ny=h, pressure_iters=40, max_displacement=31,
+                                        backend="cuda")
+        planned = Simulation(cfg)
+        wrapped = Simulation(cfg, ops=_wrappers_only(planned.ops))
+        imp = orbit_impulse(STEPS, cfg.dt, center=(w / 2, h / 2), radius=min(h, w) / 8,
+                            omega=3.0)
+        imp = imp._replace(pressed=(torch.arange(STEPS) // PREP_PRESS) % 2 == 0)
+        counts = []
+        states = []
+        for sim in (planned, wrapped):
+            c0 = trace.counters()
+            states.append(sim.run(sim.init(), imp))
+            torch.cuda.synchronize()
+            c1 = trace.counters()
+            counts.append({k: c1[k] - c0[k] for k in keys})
+        for name in STATE_FIELDS:
+            got, exp = (getattr(s, name) for s in states)
+            if not torch.equal(got, exp):
+                raise AssertionError(f"prepared {h}x{w}: {name} differs from the wrappers' "
+                                     f"rollout by {_max_err(got, exp)[0]}")
+        got, exp = counts
+        if (got["step_calls"] != STEPS or exp["step_calls"] != STEPS
+                or got["planned_stages"] != 4 * STEPS or exp["planned_stages"]
+                or any(got[k] != exp[k] or not got[k] for k in keys[2:])):
+            raise AssertionError(f"prepared {h}x{w}: counters {got} against the wrappers' {exp}")
+        _json({"phase": "prepared_rollout", "grid": f"{h}x{w}", "steps": STEPS,
+               "bit_equal_to_wrappers": True, "counters": got, "wrappers_counters": exp})
+    # 2048²: the device operations of one step, and the host's enqueue
+    cfg = FluidConfig.gpu_reference(nx=N, ny=N, pressure_iters=40, max_displacement=31,
+                                    backend="cuda")
+    planned = Simulation(cfg)
+    wrapped = Simulation(cfg, ops=_wrappers_only(planned.ops))
+    imp = orbit_impulse(ENQUEUE_STEPS, cfg.dt, center=(N / 2, N / 2), radius=N / 8,
+                        omega=3.0)
+    state = planned.run(planned.init(), imp)
+    one = slice_step(imp, 0)
+    ops = [_device_kernels(lambda sim=sim: sim.step(state, one)) for sim in (planned, wrapped)]
+    if ops[0] != ops[1] or sum(ops[0].values()) != STEP_DEVICE_OPS["parity"]:
+        raise AssertionError(f"prepared: device operations {ops[0]} against the wrappers' "
+                             f"{ops[1]}")
+    ms = {"prepared": [], "wrappers": []}
+    for turn in range(PREP_TURNS):
+        order = (("prepared", planned), ("wrappers", wrapped))
+        for name, sim in order if turn % 2 == 0 else order[::-1]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sim.run(state, imp)
+            ms[name].append(1e3 * (time.perf_counter() - t) / ENQUEUE_STEPS)
+        torch.cuda.synchronize()
+    won = sum(a < b for a, b in zip(ms["prepared"], ms["wrappers"]))
+    _json({"phase": "prepared_enqueue", "grid": f"{N}x{N}", "steps": ENQUEUE_STEPS,
+           "turns": PREP_TURNS, "device_ops": sum(ops[0].values()), "by_name": ops[0],
+           "enqueue_ms_per_step": {k: _quartiles(v) for k, v in ms.items()},
+           "prepared_lower_in": won, "seconds": time.perf_counter() - t0, "smi": smi[0]})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3983,6 +4085,8 @@ def main() -> int:
     rows += rest()
     rows += sharded_rows(per_call)
     rows += ens_x_rows(per_call)
+    # -- 15. the single step's prepared launches -------------------------------
+    prepared_phase(smi)
     _json({"phase": "profiler_sessions", **TRACES})
     print(smi[0], flush=True)
     _json({"kernels": rows})

@@ -572,6 +572,36 @@ FLUID_API int fluid_advect_rows(const float* u, const float* v, float* ou, float
   return cudaGetLastError();
 }
 
+// fluid_advect_rows's parameters as one record, in their order: a prepared
+// launch (ops/advect_cuda.py RowsArgs, which mirrors this layout) fills it
+// once and sets only the fields that change before each call.
+struct FluidAdvectRowsArgs {
+  const float *u, *v;
+  float *ou, *ov;
+  const float *d0, *d1, *d2;
+  float *o0, *o1, *o2;
+  const float* bound;
+  float *scratch, *stats, *slots;
+  int* counts;
+  int c, h, w, mode, packed, fast_path;
+  float dt, decay;
+  int nb;
+  long long u_ms, v_ms, ouv_ms, din_ms, dout_ms;
+  const float* prm;
+  int prm_stride;
+  long long slot_count;
+  void* stream;
+};
+static_assert(sizeof(FluidAdvectRowsArgs) == 232, "ops/advect_cuda.py RowsArgs mirrors it");
+
+FLUID_API int fluid_advect_rows_args(const FluidAdvectRowsArgs* a) {
+  return fluid_advect_rows(a->u, a->v, a->ou, a->ov, a->d0, a->d1, a->d2, a->o0, a->o1, a->o2,
+                           a->bound, a->scratch, a->stats, a->slots, a->counts, a->c, a->h, a->w,
+                           a->mode, a->packed, a->fast_path, a->dt, a->decay, a->nb, a->u_ms,
+                           a->v_ms, a->ouv_ms, a->din_ms, a->dout_ms, a->prm, a->prm_stride,
+                           a->slot_count, a->stream);
+}
+
 // Where a shard's padded view lies in the global grid (ops/ref.py Window):
 // the global row and column of its (0, 0), the global extents, the bounds
 // on a tap's offset (d_x 0: columns unbounded), the interior's first row

@@ -376,3 +376,27 @@ FLUID_API int fluid_diffuse(const float* in, float* out, float* scratch, int n, 
   }
   return cudaSuccess;
 }
+
+// fluid_diffuse's parameters as one record, in their order: a prepared
+// launch (ops/jacobi_cuda.py DiffuseArgs, which mirrors this layout) fills
+// it once and sets only the fields that change before each call.
+struct FluidDiffuseArgs {
+  const float* in;
+  float *out, *scratch;
+  int n, h, w, cells;
+  const int *depths, *strips, *chunks;
+  int npasses;
+  const float *alpha, *inv_beta, *amp;
+  float lx, ly, radius;
+  int splat;
+  const float* prm;
+  int prm_stride, chans;
+  void* stream;
+};
+static_assert(sizeof(FluidDiffuseArgs) == 136, "ops/jacobi_cuda.py DiffuseArgs mirrors it");
+
+FLUID_API int fluid_diffuse_args(const FluidDiffuseArgs* a) {
+  return fluid_diffuse(a->in, a->out, a->scratch, a->n, a->h, a->w, a->cells, a->depths,
+                       a->strips, a->chunks, a->npasses, a->alpha, a->inv_beta, a->amp, a->lx,
+                       a->ly, a->radius, a->splat, a->prm, a->prm_stride, a->chans, a->stream);
+}

@@ -499,6 +499,28 @@ FLUID_API int fluid_pressure_project(const float* u, const float* v, float* u2, 
   return cudaSuccess;
 }
 
+// fluid_pressure_project's parameters as one record, in their order: a
+// prepared launch (ops/jacobi_cuda.py PressureArgs, which mirrors this
+// layout) fills it once and sets only the fields that change before each
+// call.
+struct FluidPressureProjectArgs {
+  const float *u, *v;
+  float *u2, *v2, *p, *div, *scratch, *stats;
+  int h, w, cells;
+  const int *depths, *strips, *chunks;
+  int npasses, half, nb;
+  long long u_ms, v_ms;
+  void* stream;
+};
+static_assert(sizeof(FluidPressureProjectArgs) == 144,
+              "ops/jacobi_cuda.py PressureArgs mirrors it");
+
+FLUID_API int fluid_pressure_project_args(const FluidPressureProjectArgs* a) {
+  return fluid_pressure_project(a->u, a->v, a->u2, a->v2, a->p, a->div, a->scratch, a->stats,
+                                a->h, a->w, a->cells, a->depths, a->strips, a->chunks,
+                                a->npasses, a->half, a->nb, a->u_ms, a->v_ms, a->stream);
+}
+
 // -- the standalone solve: trapezoid bursts ------------------------------------
 
 struct PressureBurst {

@@ -260,3 +260,25 @@ FLUID_API int fluid_vorticity(const float* u, const float* v, float* u2,
                                                                  dt, vorticity, m);
   return cudaGetLastError();
 }
+
+// fluid_vorticity's parameters as one record, in their order: a prepared
+// launch (ops/jacobi_cuda.py VortArgs, which mirrors this layout) fills it
+// once and sets only the fields that change before each call.
+struct FluidVorticityArgs {
+  const float *u, *v;
+  float *u2, *v2;
+  int h, w, cpu_variant;
+  float dt, vorticity;
+  int nb;
+  long long u_ms, v_ms, u2_ms, v2_ms;
+  const float* prm;
+  int prm_stride;
+  void* stream;
+};
+static_assert(sizeof(FluidVorticityArgs) == 112, "ops/jacobi_cuda.py VortArgs mirrors it");
+
+FLUID_API int fluid_vorticity_args(const FluidVorticityArgs* a) {
+  return fluid_vorticity(a->u, a->v, a->u2, a->v2, a->h, a->w, a->cpu_variant, a->dt,
+                         a->vorticity, a->nb, a->u_ms, a->v_ms, a->u2_ms, a->v2_ms, a->prm,
+                         a->prm_stride, a->stream);
+}

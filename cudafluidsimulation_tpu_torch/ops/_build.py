@@ -201,6 +201,15 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def launch_key(t: torch.Tensor) -> Optional[tuple]:
+    """(device, raw stream) on which the kernels launch for ``t`` with no
+    device switch: ``t``'s device and its current stream where ``t`` lies
+    on the current CUDA device; None elsewhere (the CPU, another card)."""
+    if not t.is_cuda or t.get_device() != torch.cuda.current_device():
+        return None
+    return t.device, stream_of(t)
+
+
 def on_card(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on one CUDA device, False when every one
     lies on the CPU; raise otherwise."""

@@ -73,6 +73,10 @@ and the interior a shard's rows of it: the global step of
 
 The wrappers take the plain versions (``ops.ref``, ``ops.advect_packed``)
 for CPU tensors and launch the kernel or raise for CUDA tensors.
+:class:`BothLaunch` is :func:`advect_both` as the single step prepares it
+(``models/pipelines.py``): ``fluid_advect_rows_args`` takes the entry's
+parameters as one record (:class:`RowsArgs`), filled once, so a prepared
+call sets what changes and makes one C call.
 """
 
 from __future__ import annotations
@@ -88,12 +92,22 @@ from cudafluidsimulation_tpu_torch.ops._build import (
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
-# fluid_advect_rows(u, v, ou, ov, d0, d1, d2, o0, o1, o2, bound, scratch, stats,
-#                   slots, counts, c, h, w, mode, packed, fast_path, dt, decay, nb,
-#                   u_ms, v_ms, ouv_ms, din_ms, dout_ms, prm, prm_stride, slot_count,
-#                   stream)
-_ROWS = {"fluid_advect_rows": [_P] * 15 + [_I] * 6 + [_F, _F, _I] + [_L] * 5
-         + [_P, _I, _L, _P]}
+
+class RowsArgs(ctypes.Structure):
+    """``fluid_advect_rows``'s parameters in their order, as the record that
+    ``fluid_advect_rows_args`` takes (``csrc/advect.cu``
+    ``FluidAdvectRowsArgs``)."""
+
+    _fields_ = ([(n, _P) for n in ("u", "v", "ou", "ov", "d0", "d1", "d2", "o0", "o1", "o2",
+                                   "bound", "scratch", "stats", "slots", "counts")]
+                + [(n, _I) for n in ("c", "h", "w", "mode", "packed", "fast_path")]
+                + [("dt", _F), ("decay", _F), ("nb", _I)]
+                + [(n, _L) for n in ("u_ms", "v_ms", "ouv_ms", "din_ms", "dout_ms")]
+                + [("prm", _P), ("prm_stride", _I), ("slot_count", _L), ("stream", _P)])
+
+
+_ROWS = {"fluid_advect_rows": [t for _, t in RowsArgs._fields_],
+         "fluid_advect_rows_args": [_P]}
 _VELOCITY, _DYE, _BOTH = 1, 2, 3
 # the row kernels' design, as csrc/advect.cu defines it: cells a thread
 # along a row, rows of 32 threads a block, tiles of rows a block walks
@@ -153,6 +167,12 @@ class _Bounds:
 _BOUNDS = _Bounds()
 
 
+def _slot_count(h: int, w: int, n: int) -> int:
+    """The bound's slots: one a block (``fluid_advect_rows``' rows_grid)."""
+    blocks_y = -(-(-(-h // ROWS)) // TILES)  # ceil(ceil(h / ROWS) / TILES)
+    return -(-w // (32 * CELLS)) * blocks_y * n
+
+
 def _ptr(t):
     return t.data_ptr() if t is not None else None
 
@@ -175,9 +195,8 @@ def _launch(kern, mode, u, v, *, uv_out=None, dye=None, dye_out=None, stats=None
     stream = stream_of(u)
     slots = counts = None
     slot_count = 0
-    if stats is not None:  # a slot a block (fluid_advect_rows' rows_grid)
-        blocks_y = -(-(-(-h // ROWS)) // TILES)  # ceil(ceil(h / ROWS) / TILES)
-        slot_count = -(-w // (32 * CELLS)) * blocks_y * n
+    if stats is not None:
+        slot_count = _slot_count(h, w, n)
         slots, counts = _BOUNDS.get(u.device, stream, n, slot_count)
     # H8 reduces max|u|, max|v| here when no bound is given
     scratch = (torch.empty((n, 2), dtype=torch.float32, device=u.device)
@@ -302,6 +321,48 @@ def advect_both(u, v, dye, dt, decay_rate, *, vel_stats=None, return_stats: bool
     _launch(KERNEL, _BOTH, u, v, uv_out=uv, dye=dye, dye_out=out, stats=stats, dt=dt,
             decay_rate=decay_rate)
     return (uv[0], uv[1], out, stats) if return_stats else (uv[0], uv[1], out)
+
+
+class BothLaunch:
+    """:func:`advect_both` prepared for one (device, stream, H, W) and 3 dye
+    channels: the single step's H1 (``models/pipelines.py``).  The record
+    of its C call is filled once (shape, mode, the bound's slots and counts,
+    the stream); u', v' and the bound go to buffers of its own, so a call
+    sets the planes' addresses, dt and the decay and makes one C call, the
+    same launch with the same arguments as :func:`advect_both`'s.  Its
+    buffers are rewritten by its next call: a caller that hands u', v' on
+    reads them on the stream before that."""
+
+    def __init__(self, device: torch.device, stream: int, h: int, w: int):
+        self.uv = torch.empty((2, h, w), dtype=torch.float32, device=device)
+        self.u, self.v = self.uv[0], self.uv[1]
+        self.stats = torch.empty((2,), dtype=torch.float32, device=device)
+        slot_count = _slot_count(h, w, 1)
+        self._bounds = _BOUNDS.get(device, stream, 1, slot_count)
+        self._plane = 4 * h * w
+        self._rec = RowsArgs(
+            ou=self.u.data_ptr(), ov=self.v.data_ptr(), stats=self.stats.data_ptr(),
+            slots=self._bounds[0].data_ptr(), counts=self._bounds[1].data_ptr(), c=3, h=h,
+            w=w, mode=_BOTH, nb=1, slot_count=slot_count, stream=stream)
+        self._addr = ctypes.addressof(self._rec)
+        KERNEL.lib()  # loaded now, not in a step
+
+    def __call__(self, u, v, dye, out, dt, decay_rate):
+        """H1 on u, v (H, W) and the dye (3, H, W), contiguous on the
+        launch's device, into ``out`` (3, H, W), contiguous and apart from
+        them; returns u', v'."""
+        r, plane = self._rec, self._plane
+        r.u, r.v = u.data_ptr(), v.data_ptr()
+        d, o = dye.data_ptr(), out.data_ptr()
+        r.d0, r.d1, r.d2 = d, d + plane, d + 2 * plane
+        r.o0, r.o1, r.o2 = o, o + plane, o + 2 * plane
+        r.dt, r.decay = float(ref.f32(dt)), ref.decay_factor(dt, decay_rate)
+        KERNEL.launch("fluid_advect_rows_args", self._addr)
+        return self.u, self.v
+
+
+# the single step's prepared launch of this op (``models/pipelines.py``)
+advect_both.prepare = BothLaunch
 
 
 def _params(params, dt, decay_rate, device):

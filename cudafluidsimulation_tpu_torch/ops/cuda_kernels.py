@@ -25,6 +25,14 @@ Pallas kernels.
   ``pressure_solver="multigrid"``; on that hook the restriction and the
   prolongation ride the ends' launches (``ops/multigrid.py``).
 
+The single step (``models/pipelines.py``) takes, in place of four of these
+wrappers, the prepared launch each offers as ``op.prepare``: H1's
+``advect_both`` (``advect_cuda.BothLaunch``), H2's
+``vorticity_confinement_gpu`` (``jacobi_cuda.VorticityLaunch``), H3's
+``diffuse_multi_splat`` (``DiffuseSplatLaunch``; H7's ops offer none) and
+H4's ``pressure_project`` (``PressureLaunch``): the same launches, prepared
+once for a shape, stream and device and enqueued with one C call each.
+
 Ensembles (``models/ensemble.py``) run B members a launch on the batched
 entries of H1–H8 (``batched_overrides(config)``): H8 and H7 where the fast
 modes ask for them (H7 where ``fastdiffuse.worthwhile`` grants it, with
@@ -48,6 +56,8 @@ def overrides(config: FluidConfig) -> dict:
     from cudafluidsimulation_tpu_torch.ops import (
         advect_cuda, fastdiffuse, jacobi_cuda, multigrid, multigrid_cuda)
 
+    vorticity_gpu = functools.partial(jacobi_cuda.vorticity_confinement, variant="gpu")
+    vorticity_gpu.prepare = jacobi_cuda.VorticityLaunch
     out = {
         "advect_velocity": functools.partial(
             advect_cuda.advect_velocity, packed=config.fast_velocity,
@@ -55,8 +65,7 @@ def overrides(config: FluidConfig) -> dict:
         "advect_dye": functools.partial(
             advect_cuda.advect_dye, packed=config.fast_dye,
             fast_path=config.advect_fast_path),
-        "vorticity_confinement_gpu": functools.partial(
-            jacobi_cuda.vorticity_confinement, variant="gpu"),
+        "vorticity_confinement_gpu": vorticity_gpu,
         "vorticity_confinement_cpu": functools.partial(
             jacobi_cuda.vorticity_confinement, variant="cpu"),
         "diffuse": jacobi_cuda.diffuse,

@@ -1,8 +1,13 @@
 """H2–H5: the stencil kernels on the card.
 
 Each wrapper takes the plain version (``ops.ref``) for CPU tensors and
-launches its kernel or raises for CUDA tensors.  Byte counts below are for
-the 2048² main path (one float32 plane is 16 MiB).
+launches its kernel or raises for CUDA tensors.  :class:`VorticityLaunch`,
+:class:`DiffuseSplatLaunch` and :class:`PressureLaunch` are H2's, H3's and
+H4's launches as the single step prepares them (``models/pipelines.py``):
+each C entry also takes its parameters as one record (``*_args``,
+``VortArgs``, ``DiffuseArgs``, ``PressureArgs``), filled once, so a
+prepared call sets what changes and makes one C call.  Byte counts below
+are for the 2048² main path (one float32 plane is 16 MiB).
 
 **H2 vorticity** (``csrc/vorticity.cu``) replaces
 ``cudafluidsimulation_tpu/ops/jacobi_pallas.py`` ``vorticity_confinement``
@@ -85,23 +90,56 @@ from cudafluidsimulation_tpu_torch.ops._build import (
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
-# fluid_vorticity(u, v, u2, v2, h, w, cpu_variant, dt, vorticity, nb, u_ms,
-#                 v_ms, u2_ms, v2_ms, prm, prm_stride, stream)
-_VORTICITY = {"fluid_vorticity": [_P] * 4 + [_I] * 3 + [_F, _F, _I] + [_L] * 4 + [_P, _I, _P]}
+
+class VortArgs(ctypes.Structure):
+    """``fluid_vorticity``'s parameters in their order, as the record that
+    ``fluid_vorticity_args`` takes (``csrc/vorticity.cu``
+    ``FluidVorticityArgs``)."""
+
+    _fields_ = ([(n, _P) for n in ("u", "v", "u2", "v2")]
+                + [(n, _I) for n in ("h", "w", "cpu_variant")]
+                + [("dt", _F), ("vorticity", _F), ("nb", _I)]
+                + [(n, _L) for n in ("u_ms", "v_ms", "u2_ms", "v2_ms")]
+                + [("prm", _P), ("prm_stride", _I), ("stream", _P)])
+
+
+class DiffuseArgs(ctypes.Structure):
+    """``fluid_diffuse``'s parameters in their order, as the record that
+    ``fluid_diffuse_args`` takes (``csrc/diffuse.cu`` ``FluidDiffuseArgs``):
+    depths, strips, chunks, alpha, inv_beta and amp are host pointers, prm
+    a device pointer."""
+
+    _fields_ = ([(n, _P) for n in ("in_", "out", "scratch")]
+                + [(n, _I) for n in ("n", "h", "w", "cells")]
+                + [(n, _P) for n in ("depths", "strips", "chunks")] + [("npasses", _I)]
+                + [(n, _P) for n in ("alpha", "inv_beta", "amp")]
+                + [(n, _F) for n in ("lx", "ly", "radius")] + [("splat", _I)]
+                + [("prm", _P), ("prm_stride", _I), ("chans", _I), ("stream", _P)])
+
+
+class PressureArgs(ctypes.Structure):
+    """``fluid_pressure_project``'s parameters in their order, as the record
+    that ``fluid_pressure_project_args`` takes (``csrc/pressure.cu``
+    ``FluidPressureProjectArgs``): depths, strips and chunks are host
+    pointers."""
+
+    _fields_ = ([(n, _P) for n in ("u", "v", "u2", "v2", "p", "div", "scratch", "stats")]
+                + [(n, _I) for n in ("h", "w", "cells")]
+                + [(n, _P) for n in ("depths", "strips", "chunks")]
+                + [(n, _I) for n in ("npasses", "half", "nb")]
+                + [("u_ms", _L), ("v_ms", _L), ("stream", _P)])
+
+
+def _entries(name: str, record) -> dict:
+    """C entry ``name`` by its parameters and ``name_args`` by the record."""
+    return {name: [t for _, t in record._fields_], f"{name}_args": [_P]}
+
+
+_VORTICITY = _entries("fluid_vorticity", VortArgs)
 VORTICITY = Kernel("vorticity", _VORTICITY)
-# fluid_diffuse(in, out, scratch, n, h, w, cells, depths*, strips*, chunks*,
-#               npasses, alpha*, inv_beta*, amp*, lx, ly, radius, splat, prm,
-#               prm_stride, chans, stream); depths, strips, chunks, alpha,
-#               inv_beta and amp are host pointers, prm a device pointer
-_DIFFUSE = {"fluid_diffuse": [_P] * 3 + [_I] * 4 + [_P] * 3 + [_I] + [_P] * 3 + [_F] * 3
-            + [_I, _P, _I, _I, _P]}
+_DIFFUSE = _entries("fluid_diffuse", DiffuseArgs)
 DIFFUSE = Kernel("diffuse", _DIFFUSE)
-# fluid_pressure_project(u, v, u2, v2, p, div, scratch, stats, h, w, cells,
-#                        depths*, strips*, chunks*, npasses, half, nb, u_ms,
-#                        v_ms, stream); depths, strips and chunks are host
-#                        pointers
-_PRESSURE = {"fluid_pressure_project": [_P] * 8 + [_I] * 3 + [_P] * 3 + [_I] * 3 + [_L] * 2
-             + [_P]}
+_PRESSURE = _entries("fluid_pressure_project", PressureArgs)
 PRESSURE = Kernel("pressure", _PRESSURE)
 # the same entries, B members a launch (their own launch counts)
 VORTICITY_BATCHED = Kernel("vorticity", _VORTICITY)
@@ -455,10 +493,40 @@ def vorticity_confinement(u, v, dt, vorticity, variant: str = "gpu", *,
     return out[0], out[1]
 
 
-# H3's counters (``utils.trace.counters``): wrapper calls on the card, and
-# the passes over device memory (launches) they made
+class VorticityLaunch:
+    """:func:`vorticity_confinement` (the gpu variant) prepared for one
+    (stream, H, W) and coefficient: the record of its C call filled once,
+    so a call sets the planes' addresses and dt and makes one C call, the
+    same launch with the same arguments as the wrapper's."""
+
+    def __init__(self, stream: int, h: int, w: int, vorticity):
+        self._plane = 4 * h * w
+        self._rec = VortArgs(h=h, w=w, vorticity=float(ref.f32(vorticity)), nb=1,
+                             stream=stream)
+        self._addr = ctypes.addressof(self._rec)
+        VORTICITY.lib()  # loaded now, not in a step
+
+    def __call__(self, u, v, out, dt) -> None:
+        """H2 on u, v (H, W), contiguous on the launch's device, into the
+        first two (H, W) planes of ``out``, contiguous and apart from them."""
+        r = self._rec
+        r.u, r.v, r.dt = u.data_ptr(), v.data_ptr(), float(ref.f32(dt))
+        r.u2 = o = out.data_ptr()
+        r.v2 = o + self._plane
+        VORTICITY.launch("fluid_vorticity_args", self._addr)
+
+
+# H3's counters (``utils.trace.counters``): calls on the card, through a
+# wrapper or a prepared launch, and the passes over device memory
+# (launches) they made
 DIFFUSE_STATS = {"diffuse_calls": 0, "diffuse_passes": 0}
 _STATS_LOCK = threading.Lock()
+
+
+def _count(stats: dict, calls: str, passes: str, npass: int) -> None:
+    with _STATS_LOCK:
+        stats[calls] += 1
+        stats[passes] += npass
 
 
 def _plan_for(fields, h: int, w: int, iters: int, planes: int,
@@ -500,9 +568,7 @@ def _launch_diffuse(kern: Kernel, fields, planes: int, plan: WavePlan, host, lx,
             lx, ly, float(ref.f32(radius)), int(splat),
             params.data_ptr() if params is not None else None,
             params.stride(0) if params is not None else 0, chans, stream_of(fields))
-    with _STATS_LOCK:
-        DIFFUSE_STATS["diffuse_calls"] += 1
-        DIFFUSE_STATS["diffuse_passes"] += npass
+    _count(DIFFUSE_STATS, "diffuse_calls", "diffuse_passes", npass)
     return out
 
 
@@ -588,8 +654,65 @@ def diffuse_multi_splat(fields, dt, coeffs, iters: int, amps, last, radius):
     return _diffuse(fields, dt, coeffs, iters, splat=(amps, last, radius))
 
 
-# H4's counters (``utils.trace.counters``): wrapper calls on the card, and
-# the passes over device memory (launches) they made
+class DiffuseSplatLaunch:
+    """:func:`diffuse_multi_splat` prepared for one input ``fields`` (C, H, W)
+    on the card, which it reads at every call (the single step's pack,
+    ``models/pipelines.py``), and one stream, ``iters`` and ``coeffs``: the
+    plan, its int arrays, the scratch plane set and the record of the C
+    call made once, and alpha and 1/beta again only when dt changes, so a
+    call sets the output's address, the splat's amplitudes and centre and
+    makes one C call, the same launches with the same arguments as the
+    wrapper's, counted in :data:`DIFFUSE_STATS` as its calls are."""
+
+    def __init__(self, fields, stream: int, iters: int, coeffs, radius):
+        if fields.dim() != 3 or not 1 <= fields.shape[0] <= MAX_CHANNELS:
+            raise ValueError(f"fields: expected (C<={MAX_CHANNELS}, H, W), "
+                             f"got {tuple(fields.shape)}")
+        c, h, w = fields.shape
+        check_f32("fields", fields, (c, h, w))
+        if iters < 0:
+            raise ValueError("iters must be >= 0")
+        plan = _plan_for(fields, h, w, iters, c, None)
+        self._ints, ptrs = _plan_ints(plan)
+        self.passes = len(plan.depths)
+        self.fields = fields
+        self.scratch = torch.empty_like(fields) if self.passes >= 2 else None
+        self._coeffs = coeffs
+        self._dt = None  # the bytes of the dt that alpha and 1/beta hold
+        # alpha, 1/beta and the amplitudes, the C entry's host arrays
+        self._host = np.zeros((3, c), np.float32)
+        self._rec = DiffuseArgs(
+            in_=fields.data_ptr(), scratch=self.scratch.data_ptr() if self.scratch is not None
+            else None, n=c, h=h, w=w, cells=plan.cells, depths=ptrs[0], strips=ptrs[1],
+            chunks=ptrs[2], npasses=self.passes, alpha=self._host[0].ctypes.data,
+            inv_beta=self._host[1].ctypes.data, amp=self._host[2].ctypes.data,
+            radius=float(ref.f32(radius)), splat=1, chans=c, stream=stream)
+        self._addr = ctypes.addressof(self._rec)
+        DIFFUSE.lib()  # loaded now, not in a step
+
+    def __call__(self, out, dt, amps, last) -> None:
+        """H3 with the splat tail on the launch's fields into ``out``
+        (C, H, W), contiguous on the card and apart from them: ``amps`` (C,),
+        ``last`` the splat's centre."""
+        key = ref.f32(dt).tobytes()
+        if key != self._dt:
+            self._host[0], self._host[1] = ref.diffusion_alphas(dt, self._coeffs)
+            self._dt = key
+        self._host[2] = amps
+        last = ref.f32_vec(last)
+        r = self._rec
+        r.out, r.lx, r.ly = out.data_ptr(), float(last[0]), float(last[1])
+        DIFFUSE.launch("fluid_diffuse_args", self._addr)
+        _count(DIFFUSE_STATS, "diffuse_calls", "diffuse_passes", self.passes)
+
+
+# the single step's prepared launch of this op (``models/pipelines.py``)
+diffuse_multi_splat.prepare = DiffuseSplatLaunch
+
+
+# H4's counters (``utils.trace.counters``): calls on the card, through a
+# wrapper or a prepared launch, and the passes over device memory
+# (launches) they made
 PRESSURE_STATS = {"pressure_calls": 0, "pressure_passes": 0}
 
 
@@ -625,9 +748,7 @@ def _launch_pressure(kern: Kernel, u, v, n: Optional[int], iters: int, half: boo
             scratch.data_ptr() if scratch is not None else None,
             stats.data_ptr(), h, w, plan.cells, *ptrs, npass, int(bool(half)), n or 1,
             *ms, stream_of(u))
-    with _STATS_LOCK:
-        PRESSURE_STATS["pressure_calls"] += 1
-        PRESSURE_STATS["pressure_passes"] += npass
+    _count(PRESSURE_STATS, "pressure_calls", "pressure_passes", npass)
     return uv2[0], uv2[1], p, stats
 
 
@@ -648,6 +769,49 @@ def pressure_project(u, v, iters: int, half: bool, *,
         return ref.pressure_project(u, v, iters, half, return_stats=return_stats)
     out = _pressure_project(u, v, iters, half)
     return out if return_stats else out[:3]
+
+
+class PressureLaunch:
+    """:func:`pressure_project` prepared for one (device, stream, H, W),
+    ``iters`` and ``half``: the plan, its int arrays, the div and scratch
+    planes and the record of the C call made once, so a call sets the
+    planes' addresses and makes one C call, the same launches with the same
+    arguments as the wrapper's, counted in :data:`PRESSURE_STATS` as its
+    calls are.  The plan is the wrapper's for 16-byte aligned inputs, as
+    the step's fresh planes are (the C entry refuses others where the plan
+    takes 16-byte rows)."""
+
+    def __init__(self, device: torch.device, stream: int, h: int, w: int, iters: int,
+                 half: bool):
+        plan = plan_pressure(h, w, iters, 1, aligned=True)
+        self._ints, ptrs = _plan_ints(plan)
+        self.passes = len(plan.depths)
+        # div and scratch, as the wrapper's
+        self.work = (torch.empty((2, h, w), dtype=torch.float32, device=device)
+                     if self.passes >= 2 else None)
+        self._plane = 4 * h * w
+        self._rec = PressureArgs(
+            div=self.work[0].data_ptr() if self.work is not None else None,
+            scratch=self.work[1].data_ptr() if self.work is not None else None, h=h, w=w,
+            cells=plan.cells, depths=ptrs[0], strips=ptrs[1], chunks=ptrs[2],
+            npasses=self.passes, half=int(bool(half)), nb=1, stream=stream)
+        self._addr = ctypes.addressof(self._rec)
+        PRESSURE.lib()  # loaded now, not in a step
+
+    def __call__(self, u, v, out) -> None:
+        """H4 on u, v (H, W), contiguous on the launch's device, into
+        ``out``, 3 H W + 2 contiguous floats apart from them: u', v', p and
+        [max|u'|, max|v'|] one after another."""
+        r, plane = self._rec, self._plane
+        r.u, r.v = u.data_ptr(), v.data_ptr()
+        r.u2 = o = out.data_ptr()
+        r.v2, r.p, r.stats = o + plane, o + 2 * plane, o + 3 * plane
+        PRESSURE.launch("fluid_pressure_project_args", self._addr)
+        _count(PRESSURE_STATS, "pressure_calls", "pressure_passes", self.passes)
+
+
+# the single step's prepared launch of this op (``models/pipelines.py``)
+pressure_project.prepare = PressureLaunch
 
 
 def pressure_solve(div, iters: int, init=None):

@@ -21,10 +21,12 @@ records shapes (``record_shapes=True``).
 
 ``counters()`` reads the seconds and counts of building and loading the
 hand-written kernels' libraries (``ops._build.BUILD_STATS``), which a
-library adds to once per process, and H3's and H4's calls on the card and
-the passes over device memory they made (``ops.jacobi_cuda.DIFFUSE_STATS``,
-``PRESSURE_STATS``), which their wrappers add to at each call: plain
-counters, always on.
+library adds to once per process, H3's and H4's calls on the card and the
+passes over device memory they made (``ops.jacobi_cuda.DIFFUSE_STATS``,
+``PRESSURE_STATS``), which their wrappers and prepared launches add to at
+each call, and the single steps on the card and their stages that took a
+prepared launch (``models.pipelines.STEP_STATS``): plain counters, always
+on.
 """
 
 from __future__ import annotations
@@ -61,7 +63,13 @@ def counters() -> dict:
     """A snapshot, all in this process: ``build_s`` (seconds spent hashing
     sources, compiling and loading libraries), ``builds`` (libraries
     compiled), ``loads`` (libraries loaded), ``diffuse_calls`` and
-    ``pressure_calls`` (H3's and H4's wrapper calls on the card, single and
-    batched) and ``diffuse_passes`` and ``pressure_passes`` (the launches of
-    a pass over device memory those calls made)."""
-    return {**_build.BUILD_STATS, **jacobi_cuda.DIFFUSE_STATS, **jacobi_cuda.PRESSURE_STATS}
+    ``pressure_calls`` (H3's and H4's calls on the card, single and batched,
+    through a wrapper or a prepared launch), ``diffuse_passes`` and
+    ``pressure_passes`` (the launches of a pass over device memory those
+    calls made), ``step_calls`` (single steps whose state lies on the
+    current card) and ``planned_stages`` (the stage calls of those steps
+    made through a prepared launch)."""
+    from cudafluidsimulation_tpu_torch.models import pipelines  # it imports this module
+
+    return {**_build.BUILD_STATS, **jacobi_cuda.DIFFUSE_STATS, **jacobi_cuda.PRESSURE_STATS,
+            **pipelines.STEP_STATS}

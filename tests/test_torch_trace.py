@@ -237,16 +237,18 @@ def test_three_frames_give_three_frame_spans_with_their_phases(pipelined, with_s
 
 
 def test_counters_are_the_build_counters_alone():
-    # the build counters, H3's two and H4's two
+    # the build counters, H3's two, H4's two and the single step's two
     c = trace.counters()
     assert set(c) == {"build_s", "builds", "loads", "diffuse_calls", "diffuse_passes",
-                      "pressure_calls", "pressure_passes"}
+                      "pressure_calls", "pressure_passes", "step_calls", "planned_stages"}
     c["builds"] += 1  # a snapshot, not the counters themselves
     c["diffuse_passes"] += 1
     c["pressure_passes"] += 1
+    c["planned_stages"] += 1
     assert trace.counters()["builds"] == c["builds"] - 1
     assert trace.counters()["diffuse_passes"] == c["diffuse_passes"] - 1
     assert trace.counters()["pressure_passes"] == c["pressure_passes"] - 1
+    assert trace.counters()["planned_stages"] == c["planned_stages"] - 1
 
 
 class _FakeCDLL:
