@@ -32,6 +32,17 @@ Residual-targeted stopping (``tol > 0``) needs the residual's value on the
 host: :func:`probed_tol_loop` reads ``mean(res**2)`` once per loop test, so
 a step that completes k cycles waits on the device k + 1 times.
 
+Tracing (``utils/trace.py``): each completed cycle runs inside a
+``fluid.mg.cycle`` span (ident: the cycle's number within the solve, from
+1), the work from the end of one fine pre-smooth to the end of the next
+(the coarse correction, the fine post-smooth and the next pre-smooth with
+its residual; on the fixed-count path the last one ends in the
+projection); each stopping read inside a ``fluid.mg.stopping_read`` span.
+:data:`MG_STATS` counts ``mg_solves`` (solves: one a call of a solve entry,
+single or batched; the plain batched op solves each member apart, and a
+sharded step's shards count theirs), ``mg_cycles`` (their completed
+V-cycles) and ``mg_reads`` (their stopping reads, k + 1 for k cycles).
+
 Ensembles (B independent members, ``models/ensemble.py``):
 :func:`pressure_project_mg_batched` is :func:`pressure_project_mg` over a
 namespace of batched ends (:data:`PLAIN_BATCHED`, the plain ends of each
@@ -47,6 +58,7 @@ cycles.
 
 from __future__ import annotations
 
+import threading
 import types
 
 import numpy as np
@@ -58,6 +70,18 @@ from cudafluidsimulation_tpu_torch.ops.stencil import neighbors
 from cudafluidsimulation_tpu_torch.utils.trace import span
 
 OMEGA = 0.8  # damped-Jacobi smoothing weight
+
+MG_STATS = {"mg_solves": 0, "mg_cycles": 0, "mg_reads": 0}
+_STATS_LOCK = threading.Lock()
+
+
+def _count(cycles: int, reads: int = 0) -> None:
+    """One solve of ``cycles`` completed V-cycles and ``reads`` stopping
+    reads, in :data:`MG_STATS`."""
+    with _STATS_LOCK:
+        MG_STATS["mg_solves"] += 1
+        MG_STATS["mg_cycles"] += cycles
+        MG_STATS["mg_reads"] += reads
 
 
 # ---------------------------------------------------------------------------
@@ -365,7 +389,8 @@ def probed_tol_loop(probe, finish, res_mean_fn, p0, first, tol, max_cycles):
     probed iterate when converged, else the last completed cycle's, so a
     capped run equals the fixed-count run.  Each loop test reads the
     residual's mean on the host, one copy (a ``fluid.mg.stopping_read``
-    span).
+    span); each iteration is a ``fluid.mg.cycle`` span, and the solve is
+    counted in :data:`MG_STATS`.
 
     ``res_mean_fn`` gives a 0-d tensor for one plane, or (B,) for B
     members (iterates (B, H, W)), which the loop treats as a vmapped
@@ -382,20 +407,22 @@ def probed_tol_loop(probe, finish, res_mean_fn, p0, first, tol, max_cycles):
         rsq = rsq_dev.cpu().numpy()
     i = 0
     while i < max_cycles and (rsq >= tol2).any():
-        pf_next = finish(p1, r1)
-        p_next, r1 = probe(pf_next)  # a stopped member's residual is never read
-        rsq_next = res_mean_fn(r1)
-        if (rsq >= tol2).all():
-            pf, p1, rsq_dev = pf_next, p_next, rsq_next
-        else:
-            active = rsq_dev >= tol2
-            m = active[:, None, None]
-            pf = pf_next if pf is None else torch.where(m, pf_next, pf)
-            p1 = torch.where(m, p_next, p1)
-            rsq_dev = torch.where(active, rsq_next, rsq_dev)
+        with span("fluid.mg.cycle", i + 1):
+            pf_next = finish(p1, r1)
+            p_next, r1 = probe(pf_next)  # a stopped member's residual is never read
+            rsq_next = res_mean_fn(r1)
+            if (rsq >= tol2).all():
+                pf, p1, rsq_dev = pf_next, p_next, rsq_next
+            else:
+                active = rsq_dev >= tol2
+                m = active[:, None, None]
+                pf = pf_next if pf is None else torch.where(m, pf_next, pf)
+                p1 = torch.where(m, p_next, p1)
+                rsq_dev = torch.where(active, rsq_next, rsq_dev)
         with span("fluid.mg.stopping_read"):
             rsq = rsq_dev.cpu().numpy()
         i += 1
+    _count(i, i + 1)
     done = rsq < tol2
     if done.all():
         return p1
@@ -410,8 +437,10 @@ def run_cycles(vcycle, probe_fn, finish_fn, res_mean_fn, p, rhs, level,
     residual drops below ``tol`` (at most ``max_cycles``), by
     :func:`probed_tol_loop`."""
     if tol <= 0:
-        for _ in range(cycles):
-            p = vcycle(p, rhs, level, nu1, nu2, coarse_sweeps)
+        for i in range(cycles):
+            with span("fluid.mg.cycle", i + 1):
+                p = vcycle(p, rhs, level, nu1, nu2, coarse_sweeps)
+        _count(cycles)
         return p
 
     def probe(q):
@@ -505,11 +534,16 @@ def pressure_project_mg(u, v, cycles: int = 2, nu1: int = 2, nu2: int = 2,
         return _coarse_solve(ends, rhs_c, lv - 1, nu1, nu2, coarse_sweeps)
 
     if tol <= 0:
-        for _ in range(cycles - 1):
-            p = ends.prolong_smooth(p, coarse(rhs_c), rhs, nu2, OMEGA)
-            p, rhs_c = ends.smooth_res_restrict(p, rhs, nu1, OMEGA)
-        return ends.prolong_smooth_project(p, coarse(rhs_c), rhs, u, v, nu2,
-                                           OMEGA, return_stats=return_stats)
+        for i in range(cycles - 1):
+            with span("fluid.mg.cycle", i + 1):
+                p = ends.prolong_smooth(p, coarse(rhs_c), rhs, nu2, OMEGA)
+                p, rhs_c = ends.smooth_res_restrict(p, rhs, nu1, OMEGA)
+        last = max(cycles, 1)  # the projection completes one cycle at least
+        with span("fluid.mg.cycle", last):
+            out = ends.prolong_smooth_project(p, coarse(rhs_c), rhs, u, v, nu2,
+                                              OMEGA, return_stats=return_stats)
+        _count(last)
+        return out
 
     # a probe's "residual" is (res, rhs_c): the test reads res, the cycle
     # it completes goes on from rhs_c

@@ -24,9 +24,10 @@ hand-written kernels' libraries (``ops._build.BUILD_STATS``), which a
 library adds to once per process, H3's and H4's calls on the card and the
 passes over device memory they made (``ops.jacobi_cuda.DIFFUSE_STATS``,
 ``PRESSURE_STATS``), which their wrappers and prepared launches add to at
-each call, and the single steps on the card and their stages that took a
-prepared launch (``models.pipelines.STEP_STATS``): plain counters, always
-on.
+each call, the single steps on the card and their stages that took a
+prepared launch (``models.pipelines.STEP_STATS``), and the multigrid solves,
+their V-cycles and their stopping reads (``ops.multigrid.MG_STATS``): plain
+counters, always on.
 """
 
 from __future__ import annotations
@@ -67,9 +68,14 @@ def counters() -> dict:
     through a wrapper or a prepared launch), ``diffuse_passes`` and
     ``pressure_passes`` (the launches of a pass over device memory those
     calls made), ``step_calls`` (single steps whose state lies on the
-    current card) and ``planned_stages`` (the stage calls of those steps
-    made through a prepared launch)."""
-    from cudafluidsimulation_tpu_torch.models import pipelines  # it imports this module
+    current card), ``planned_stages`` (the stage calls of those steps
+    made through a prepared launch), ``mg_solves`` (multigrid solves on any
+    device, one a call of a solve entry, single or batched), ``mg_cycles``
+    (their completed V-cycles) and ``mg_reads`` (their residual-targeted
+    stopping reads, k + 1 for a solve of k cycles)."""
+    # both import this module
+    from cudafluidsimulation_tpu_torch.models import pipelines
+    from cudafluidsimulation_tpu_torch.ops import multigrid
 
     return {**_build.BUILD_STATS, **jacobi_cuda.DIFFUSE_STATS, **jacobi_cuda.PRESSURE_STATS,
-            **pipelines.STEP_STATS}
+            **pipelines.STEP_STATS, **multigrid.MG_STATS}

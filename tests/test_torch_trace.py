@@ -237,10 +237,12 @@ def test_three_frames_give_three_frame_spans_with_their_phases(pipelined, with_s
 
 
 def test_counters_are_the_build_counters_alone():
-    # the build counters, H3's two, H4's two and the single step's two
+    # the build counters, H3's two, H4's two, the single step's two and
+    # multigrid's three
     c = trace.counters()
     assert set(c) == {"build_s", "builds", "loads", "diffuse_calls", "diffuse_passes",
-                      "pressure_calls", "pressure_passes", "step_calls", "planned_stages"}
+                      "pressure_calls", "pressure_passes", "step_calls", "planned_stages",
+                      "mg_solves", "mg_cycles", "mg_reads"}
     c["builds"] += 1  # a snapshot, not the counters themselves
     c["diffuse_passes"] += 1
     c["pressure_passes"] += 1
